@@ -1,0 +1,209 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (exastencils_tpu_torch) on one GPU.
+
+    python3 chip_smoke.py
+
+Builds the whole-leg CUDA kernels K1/K2 from csrc/, holds each against its
+plain PyTorch version on the card, drives the Poisson3D V(3,3)-cycle main
+path at 513^3 float32 (the size `python bench.py` times), and solves a
+small float64 problem on the GPU and on the CPU.  Every phase prints one
+line; any failure raises and exits non-zero.  The second-to-last line is
+the kernel table as JSON, the last line `{"ok": true, "device": ...}`.
+Exits non-zero without printing a result when no CUDA device is present.
+"""
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+TOL = {torch.float64: 1e-12, torch.float32: 1e-5}  # max|got-ref| / max|ref|
+# float32: the plain version restricts and prolongs with banded matmuls,
+# which sum the taps in another order and with FMA (~1 ulp per tap);
+# the RBGS and residual arithmetic itself is bitwise equal (--fmad=false).
+MAIN_LEVEL = 9  # 513^3 nodes, bench.py's Poisson3D size
+K_MAIN = 3  # V(3,3)
+
+
+def phase(tag, **fields):
+    print(f"[{tag}] " + " ".join(f"{k}={v}" for k, v in fields.items()), flush=True)
+
+
+def cuda_ms(fn, reps):
+    """Mean device time of fn() over `reps` runs, after one warm-up."""
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def leg_inputs(level, dtype, seed):
+    """Random fine/coarse fields on the card and the level's Laplacian."""
+    from exastencils_tpu_torch import Knowledge
+    from exastencils_tpu_torch.core.domain import unit_domain
+    from exastencils_tpu_torch.core.grid import level_grids
+    from exastencils_tpu_torch.models.poisson import laplace_stencil
+
+    k = Knowledge(dimensionality=3, minLevel=level, maxLevel=level).update()
+    grid = level_grids(unit_domain(3), k, "cuda", dtype=dtype)[level]
+    n = 2 ** level + 1
+    nc = 2 ** (level - 1) + 1
+    rng = np.random.default_rng(seed)
+
+    def field(m):
+        return torch.as_tensor(rng.standard_normal((m, m, m)), device="cuda").to(dtype)
+
+    return laplace_stencil(3).bind(grid), field(n), field(n), field(nc), (nc,) * 3
+
+
+def rel_err(got, ref):
+    d = (got - ref).abs().max().item()
+    return d, d / max(ref.abs().max().item(), 1e-300)
+
+
+def compare_legs(level, K, dtype, timed=False):
+    """Both wrappers against their plain versions on the same inputs."""
+    from exastencils_tpu_torch.core.stencil import node_prolongation, node_restriction
+    from exastencils_tpu_torch.ops.cuda import stream3d as s3
+    from exastencils_tpu_torch.ops.transfer import separable_kernels
+
+    A, sol, rhs, sol_c, cshape = leg_inputs(level, dtype, seed=level * 10 + K)
+    R, P = node_restriction(3), node_prolongation(3)
+    rk, pk = separable_kernels(R), separable_kernels(P)
+    omega = 0.8
+    s_ref, rc_ref = s3.smooth_res_restrict_plain(sol.clone(), rhs, A, omega, K, rk, R.lo, cshape)
+    s_got, rc_got = s3.smooth_res_restrict(sol.clone(), rhs, A, omega, K, rk, R.lo, cshape)
+    u_ref = s3.prolong_correct_smooth_plain(sol.clone(), sol_c, rhs, A, omega, K, pk, P.lo)
+    u_got = s3.prolong_correct_smooth(sol.clone(), sol_c, rhs, A, omega, K, pk, P.lo)
+    torch.cuda.synchronize()
+    e_s, e_rc, e_u = rel_err(s_got, s_ref), rel_err(rc_got, rc_ref), rel_err(u_got, u_ref)
+    k1_abs, k1_rel = max(e_s[0], e_rc[0]), max(e_s[1], e_rc[1])
+    tol = TOL[dtype]
+    phase("compare", level=level, K=K, dtype=str(dtype).split(".")[1],
+          k1_rel=f"{k1_rel:.3e}", k2_rel=f"{e_u[1]:.3e}", tol=tol,
+          k1_sol_bitwise=bool(torch.equal(s_got, s_ref)))
+    if not (k1_rel <= tol and e_u[1] <= tol):
+        raise AssertionError(f"kernel/plain mismatch at level {level} K {K} {dtype}")
+    out = {"K1": {"max_abs_err": k1_abs}, "K2": {"max_abs_err": e_u[0]}}
+    if timed:
+        s = sol.clone()
+        out["K1"]["ms"] = cuda_ms(lambda: s3.smooth_res_restrict(s, rhs, A, omega, K, rk, R.lo, cshape), 5)
+        out["K1"]["plain_ms"] = cuda_ms(lambda: s3.smooth_res_restrict_plain(s, rhs, A, omega, K, rk, R.lo, cshape), 3)
+        out["K2"]["ms"] = cuda_ms(lambda: s3.prolong_correct_smooth(s, sol_c, rhs, A, omega, K, pk, P.lo), 5)
+        out["K2"]["plain_ms"] = cuda_ms(lambda: s3.prolong_correct_smooth_plain(s, sol_c, rhs, A, omega, K, pk, P.lo), 3)
+        phase("leg_times", level=level, K=K, **{f"{k}_{f}": f"{v[f]:.4f}" for k, v in out.items()
+                                                 for f in ("ms", "plain_ms")})
+    return out
+
+
+def main_path(use_kernels):
+    """PoissonMGSolver at 513^3 float32 on the card, as bench.py builds it."""
+    from exastencils_tpu_torch import Knowledge
+    from exastencils_tpu_torch.models.poisson import PoissonMGSolver
+    from exastencils_tpu_torch.ops.cuda import stream3d as s3
+
+    k = Knowledge(dimensionality=3, minLevel=0, maxLevel=MAIN_LEVEL, useDblPrecision=False,
+                  tpu_compute_dtype="float32", tpu_use_pallas=use_kernels).update()
+    solver = PoissonMGSolver(k, device="cuda")
+    sol, rhs = solver.init_state()
+    r0 = float(solver._res_norm(sol, rhs))
+    s3.smooth_res_restrict.launches = s3.prolong_correct_smooth.launches = 0
+    s1 = solver._cycle(sol.clone(), rhs)  # the cycle updates its iterate in place
+    torch.cuda.synchronize()
+    launches = {"K1": s3.smooth_res_restrict.launches, "K2": s3.prolong_correct_smooth.launches}
+    r1 = float(solver._res_norm(s1, rhs))
+    if not (np.isfinite(r1) and tuple(s1.shape) == (2 ** MAIN_LEVEL + 1,) * 3):
+        raise AssertionError(f"bad cycle output: shape {tuple(s1.shape)}, residual {r1}")
+    if not r1 < 0.1 * r0:
+        raise AssertionError(f"V-cycle not converging: {r0} -> {r1}")
+    state = {"s": sol.clone()}
+
+    def step():
+        state["s"] = solver._cycle(state["s"], rhs)
+
+    ms = cuda_ms(step, 10 if use_kernels else 3)
+    glups = (2 ** MAIN_LEVEL + 1) ** 3 / (ms * 1e-3) / 1e9
+    phase("main_path", kernels=use_kernels, residual_drop=f"{r1 / r0:.4e}",
+          cycle_ms=f"{ms:.3f}", glups=f"{glups:.4f}", launches_per_cycle=launches)
+    return ms, launches, s1
+
+
+def solve_both():
+    """maxLevel 5 float64 solve on CUDA (kernels) and CPU (plain path)."""
+    from exastencils_tpu_torch import Knowledge
+    from exastencils_tpu_torch.models.poisson import PoissonMGSolver
+
+    out = {}
+    for dev in ("cuda", "cpu"):
+        k = Knowledge(dimensionality=3, minLevel=0, maxLevel=5).update()
+        _, lines, r0, r1, it = PoissonMGSolver(k, device=dev).solve(
+            max_its=100, target_res_reduction=1e-10)
+        if not r1 <= 1e-10 * r0:
+            raise AssertionError(f"{dev}: not converged to 1e-10 ({r0} -> {r1})")
+        out[dev] = (lines, it)
+    if out["cuda"] != out["cpu"]:
+        raise AssertionError(f"residual lines differ:\n{out['cuda']}\n{out['cpu']}")
+    phase("solve_l5_f64", cycles=out["cuda"][1], lines_identical=True,
+          last=out["cuda"][0][-1])
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; nothing run", file=sys.stderr)
+        return 1
+    from exastencils_tpu_torch.ops.cuda import stream3d as s3
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    name = torch.cuda.get_device_name(0)
+    phase("device", nvidia_smi=repr(smi), torch=torch.__version__, cuda=torch.version.cuda, name=repr(name))
+
+    t0 = time.perf_counter()
+    s3.load_library()
+    log = s3.library_path().with_suffix(".log")
+    regs = [ln.strip() for ln in log.read_text().splitlines() if "registers" in ln] if log.exists() else []
+    phase("build", seconds=f"{time.perf_counter() - t0:.2f}", ptxas=regs)
+
+    for level, K in ((4, 1), (5, 3)):
+        for dtype in (torch.float64, torch.float32):
+            compare_legs(level, K, dtype)
+    full = compare_legs(MAIN_LEVEL, K_MAIN, torch.float32, timed=True)
+
+    ms_k, launches, s_k = main_path(True)
+    expected = (MAIN_LEVEL - 1) * (2 * K_MAIN + 1)  # levels 2..9, 2K half-sweeps + 1 transfer
+    if launches != {"K1": expected, "K2": expected}:
+        raise AssertionError(f"launches per cycle {launches}, expected {expected} each")
+    ms_p, _, s_p = main_path(False)
+    d = rel_err(s_k, s_p)
+    phase("cycle_kernel_vs_plain", max_abs=f"{d[0]:.3e}", rel=f"{d[1]:.3e}",
+          speedup=f"{ms_p / ms_k:.2f}")
+    del s_k, s_p
+
+    solve_both()
+    if "jax" in sys.modules:
+        raise AssertionError("jax was imported")
+
+    replaces = {"K1": ("smooth_res_restrict", "exastencils_tpu/ops/pallas/stream3d_pair.py:177"),
+                "K2": ("prolong_correct_smooth", "exastencils_tpu/ops/pallas/stream3d_pair.py:328")}
+    kernels = [{"name": f"{kk} {fn}", "route": "cuda", "source": "exastencils_tpu_torch/csrc/stream3d.cu",
+                "replaces": rep, "launches": launches[kk], "max_abs_err": full[kk]["max_abs_err"],
+                "ms": full[kk]["ms"], "plain_ms": full[kk]["plain_ms"]}
+               for kk, (fn, rep) in replaces.items()]
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,314 @@
+// Whole-leg multigrid kernels for 3D radius-1 star stencils on Hopper (sm_90a).
+//
+// These replace the two Pallas TPU kernels of the Poisson3D V-cycle:
+//   K1 = exastencils_tpu/ops/pallas/stream3d_pair.py:_smooth_down_kernel_p2
+//        K RBGS iterations + residual + 2:1 restriction (the down leg)
+//   K2 = exastencils_tpu/ops/pallas/stream3d_pair.py:_up_smooth_kernel_p2
+//        prolongation + correction + K RBGS iterations (the up leg)
+// The Python wrappers (ops/cuda/stream3d.py) run K1 as 2K launches of
+// rbgs_half_sweep followed by residual_restrict, and K2 as prolong_correct
+// followed by 2K launches of rbgs_half_sweep.
+//
+// What the TPU kernels compute is kept exactly: global (z+y+x)%2 colour
+// parity, red before black, the update sol += (omega/c0) * (rhs - A sol)
+// with A's terms summed in the order centre, z-, z+, y-, y+, x-, x+
+// (exastencils_tpu/ops/stencil_apply.apply_stencil), Dirichlet ring and the
+// excl planes never written, residual zero on boundary and excl planes,
+// transfer taps outside the array dropped.  Built with --fmad=false, the
+// RBGS and residual arithmetic is bitwise that of the plain PyTorch path;
+// only the order of the transfer sums differs from its banded matmuls.
+//
+// What the TPU kernels' structure is NOT kept: they stream z-planes through
+// a ring of 2K+4 whole planes in ~100 MB of VMEM so that one leg is one
+// pass over device memory.  A 513^2 f32 plane is ~1 MB against 227 KB of
+// shared memory per block, so that window cannot be copied.  This first
+// version is one simple launch per half-sweep / transfer; the single-pass
+// z-streaming wavefront tiled in (y, x) is later work.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+// Transfer taps per dim.  The loops over them are unrolled to this bound so
+// that the weights are read from the parameter bank: a loop with a runtime
+// bound indexes the Taps struct dynamically, which copies it to local memory
+// in every thread (on an H100 the transfers then ran at 216-356 GB/s).
+constexpr int kMaxTaps = 3;
+constexpr int kBlock = 128;
+
+template <typename T>
+struct Star {
+  T c[7];  // centre, z-, z+, y-, y+, x-, x+
+};
+
+struct Excl {
+  int p[6];  // z lo, z hi, y lo, y hi, x lo, x hi; -1 = none
+};
+
+template <typename T>
+struct Taps {
+  T w[3][kMaxTaps];  // per dim (z, y, x)
+  int n[3];
+  int lo[3];
+};
+
+__device__ __forceinline__ bool updatable(int z, int y, int x, int nz, int ny,
+                                          int nx, const Excl& e) {
+  return z >= 1 && z <= nz - 2 && y >= 1 && y <= ny - 2 && x >= 1 &&
+         x <= nx - 2 && z != e.p[0] && z != e.p[1] && y != e.p[2] &&
+         y != e.p[3] && x != e.p[4] && x != e.p[5];
+}
+
+// A*u at inner point i, one rounding per operation in the reference order.
+template <typename T>
+__device__ __forceinline__ T star_apply(const T* u, int64_t i, int64_t sz,
+                                        int64_t sy, const Star<T>& s) {
+  T out = s.c[0] * u[i];
+  out = out + s.c[1] * u[i - sz];
+  out = out + s.c[2] * u[i + sz];
+  out = out + s.c[3] * u[i - sy];
+  out = out + s.c[4] * u[i + sy];
+  out = out + s.c[5] * u[i - 1];
+  out = out + s.c[6] * u[i + 1];
+  return out;
+}
+
+// rbgs_half_sweep: one colour of one damped red-black Gauss-Seidel
+// iteration, in place.  Shared by K1 and K2.
+// Bound: device-memory bytes.  Each launch reads sol (7 taps, reused
+// through L1/L2 so ~1 array) and rhs and writes half of sol: ~3 array
+// passes per half-sweep, 6K per leg, against 3 for the whole leg on the TPU
+// (0.80 ms = 2.0 TB/s at 513^3 f32 on an H100 whose triad reaches 3.0 TB/s).
+// Design: one thread per x-point, x fastest so warps read and write
+// coalesced rows; a colour reads only the other colour, so the in-place
+// update is race-free.  Half the threads of a row are idle (wrong colour).
+template <typename T>
+__global__ void rbgs_half_sweep(T* __restrict__ sol, const T* __restrict__ rhs,
+                                int nz, int ny, int nx, Star<T> s, T scale,
+                                int color, Excl e) {
+  const int x = blockIdx.x * blockDim.x + threadIdx.x;
+  const int y = blockIdx.y;
+  const int z = blockIdx.z;
+  if (x >= nx || ((z + y + x) & 1) != color || !updatable(z, y, x, nz, ny, nx, e))
+    return;
+  const int64_t sy = nx;
+  const int64_t sz = static_cast<int64_t>(ny) * nx;
+  const int64_t i = z * sz + y * sy + x;
+  const T corr = scale * (rhs[i] - star_apply(sol, i, sz, sy, s));
+  sol[i] = sol[i] + corr;
+}
+
+template <typename T>
+__device__ __forceinline__ T residual_at(const T* __restrict__ sol,
+                                         const T* __restrict__ rhs, int z, int y,
+                                         int x, int nz, int ny, int nx,
+                                         const Star<T>& s, const Excl& e) {
+  if (!updatable(z, y, x, nz, ny, nx, e)) return T(0);
+  const int64_t sy = nx;
+  const int64_t sz = static_cast<int64_t>(ny) * nx;
+  const int64_t i = z * sz + y * sy + x;
+  return rhs[i] - star_apply(sol, i, sz, sy, s);
+}
+
+// residual_restrict: the tail of K1.  out[cz,cy,cx] = sum of
+// wz*wy*wx * r(2c+lo+k) with r = rhs - A sol computed on the fly (zero on
+// boundary and excl planes); the residual is never stored.
+// Bound: meant to be device-memory bytes, reading sol and rhs once (~2
+// array passes; the 27/8 redundant residual evaluations per fine point hit
+// L1/L2), but the stride-2 loads and guarded taps keep it well below the
+// stream rate (698 GB/s at 513^3 f32 on an H100).
+// Design: one thread per coarse node, cx fastest; a direct stride-2
+// stencil replaces the TPU kernel's banded MXU matmuls (ops/transfer.py).
+// Sums run z innermost, then y, then x: the contraction order of the
+// plain path's apply_separable.
+template <typename T>
+__global__ void residual_restrict(const T* __restrict__ sol,
+                                  const T* __restrict__ rhs, T* __restrict__ out,
+                                  int nz, int ny, int nx, int nzc, int nyc,
+                                  int nxc, Star<T> s, Taps<T> t, Excl e) {
+  const int cx = blockIdx.x * blockDim.x + threadIdx.x;
+  const int cy = blockIdx.y;
+  const int cz = blockIdx.z;
+  if (cx >= nxc) return;
+  T acc_x = T(0);
+#pragma unroll
+  for (int kx = 0; kx < kMaxTaps; ++kx) {
+    const int x = 2 * cx + t.lo[2] + kx;
+    if (kx >= t.n[2] || x < 0 || x >= nx) continue;
+    T acc_y = T(0);
+#pragma unroll
+    for (int ky = 0; ky < kMaxTaps; ++ky) {
+      const int y = 2 * cy + t.lo[1] + ky;
+      if (ky >= t.n[1] || y < 0 || y >= ny) continue;
+      T acc_z = T(0);
+#pragma unroll
+      for (int kz = 0; kz < kMaxTaps; ++kz) {
+        const int z = 2 * cz + t.lo[0] + kz;
+        if (kz >= t.n[0] || z < 0 || z >= nz) continue;
+        acc_z = acc_z + t.w[0][kz] * residual_at(sol, rhs, z, y, x, nz, ny, nx, s, e);
+      }
+      acc_y = acc_y + t.w[1][ky] * acc_z;
+    }
+    acc_x = acc_x + t.w[2][kx] * acc_y;
+  }
+  out[(static_cast<int64_t>(cz) * nyc + cy) * nxc + cx] = acc_x;
+}
+
+// prolong_correct: the head of K2.  sol += P sol_c on inner, non-excl
+// nodes; each fine node sums its parity-matching coarse nodes (at most
+// two per dim for windows of up to 3 taps).
+// Bound: meant to be device-memory bytes (read and write sol once, read
+// sol_c, 1/8 of an array), but 27 guarded taps with parity arithmetic per
+// node make it instruction-bound (371 GB/s at 513^3 f32 on an H100).
+// Design: one thread per fine node, x fastest, coalesced.
+template <typename T>
+__global__ void prolong_correct(T* __restrict__ sol, const T* __restrict__ solc,
+                                int nz, int ny, int nx, int nzc, int nyc,
+                                int nxc, Taps<T> t, Excl e) {
+  const int x = blockIdx.x * blockDim.x + threadIdx.x;
+  const int y = blockIdx.y;
+  const int z = blockIdx.z;
+  if (x >= nx || !updatable(z, y, x, nz, ny, nx, e)) return;
+  T acc_x = T(0);
+#pragma unroll
+  for (int kx = 0; kx < kMaxTaps; ++kx) {
+    const int numx = x - t.lo[2] - kx;
+    const int cx = numx / 2;
+    if (kx >= t.n[2] || numx % 2 != 0 || cx < 0 || cx >= nxc) continue;
+    T acc_y = T(0);
+#pragma unroll
+    for (int ky = 0; ky < kMaxTaps; ++ky) {
+      const int numy = y - t.lo[1] - ky;
+      const int cy = numy / 2;
+      if (ky >= t.n[1] || numy % 2 != 0 || cy < 0 || cy >= nyc) continue;
+      T acc_z = T(0);
+#pragma unroll
+      for (int kz = 0; kz < kMaxTaps; ++kz) {
+        const int numz = z - t.lo[0] - kz;
+        const int cz = numz / 2;
+        if (kz >= t.n[0] || numz % 2 != 0 || cz < 0 || cz >= nzc) continue;
+        acc_z = acc_z + t.w[0][kz] * solc[(static_cast<int64_t>(cz) * nyc + cy) * nxc + cx];
+      }
+      acc_y = acc_y + t.w[1][ky] * acc_z;
+    }
+    acc_x = acc_x + t.w[2][kx] * acc_y;
+  }
+  const int64_t i = (static_cast<int64_t>(z) * ny + y) * nx + x;
+  sol[i] = sol[i] + acc_x;
+}
+
+template <typename T>
+Star<T> make_star(const double* coefs) {
+  Star<T> s;
+  for (int k = 0; k < 7; ++k) s.c[k] = static_cast<T>(coefs[k]);
+  return s;
+}
+
+template <typename T>
+Taps<T> make_taps(const double* w, const int* n, const int* lo) {
+  Taps<T> t;
+  for (int d = 0; d < 3; ++d) {
+    t.n[d] = n[d];
+    t.lo[d] = lo[d];
+    for (int k = 0; k < kMaxTaps; ++k) t.w[d][k] = static_cast<T>(w[d * kMaxTaps + k]);
+  }
+  return t;
+}
+
+Excl make_excl(const int* excl) {
+  Excl e;
+  for (int k = 0; k < 6; ++k) e.p[k] = excl[k];
+  return e;
+}
+
+dim3 grid_for(int nx, int ny, int nz) {
+  return dim3((nx + kBlock - 1) / kBlock, ny, nz);
+}
+
+template <typename T>
+void launch_rbgs(void* sol, const void* rhs, int nz, int ny, int nx,
+                 const double* coefs, double scale, int color, const int* excl,
+                 cudaStream_t stream) {
+  rbgs_half_sweep<T><<<grid_for(nx, ny, nz), kBlock, 0, stream>>>(
+      static_cast<T*>(sol), static_cast<const T*>(rhs), nz, ny, nx,
+      make_star<T>(coefs), static_cast<T>(scale), color, make_excl(excl));
+}
+
+template <typename T>
+void launch_residual_restrict(const void* sol, const void* rhs, void* out,
+                              int nz, int ny, int nx, int nzc, int nyc, int nxc,
+                              const double* coefs, const double* taps,
+                              const int* ntaps, const int* lo, const int* excl,
+                              cudaStream_t stream) {
+  residual_restrict<T><<<grid_for(nxc, nyc, nzc), kBlock, 0, stream>>>(
+      static_cast<const T*>(sol), static_cast<const T*>(rhs),
+      static_cast<T*>(out), nz, ny, nx, nzc, nyc, nxc, make_star<T>(coefs),
+      make_taps<T>(taps, ntaps, lo), make_excl(excl));
+}
+
+template <typename T>
+void launch_prolong_correct(void* sol, const void* solc, int nz, int ny, int nx,
+                            int nzc, int nyc, int nxc, const double* taps,
+                            const int* ntaps, const int* lo, const int* excl,
+                            cudaStream_t stream) {
+  prolong_correct<T><<<grid_for(nx, ny, nz), kBlock, 0, stream>>>(
+      static_cast<T*>(sol), static_cast<const T*>(solc), nz, ny, nx, nzc, nyc,
+      nxc, make_taps<T>(taps, ntaps, lo), make_excl(excl));
+}
+
+}  // namespace
+
+// Plain C interface for ctypes.  Pointers are device pointers except
+// coefs[7], taps[3*kMaxTaps], ntaps[3], lo[3] and excl[6], which are host
+// arrays copied into the launch parameters.  Each entry launches on
+// `stream` without synchronising and returns cudaGetLastError().
+extern "C" {
+
+int exa_max_taps() { return kMaxTaps; }
+
+const char* exa_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+int exa_rbgs_half_sweep(void* sol, const void* rhs, int nz, int ny, int nx,
+                        const double* coefs, double scale, int color,
+                        const int* excl, int is_double, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_double)
+    launch_rbgs<double>(sol, rhs, nz, ny, nx, coefs, scale, color, excl, s);
+  else
+    launch_rbgs<float>(sol, rhs, nz, ny, nx, coefs, scale, color, excl, s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int exa_residual_restrict(const void* sol, const void* rhs, void* out, int nz,
+                          int ny, int nx, int nzc, int nyc, int nxc,
+                          const double* coefs, const double* taps,
+                          const int* ntaps, const int* lo, const int* excl,
+                          int is_double, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_double)
+    launch_residual_restrict<double>(sol, rhs, out, nz, ny, nx, nzc, nyc, nxc,
+                                     coefs, taps, ntaps, lo, excl, s);
+  else
+    launch_residual_restrict<float>(sol, rhs, out, nz, ny, nx, nzc, nyc, nxc,
+                                    coefs, taps, ntaps, lo, excl, s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int exa_prolong_correct(void* sol, const void* solc, int nz, int ny, int nx,
+                        int nzc, int nyc, int nxc, const double* taps,
+                        const int* ntaps, const int* lo, const int* excl,
+                        int is_double, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_double)
+    launch_prolong_correct<double>(sol, solc, nz, ny, nx, nzc, nyc, nxc, taps,
+                                   ntaps, lo, excl, s);
+  else
+    launch_prolong_correct<float>(sol, solc, nz, ny, nx, nzc, nyc, nxc, taps,
+                                  ntaps, lo, excl, s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

@@ -1,0 +1,72 @@
+"""Hand-written CUDA kernels for Hopper: the contract and selection layer.
+
+Reference: exastencils_tpu/ops/pallas/__init__.py.  `make_fused_legs_3d`
+returns the whole-leg kernels K1/K2 for a dense 3D level when the
+configuration is inside their contract (two colours, Dirichlet bc,
+constant radius-1 star stencil, separable transfers of the default node
+or cell z-geometry, n_pre and n_post >= 1), else (None, None) and the
+cycle runs the plain ops.  The TPU VMEM budget (`_max_k`) has no meaning
+here and is not ported.
+"""
+
+from __future__ import annotations
+
+from exastencils_tpu_torch.core.field import DirichletBC, Field
+from exastencils_tpu_torch.ops.cuda.stream3d import (  # noqa: F401
+    MAX_TAPS,
+    _star_coefs,
+    cuda_applicable_3d,
+    prolong_correct_smooth,
+    smooth_res_restrict,
+)
+from exastencils_tpu_torch.ops.transfer import separable_kernels
+
+
+def _z_geometry_ok(lo_r: int, n_r: int, lo_p: int, n_p: int) -> bool:
+    """The default node (lo=-1, 3-tap) and cell (lo=0, 2-tap) restriction
+    z-geometries and prolongation windows of <= 3 taps: the contract of
+    the TPU kernels, kept so that one Knowledge selects the same kernel
+    mode in both packages."""
+    if (lo_r, n_r) not in ((-1, 3), (0, 2)):
+        return False
+    return n_p <= 3
+
+
+def make_fused_legs_3d(
+    A, field: Field, level: int, fine_shape, coarse_shape,
+    restrict_op, prolong_op, omega: float, n_pre: int, n_post: int,
+    num_colors: int,
+):
+    """Whole-leg kernels for the dense 3D path.  Returns
+    (down(sol, rhs) -> (sol, rhs_c), up(sol, sol_c, rhs) -> sol), both
+    updating `sol` in place, or (None, None) outside the contract."""
+    if num_colors != 2:
+        return None, None
+    if not isinstance(field.bc_at(level), DirichletBC):
+        return None, None
+    if not cuda_applicable_3d(tuple(fine_shape), A.offsets, A.coefs):
+        return None, None
+    if n_pre < 1 or n_post < 1:
+        return None, None
+    try:
+        r_kern = separable_kernels(restrict_op)
+        p_kern = separable_kernels(prolong_op)
+    except ValueError:
+        return None, None
+    if not _z_geometry_ok(int(restrict_op.lo[0]), len(r_kern[0]),
+                          int(prolong_op.lo[0]), len(p_kern[0])):
+        return None, None
+    if max(len(k) for k in r_kern + p_kern) > MAX_TAPS:
+        return None, None
+    coarse_shape = tuple(coarse_shape)
+    r_lo, p_lo = tuple(restrict_op.lo), tuple(prolong_op.lo)
+
+    def down(sol, rhs):
+        return smooth_res_restrict(sol, rhs, A, omega, n_pre, r_kern, r_lo,
+                                   coarse_shape)
+
+    def up(sol, sol_c, rhs):
+        return prolong_correct_smooth(sol, sol_c, rhs, A, omega, n_post,
+                                      p_kern, p_lo)
+
+    return down, up

@@ -1,0 +1,227 @@
+"""Solver synthesis: the L3 `generate solver for u in uEq` expansion.
+
+Reference: exastencils_tpu/solver/synthesis.py (`Equation`,
+`GeneratedSolver.init_state/solve`, the dense branch of
+`generate_solver`).  Kernel selection keeps the reference's conditions
+(:384-443) with `tpu_use_pallas` read as "use the hand-written kernels",
+so one Knowledge selects the same kernel mode in both packages.  Of the
+reference's kernels only the whole-leg pair K1/K2 is ported; where the
+reference would fall back to its fused smoother (K3) or fused transfers
+(K4/K5), this port runs the plain ops.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Dict, Optional, Union
+
+from exastencils_tpu.config import Knowledge
+from exastencils_tpu.utils.printing import reduced_prec_str
+
+from exastencils_tpu_torch.core.field import Field
+from exastencils_tpu_torch.core.grid import NODE
+from exastencils_tpu_torch.core.stencil import (
+    IntergridStencil,
+    Stencil,
+    node_prolongation,
+    node_restriction,
+)
+from exastencils_tpu_torch.device import real_dtype
+from exastencils_tpu_torch.ops.cuda import make_fused_legs_3d
+from exastencils_tpu_torch.ops.smoothers import make_smoother
+from exastencils_tpu_torch.ops.stencil_apply import apply_stencil
+from exastencils_tpu_torch.solver.krylov import cg
+from exastencils_tpu_torch.solver.mg import MGLevelOps, Multigrid
+
+_GS = ("RBGS", "GaussSeidel", "GS")
+
+
+@dataclass
+class Equation:
+    """A linear scalar discrete equation A u = f per level; `operator` is
+    a Stencil or a mapping level -> Stencil."""
+
+    unknown: Field
+    operator: Union[Stencil, Dict[int, Stencil]]
+    rhs_fn: Optional[Callable] = None  # f(x, y[, z]) at finest
+
+    def stencil_at(self, level: int) -> Stencil:
+        if isinstance(self.operator, dict):
+            return self.operator[level]
+        return self.operator
+
+
+@dataclass
+class GeneratedSolver:
+    """Output of generate_solver: a ready multigrid solver plus the solve
+    loop with the reference's reduced-precision printing."""
+
+    knowledge: Knowledge
+    equation: Equation
+    backend: object
+    mg: Multigrid
+    residual_field: Field
+    error_fn: Optional[Callable] = None  # exact solution for PrintError
+
+    def __post_init__(self):
+        b = self.backend
+        # the cycle updates the iterate in place where K1/K2 run (the
+        # reference donated it): clone an iterate before reusing it
+        self._cycle = b.wrap(self.mg.cycle, ("field", "field"), "field")
+        self._res_norm = b.wrap(self.mg.res_norm, ("field", "field"), "scalar")
+        if self.error_fn is not None:
+            self._err = b.wrap(self._max_error_local, ("field",), "scalar")
+
+    def _max_error_local(self, sol):
+        h = self.backend.handle(self.knowledge.maxLevel)
+        return h.norm_max(sol - self.error_fn(*h.coords()))
+
+    def init_state(self):
+        """(bc-applied zero solution, rhs) at the finest level."""
+        k = self.knowledge
+        lv = self.mg.levels[k.maxLevel]
+        h = self.backend.handle(k.maxLevel)
+        dtype = real_dtype(k)
+        return lv.bc_sol(h.zeros(dtype)), h.init_field_local(self.equation.rhs_fn, dtype)
+
+    def solve(self, out=None, max_its=None, target_res_reduction=None,
+              print_error=None, state=None):
+        """`repeat until curRes <= eps * initRes` loop with reduced-
+        precision printing.  `state` is an initial (sol, rhs), default
+        init_state(); sol is updated in place."""
+        k = self.knowledge
+        max_its = k.solver_maxNumIts if max_its is None else max_its
+        eps = k.solver_targetResReduction if target_res_reduction is None else target_res_reduction
+        if print_error is None:
+            print_error = self.error_fn is not None and (
+                not k.testing_enabled or k.testing_printErr
+            )
+
+        lines = []
+        emit = out if out is not None else lines.append
+        sol, rhs = self.init_state() if state is None else state
+
+        def fmt(x):
+            return reduced_prec_str(float(x), k.testing_maxPrecision, k.testing_zeroThreshold)
+
+        def callback(it, s, cur_res):
+            if not k.solver_printAllResiduals:
+                return
+            if print_error:
+                emit(fmt(self._err(s)))
+            emit(fmt(cur_res))
+
+        emit(fmt(self._res_norm(sol, rhs)))
+        sol, init_res, cur_res, it = self.mg.solve(sol, rhs, eps, max_its, callback)
+        return sol, lines, float(init_res), float(cur_res), it
+
+
+def generate_solver(
+    equation: Equation,
+    knowledge: Knowledge,
+    backend,
+    grids,
+    options: Dict = None,
+    residual_bc=0.0,
+    error_fn: Callable = None,
+    restrict_op: IntergridStencil = None,
+    prolong_op: IntergridStencil = None,
+) -> GeneratedSolver:
+    """Expand `generate solver for u in eq with {options}` on the dense
+    backend.  `options` are Knowledge keys without the `solver_` prefix
+    or full keys."""
+    k = knowledge
+    for key, val in (options or {}).items():
+        full = key if hasattr(k, key) else f"solver_{key}"
+        k.set(full, val)
+    k.update()
+    if backend.is_sharded:
+        raise NotImplementedError("the port has the dense backend only")
+    if k.mg_cycle != "V" or k.solver_useFAS or k.solver_useFMG:
+        raise NotImplementedError("the port runs V-cycles only (no W/F, FAS, FMG)")
+    if k.solver_cgs != "CG":
+        raise NotImplementedError(f"coarse solver {k.solver_cgs!r}: the port has CG only")
+
+    u = equation.unknown
+    nd = u.domain.ndim
+    if u.localization != NODE:
+        raise NotImplementedError("the port has node fields only")
+    restrict_op = restrict_op or node_restriction(nd)
+    prolong_op = prolong_op or node_prolongation(nd)
+
+    residual_field = Field("gen_residual", u.domain, u.localization, bc=residual_bc)
+
+    smoother_kind = k.solver_smoother
+    omega = k.solver_smoother_damping
+    coloring_kind = k.solver_smoother_coloring
+    if smoother_kind in _GS and not coloring_kind:
+        # lexicographic GS has no parallel order; red-black is the
+        # reference's documented stand-in
+        coloring_kind = "red-black"
+    num_colors = {"": 0, "red-black": 2}.get(coloring_kind)
+    if num_colors is None:
+        raise NotImplementedError(f"coloring {coloring_kind!r}: the port has red-black only")
+
+    levels: Dict[int, MGLevelOps] = {}
+    for lvl in range(k.minLevel, k.maxLevel + 1):
+        g = grids[lvl]
+        h = backend.handle(lvl)
+        A = equation.stencil_at(lvl).bind(g)
+        bc_sol = h.bc_applier(u, lvl)
+        bc_res = h.bc_applier(residual_field, lvl)
+        coloring = h.color_masks() if num_colors == 2 else None
+        smooth = make_smoother(A, bc_sol, omega=omega, coloring=coloring)
+        restrict_fn = prolong_fn = None
+        down_leg_fn = up_leg_fn = None
+        if lvl > k.minLevel:
+            restrict_fn, prolong_fn = backend.transfer_fns(lvl, restrict_op, prolong_op)
+            if k.tpu_use_pallas and nd == 3 and smoother_kind in _GS:
+                down_leg_fn, up_leg_fn = make_fused_legs_3d(
+                    A, u, lvl, h.work_shape, backend.handle(lvl - 1).work_shape,
+                    restrict_op, prolong_op, omega,
+                    k.solver_smoother_numPre, k.solver_smoother_numPost,
+                    num_colors,
+                )
+        levels[lvl] = MGLevelOps(
+            shape=h.work_shape,
+            A_apply=(lambda x, A=A: apply_stencil(A, x)),
+            smooth=smooth,
+            bc_sol=bc_sol,
+            bc_res=bc_res,
+            restrict_fn=restrict_fn,
+            prolong_fn=prolong_fn,
+            dot_fn=h.dot,
+            norm_fn=h.norm_l2,
+            down_leg_fn=down_leg_fn,
+            up_leg_fn=up_leg_fn,
+        )
+
+    lv0 = levels[k.minLevel]
+
+    def coarse_solve(sol, rhs):
+        return cg(
+            lv0.A_apply, sol, rhs,
+            bc_sol=lv0.bc_sol,
+            bc_res=lv0.bc_res,
+            max_its=k.solver_cgs_maxNumIts,
+            res_reduction=k.solver_cgs_targetResReduction,
+            dot_fn=lv0.dot_fn,
+            norm_fn=lv0.norm_fn,
+        ).sol
+
+    mg = Multigrid(
+        levels=levels,
+        min_level=k.minLevel,
+        max_level=k.maxLevel,
+        coarse_solve=coarse_solve,
+        n_pre=k.solver_smoother_numPre,
+        n_post=k.solver_smoother_numPost,
+    )
+    return GeneratedSolver(
+        knowledge=k,
+        equation=equation,
+        backend=backend,
+        mg=mg,
+        residual_field=residual_field,
+        error_fn=error_fn,
+    )

@@ -1,0 +1,79 @@
+"""The port's CUDA kernels K1/K2 against their plain PyTorch versions, on the
+GPU.  Skips where torch.cuda.is_available() is false (the kernels have no
+interpret mode).  This file imports no jax, so on a GPU machine without jax
+it runs on its own:
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -m cuda
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from exastencils_tpu_torch import Knowledge
+from exastencils_tpu_torch.core.domain import unit_domain
+from exastencils_tpu_torch.core.grid import level_grids
+from exastencils_tpu_torch.core.stencil import node_prolongation, node_restriction
+from exastencils_tpu_torch.models.poisson import PoissonMGSolver, laplace_stencil
+from exastencils_tpu_torch.ops.cuda import stream3d as s3
+from exastencils_tpu_torch.ops.transfer import separable_kernels
+
+pytestmark = pytest.mark.cuda
+OMEGA = 0.8
+# max|kernel - plain| / max|plain|; float32: the plain transfers are banded
+# matmuls that sum the taps in another order
+TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no interpret mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def laplacian(level, dtype, device):
+    k = Knowledge(dimensionality=3, minLevel=level, maxLevel=level).update()
+    return laplace_stencil(3).bind(level_grids(unit_domain(3), k, device, dtype=dtype)[level])
+
+
+@pytest.mark.parametrize("level,K", [(4, 1), (5, 3)])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_legs_match_plain(cuda, level, K, dtype):
+    rng = np.random.default_rng(level * 10 + K)
+    n, nc = 2 ** level + 1, 2 ** (level - 1) + 1
+    sol, rhs = (torch.from_numpy(rng.standard_normal((n,) * 3)).to(cuda, dtype) for _ in range(2))
+    sol_c = torch.from_numpy(rng.standard_normal((nc,) * 3)).to(cuda, dtype)
+    A = laplacian(level, dtype, cuda)
+    R, P = node_restriction(3), node_prolongation(3)
+    rk, pk = separable_kernels(R), separable_kernels(P)
+    n0 = (s3.smooth_res_restrict.launches, s3.prolong_correct_smooth.launches)
+    s_got, rc_got = s3.smooth_res_restrict(sol.clone(), rhs, A, OMEGA, K, rk, R.lo, (nc,) * 3)
+    u_got = s3.prolong_correct_smooth(sol.clone(), sol_c, rhs, A, OMEGA, K, pk, P.lo)
+    torch.cuda.synchronize()
+    assert (s3.smooth_res_restrict.launches - n0[0],
+            s3.prolong_correct_smooth.launches - n0[1]) == (2 * K + 1, 2 * K + 1)
+    s_ref, rc_ref = s3.smooth_res_restrict_plain(sol, rhs, A, OMEGA, K, rk, R.lo, (nc,) * 3)
+    u_ref = s3.prolong_correct_smooth_plain(sol, sol_c, rhs, A, OMEGA, K, pk, P.lo)
+    assert torch.equal(s_got, s_ref)  # --fmad=false: the RBGS is bitwise
+    for got, ref in ((rc_got, rc_ref), (u_got, u_ref)):
+        assert (got - ref).abs().max().item() <= TOL[dtype] * ref.abs().max().item()
+
+
+def test_wrapper_rejects_non_contiguous(cuda):
+    A = laplacian(3, torch.float64, cuda)
+    R = node_restriction(3)
+    t = torch.zeros((9, 9, 9), dtype=torch.float64, device=cuda).transpose(0, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        s3.smooth_res_restrict(t, t, A, OMEGA, 1, separable_kernels(R), R.lo, (5, 5, 5))
+
+
+def test_solve_on_cuda_prints_the_cpu_lines(cuda):
+    out = {}
+    for dev in ("cuda", "cpu"):
+        k = Knowledge(dimensionality=3, minLevel=0, maxLevel=4).update()
+        out[dev] = PoissonMGSolver(k, device=dev).solve(max_its=100, target_res_reduction=1e-10)
+    assert out["cuda"][1] == out["cpu"][1]
+    assert out["cuda"][4] == out["cpu"][4]
