@@ -3,13 +3,19 @@
 
     python3 chip_smoke.py
 
-Builds the whole-leg CUDA kernels K1/K2 from csrc/, holds each against its
-plain PyTorch version on the card, drives the Poisson3D V(3,3)-cycle main
-path at 513^3 float32 (the size `python bench.py` times), and solves a
-small float64 problem on the GPU and on the CPU.  Every phase prints one
-line; any failure raises and exits non-zero.  The second-to-last line is
-the kernel table as JSON, the last line `{"ok": true, "device": ...}`.
-Exits non-zero without printing a result when no CUDA device is present.
+Builds the CUDA kernels K1-K5 from csrc/, holds each against its plain
+PyTorch version on the card, drives three Poisson3D V(3,3)-cycle paths at
+513^3 float32 (the size `python bench.py` times), each with kernels and
+plain:
+  main_path    RBGS, the whole-leg kernels K1/K2;
+  jacobi_path  damped Jacobi, the fused transfers K4/K5;
+  fas_path     RBGS under FAS, the fused smoother K3;
+and solves small float64 problems (RBGS, Jacobi, FAS, RBGS V(0,2)) on the
+GPU and on the CPU, which must print the same lines.  Every phase prints
+one line; any failure raises and exits non-zero.  The third-to-last line
+is the kernel table as JSON, then the card's name and power limit, the
+last line `{"ok": true, "device": ...}`.  Exits non-zero without printing
+a result when no CUDA device is present.
 """
 
 import json
@@ -26,6 +32,15 @@ TOL = {torch.float64: 1e-12, torch.float32: 1e-5}  # max|got-ref| / max|ref|
 # the RBGS and residual arithmetic itself is bitwise equal (--fmad=false).
 MAIN_LEVEL = 9  # 513^3 nodes, bench.py's Poisson3D size
 K_MAIN = 3  # V(3,3)
+OMEGA = 0.8
+# kernel -> (wrapper in ops/cuda/stream3d.py, the TPU kernel it replaces)
+KERNELS = {
+    "K1": ("smooth_res_restrict", "exastencils_tpu/ops/pallas/stream3d_pair.py:177"),
+    "K2": ("prolong_correct_smooth", "exastencils_tpu/ops/pallas/stream3d_pair.py:328"),
+    "K3": ("rbgs_fused", "exastencils_tpu/ops/pallas/stream3d_pair.py:94"),
+    "K4": ("res_restrict", "exastencils_tpu/ops/pallas/stream3d.py:260"),
+    "K5": ("prolong_correct", "exastencils_tpu/ops/pallas/stream3d.py:380"),
+}
 
 
 def phase(tag, **fields):
@@ -77,7 +92,7 @@ def compare_legs(level, K, dtype, timed=False):
     A, sol, rhs, sol_c, cshape = leg_inputs(level, dtype, seed=level * 10 + K)
     R, P = node_restriction(3), node_prolongation(3)
     rk, pk = separable_kernels(R), separable_kernels(P)
-    omega = 0.8
+    omega = OMEGA
     s_ref, rc_ref = s3.smooth_res_restrict_plain(sol.clone(), rhs, A, omega, K, rk, R.lo, cshape)
     s_got, rc_got = s3.smooth_res_restrict(sol.clone(), rhs, A, omega, K, rk, R.lo, cshape)
     u_ref = s3.prolong_correct_smooth_plain(sol.clone(), sol_c, rhs, A, omega, K, pk, P.lo)
@@ -103,26 +118,79 @@ def compare_legs(level, K, dtype, timed=False):
     return out
 
 
-def main_path(use_kernels):
-    """PoissonMGSolver at 513^3 float32 on the card, as bench.py builds it."""
-    from exastencils_tpu_torch import Knowledge
-    from exastencils_tpu_torch.models.poisson import PoissonMGSolver
+def compare_fused(level, K, dtype, excl=None, timed=False):
+    """K3, K4 and K5 against their plain versions on the same inputs; K3
+    bitwise (--fmad=false)."""
+    from exastencils_tpu_torch.core.stencil import node_prolongation, node_restriction
+    from exastencils_tpu_torch.ops.cuda import stream3d as s3
+    from exastencils_tpu_torch.ops.transfer import separable_kernels
+
+    A, sol, rhs, sol_c, cshape = leg_inputs(level, dtype, seed=level * 10 + K + 1)
+    R, P = node_restriction(3), node_prolongation(3)
+    rk, pk = separable_kernels(R), separable_kernels(P)
+    excl = s3.NO_EXCL if excl is None else excl
+    s_ref = s3.rbgs_fused_plain(sol, rhs, A, OMEGA, K, excl)
+    s_got = s3.rbgs_fused(sol.clone(), rhs, A, OMEGA, K, excl)
+    rc_ref = s3.res_restrict_plain(sol, rhs, A, rk, R.lo, cshape)
+    rc_got = s3.res_restrict(sol, rhs, A, rk, R.lo, cshape)
+    u_ref = s3.prolong_correct_plain(sol, sol_c, pk, P.lo)
+    u_got = s3.prolong_correct(sol.clone(), sol_c, pk, P.lo)
+    torch.cuda.synchronize()
+    errs = {"K3": rel_err(s_got, s_ref), "K4": rel_err(rc_got, rc_ref), "K5": rel_err(u_got, u_ref)}
+    tol = TOL[dtype]
+    bitwise = bool(torch.equal(s_got, s_ref))
+    phase("compare_fused", level=level, K=K, dtype=str(dtype).split(".")[1], excl=excl,
+          **{f"{kk.lower()}_rel": f"{e[1]:.3e}" for kk, e in errs.items()}, tol=tol,
+          k3_bitwise=bitwise)
+    if not (bitwise and errs["K4"][1] <= tol and errs["K5"][1] <= tol):
+        raise AssertionError(f"kernel/plain mismatch at level {level} K {K} {dtype} excl {excl}")
+    out = {kk: {"max_abs_err": e[0]} for kk, e in errs.items()}
+    if timed:
+        s = sol.clone()
+        out["K3"]["ms"] = cuda_ms(lambda: s3.rbgs_fused(s, rhs, A, OMEGA, K), 5)
+        out["K3"]["plain_ms"] = cuda_ms(lambda: s3.rbgs_fused_plain(s, rhs, A, OMEGA, K), 3)
+        out["K4"]["ms"] = cuda_ms(lambda: s3.res_restrict(s, rhs, A, rk, R.lo, cshape), 10)
+        out["K4"]["plain_ms"] = cuda_ms(lambda: s3.res_restrict_plain(s, rhs, A, rk, R.lo, cshape), 5)
+        out["K5"]["ms"] = cuda_ms(lambda: s3.prolong_correct(s, sol_c, pk, P.lo), 10)
+        out["K5"]["plain_ms"] = cuda_ms(lambda: s3.prolong_correct_plain(s, sol_c, pk, P.lo), 5)
+        phase("fused_times", level=level, K=K, **{f"{k}_{f}": f"{v[f]:.4f}" for k, v in out.items()
+                                                   for f in ("ms", "plain_ms")})
+    return out
+
+
+def launch_counts(reset=False):
+    """The wrappers' launch counters by kernel, optionally set to 0."""
     from exastencils_tpu_torch.ops.cuda import stream3d as s3
 
+    if reset:
+        for fn, _ in KERNELS.values():
+            getattr(s3, fn).launches = 0
+    return {kk: getattr(s3, fn).launches for kk, (fn, _) in KERNELS.items()}
+
+
+def drive_path(tag, use_kernels, drop_bound, model_kw=None, **knowledge_kw):
+    """One PoissonMGSolver V(3,3) path at 513^3 float32 on the card, as
+    bench.py builds it: one checked cycle with the launch counters set to
+    0 just before it and read just after, then the timed cycles."""
+    from exastencils_tpu_torch import Knowledge
+    from exastencils_tpu_torch.models.poisson import PoissonMGSolver
+
     k = Knowledge(dimensionality=3, minLevel=0, maxLevel=MAIN_LEVEL, useDblPrecision=False,
-                  tpu_compute_dtype="float32", tpu_use_pallas=use_kernels).update()
-    solver = PoissonMGSolver(k, device="cuda")
+                  tpu_compute_dtype="float32", tpu_use_pallas=use_kernels,
+                  **knowledge_kw).update()
+    solver = PoissonMGSolver(k, device="cuda", omega=OMEGA, n_pre=K_MAIN, n_post=K_MAIN,
+                             **(model_kw or {}))
     sol, rhs = solver.init_state()
     r0 = float(solver._res_norm(sol, rhs))
-    s3.smooth_res_restrict.launches = s3.prolong_correct_smooth.launches = 0
+    launch_counts(reset=True)
     s1 = solver._cycle(sol.clone(), rhs)  # the cycle updates its iterate in place
     torch.cuda.synchronize()
-    launches = {"K1": s3.smooth_res_restrict.launches, "K2": s3.prolong_correct_smooth.launches}
+    launches = launch_counts()
     r1 = float(solver._res_norm(s1, rhs))
     if not (np.isfinite(r1) and tuple(s1.shape) == (2 ** MAIN_LEVEL + 1,) * 3):
-        raise AssertionError(f"bad cycle output: shape {tuple(s1.shape)}, residual {r1}")
-    if not r1 < 0.1 * r0:
-        raise AssertionError(f"V-cycle not converging: {r0} -> {r1}")
+        raise AssertionError(f"{tag}: bad cycle output: shape {tuple(s1.shape)}, residual {r1}")
+    if not r1 < drop_bound * r0:
+        raise AssertionError(f"{tag}: residual drop {r1 / r0} not below {drop_bound}")
     state = {"s": sol.clone()}
 
     def step():
@@ -130,27 +198,40 @@ def main_path(use_kernels):
 
     ms = cuda_ms(step, 10 if use_kernels else 3)
     glups = (2 ** MAIN_LEVEL + 1) ** 3 / (ms * 1e-3) / 1e9
-    phase("main_path", kernels=use_kernels, residual_drop=f"{r1 / r0:.4e}",
+    phase(tag, kernels=use_kernels, residual_drop=f"{r1 / r0:.4e}", bound=drop_bound,
           cycle_ms=f"{ms:.3f}", glups=f"{glups:.4f}", launches_per_cycle=launches)
     return ms, launches, s1
 
 
-def solve_both():
+def path_with_and_without_kernels(tag, expected, drop_bound, model_kw=None, **knowledge_kw):
+    """drive_path with kernels (launch counts must equal `expected`), then
+    plain; prints the difference of the two cycles' outputs."""
+    ms_k, launches, s_k = drive_path(tag, True, drop_bound, model_kw, **knowledge_kw)
+    if launches != expected:
+        raise AssertionError(f"{tag}: launches per cycle {launches}, expected {expected}")
+    ms_p, _, s_p = drive_path(tag, False, drop_bound, model_kw, **knowledge_kw)
+    d = rel_err(s_k, s_p)
+    phase(f"{tag}_kernel_vs_plain", max_abs=f"{d[0]:.3e}", rel=f"{d[1]:.3e}",
+          speedup=f"{ms_p / ms_k:.2f}")
+    return launches
+
+
+def solve_both(tag, model_kw=None, **knowledge_kw):
     """maxLevel 5 float64 solve on CUDA (kernels) and CPU (plain path)."""
     from exastencils_tpu_torch import Knowledge
     from exastencils_tpu_torch.models.poisson import PoissonMGSolver
 
     out = {}
     for dev in ("cuda", "cpu"):
-        k = Knowledge(dimensionality=3, minLevel=0, maxLevel=5).update()
-        _, lines, r0, r1, it = PoissonMGSolver(k, device=dev).solve(
+        k = Knowledge(dimensionality=3, minLevel=0, maxLevel=5, **knowledge_kw).update()
+        _, lines, r0, r1, it = PoissonMGSolver(k, device=dev, **(model_kw or {})).solve(
             max_its=100, target_res_reduction=1e-10)
         if not r1 <= 1e-10 * r0:
-            raise AssertionError(f"{dev}: not converged to 1e-10 ({r0} -> {r1})")
+            raise AssertionError(f"{tag} {dev}: not converged to 1e-10 ({r0} -> {r1})")
         out[dev] = (lines, it)
     if out["cuda"] != out["cpu"]:
-        raise AssertionError(f"residual lines differ:\n{out['cuda']}\n{out['cpu']}")
-    phase("solve_l5_f64", cycles=out["cuda"][1], lines_identical=True,
+        raise AssertionError(f"{tag}: residual lines differ:\n{out['cuda']}\n{out['cpu']}")
+    phase(f"solve_l5_f64_{tag}", cycles=out["cuda"][1], lines_identical=True,
           last=out["cuda"][0][-1])
 
 
@@ -176,28 +257,41 @@ def main():
     for level, K in ((4, 1), (5, 3)):
         for dtype in (torch.float64, torch.float32):
             compare_legs(level, K, dtype)
+    for level in (4, 5):
+        for K in (1, 3):
+            for dtype in (torch.float64, torch.float32):
+                compare_fused(level, K, dtype)
+    for dtype in (torch.float64, torch.float32):
+        compare_fused(5, 3, dtype, excl=(2, 30, -1, 5, 1, -1))
     full = compare_legs(MAIN_LEVEL, K_MAIN, torch.float32, timed=True)
+    full.update(compare_fused(MAIN_LEVEL, K_MAIN, torch.float32, timed=True))
 
-    ms_k, launches, s_k = main_path(True)
-    expected = (MAIN_LEVEL - 1) * (2 * K_MAIN + 1)  # levels 2..9, 2K half-sweeps + 1 transfer
-    if launches != {"K1": expected, "K2": expected}:
-        raise AssertionError(f"launches per cycle {launches}, expected {expected} each")
-    ms_p, _, s_p = main_path(False)
-    d = rel_err(s_k, s_p)
-    phase("cycle_kernel_vs_plain", max_abs=f"{d[0]:.3e}", rel=f"{d[1]:.3e}",
-          speedup=f"{ms_p / ms_k:.2f}")
-    del s_k, s_p
+    none = dict.fromkeys(KERNELS, 0)
+    per_leg = (MAIN_LEVEL - 1) * (2 * K_MAIN + 1)  # levels 2..9, 2K half-sweeps + 1 transfer
+    launches = {}
+    main = path_with_and_without_kernels("main_path", {**none, "K1": per_leg, "K2": per_leg}, 0.1)
+    launches.update(K1=main["K1"], K2=main["K2"])
+    transfers = MAIN_LEVEL - 1  # one K4 and one K5 per level 2..9
+    jac = path_with_and_without_kernels("jacobi_path", {**none, "K4": transfers, "K5": transfers},
+                                        0.4, model_kw={"smoother": "Jac"})
+    launches.update(K4=jac["K4"], K5=jac["K5"])
+    k3_calls = 2 * (MAIN_LEVEL - 1)  # pre- and post-smoothing on levels 2..9
+    fas = path_with_and_without_kernels("fas_path", {**none, "K3": k3_calls * 2 * K_MAIN}, 0.1,
+                                        solver_useFAS=True)
+    phase("fas_path_k3", calls_per_cycle=fas["K3"] // (2 * K_MAIN), half_sweeps=fas["K3"])
+    launches.update(K3=fas["K3"])
 
-    solve_both()
+    solve_both("rbgs")
+    solve_both("jacobi", model_kw={"smoother": "Jac"})
+    solve_both("fas", solver_useFAS=True)
+    solve_both("rbgs_v02", model_kw={"n_pre": 0, "n_post": 2})
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
 
-    replaces = {"K1": ("smooth_res_restrict", "exastencils_tpu/ops/pallas/stream3d_pair.py:177"),
-                "K2": ("prolong_correct_smooth", "exastencils_tpu/ops/pallas/stream3d_pair.py:328")}
     kernels = [{"name": f"{kk} {fn}", "route": "cuda", "source": "exastencils_tpu_torch/csrc/stream3d.cu",
                 "replaces": rep, "launches": launches[kk], "max_abs_err": full[kk]["max_abs_err"],
                 "ms": full[kk]["ms"], "plain_ms": full[kk]["plain_ms"]}
-               for kk, (fn, rep) in replaces.items()]
+               for kk, (fn, rep) in KERNELS.items()]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,13 +1,26 @@
-// Whole-leg multigrid kernels for 3D radius-1 star stencils on Hopper (sm_90a).
+// Multigrid streaming kernels for 3D radius-1 star stencils on Hopper (sm_90a).
 //
-// These replace the two Pallas TPU kernels of the Poisson3D V-cycle:
+// Three device kernels stand for five Pallas TPU kernels; each TPU kernel
+// has its own wrapper, launch count and plain version in
+// ops/cuda/stream3d.py:
 //   K1 = exastencils_tpu/ops/pallas/stream3d_pair.py:_smooth_down_kernel_p2
-//        K RBGS iterations + residual + 2:1 restriction (the down leg)
+//        K RBGS iterations + residual + 2:1 restriction (the down leg):
+//        2K x rbgs_half_sweep, then residual_restrict (smooth_res_restrict)
 //   K2 = exastencils_tpu/ops/pallas/stream3d_pair.py:_up_smooth_kernel_p2
-//        prolongation + correction + K RBGS iterations (the up leg)
-// The Python wrappers (ops/cuda/stream3d.py) run K1 as 2K launches of
-// rbgs_half_sweep followed by residual_restrict, and K2 as prolong_correct
-// followed by 2K launches of rbgs_half_sweep.
+//        prolongation + correction + K RBGS iterations (the up leg):
+//        prolong_correct, then 2K x rbgs_half_sweep (prolong_correct_smooth)
+//   K3 = exastencils_tpu/ops/pallas/stream3d_pair.py:_rbgs_kernel_p2
+//        K RBGS iterations (the fused smoother, FAS cycles and V(0,k)/V(k,0)):
+//        2K x rbgs_half_sweep (rbgs_fused)
+//   K4 = exastencils_tpu/ops/pallas/stream3d.py:_down_kernel
+//        residual + restriction (the down-leg tail where the legs decline,
+//        e.g. Jacobi): one residual_restrict with no excl planes
+//        (res_restrict)
+//   K5 = exastencils_tpu/ops/pallas/stream3d.py:_up_kernel
+//        prolongation + correction (the up-leg head): one prolong_correct
+//        with no excl planes (prolong_correct)
+// What bounds each device kernel and what its design does about it is
+// noted above the kernel.
 //
 // What the TPU kernels compute is kept exactly: global (z+y+x)%2 colour
 // parity, red before black, the update sol += (omega/c0) * (rhs - A sol)
@@ -18,12 +31,15 @@
 // RBGS and residual arithmetic is bitwise that of the plain PyTorch path;
 // only the order of the transfer sums differs from its banded matmuls.
 //
-// What the TPU kernels' structure is NOT kept: they stream z-planes through
-// a ring of 2K+4 whole planes in ~100 MB of VMEM so that one leg is one
-// pass over device memory.  A 513^2 f32 plane is ~1 MB against 227 KB of
-// shared memory per block, so that window cannot be copied.  This first
-// version is one simple launch per half-sweep / transfer; the single-pass
-// z-streaming wavefront tiled in (y, x) is later work.
+// What the TPU kernels' structure is NOT kept: K1-K3 stream z-planes
+// through a ring of 2K+3 or 2K+4 whole planes in ~100 MB of VMEM so that
+// K iterations (and a transfer) are one pass over device memory.  A 513^2
+// f32 plane is ~1 MB against 227 KB of shared memory per block, so that
+// window cannot be copied.  This version is one simple launch per
+// half-sweep / transfer; the single-pass z-streaming wavefront tiled in
+// (y, x) is later work.  K4/K5 were already one pass each on the TPU, and
+// are one launch each here; their y/x transfer is a direct stride-2
+// stencil where the TPU kernels used banded matrix products.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -75,7 +91,7 @@ __device__ __forceinline__ T star_apply(const T* u, int64_t i, int64_t sz,
 }
 
 // rbgs_half_sweep: one colour of one damped red-black Gauss-Seidel
-// iteration, in place.  Shared by K1 and K2.
+// iteration, in place.  Shared by K1, K2 and K3.
 // Bound: device-memory bytes.  Each launch reads sol (7 taps, reused
 // through L1/L2 so ~1 array) and rhs and writes half of sol: ~3 array
 // passes per half-sweep, 6K per leg, against 3 for the whole leg on the TPU
@@ -111,7 +127,7 @@ __device__ __forceinline__ T residual_at(const T* __restrict__ sol,
   return rhs[i] - star_apply(sol, i, sz, sy, s);
 }
 
-// residual_restrict: the tail of K1.  out[cz,cy,cx] = sum of
+// residual_restrict: the tail of K1, and K4.  out[cz,cy,cx] = sum of
 // wz*wy*wx * r(2c+lo+k) with r = rhs - A sol computed on the fly (zero on
 // boundary and excl planes); the residual is never stored.
 // Bound: meant to be device-memory bytes, reading sol and rhs once (~2
@@ -155,7 +171,7 @@ __global__ void residual_restrict(const T* __restrict__ sol,
   out[(static_cast<int64_t>(cz) * nyc + cy) * nxc + cx] = acc_x;
 }
 
-// prolong_correct: the head of K2.  sol += P sol_c on inner, non-excl
+// prolong_correct: the head of K2, and K5.  sol += P sol_c on inner, non-excl
 // nodes; each fine node sums its parity-matching coarse nodes (at most
 // two per dim for windows of up to 3 taps).
 // Bound: meant to be device-memory bytes (read and write sol once, read

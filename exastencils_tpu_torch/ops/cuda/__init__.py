@@ -1,12 +1,22 @@
 """Hand-written CUDA kernels for Hopper: the contract and selection layer.
 
-Reference: exastencils_tpu/ops/pallas/__init__.py.  `make_fused_legs_3d`
-returns the whole-leg kernels K1/K2 for a dense 3D level when the
-configuration is inside their contract (two colours, Dirichlet bc,
-constant radius-1 star stencil, separable transfers of the default node
-or cell z-geometry, n_pre and n_post >= 1), else (None, None) and the
-cycle runs the plain ops.  The TPU VMEM budget (`_max_k`) has no meaning
-here and is not ported.
+Reference: exastencils_tpu/ops/pallas/__init__.py (dense makers).  Each
+maker returns the kernels of a dense 3D level when the configuration is
+inside their contract, else None and the cycle runs the plain ops; the
+conditions are the TPU makers', so one Knowledge selects the same kernel
+mode in both packages:
+
+- `make_fused_smoother_3d`: K3 (two colours, no colour function,
+  Dirichlet bc, constant radius-1 star stencil, >= 5 z-planes);
+- `make_fused_transfers_3d`: K4/K5 (Dirichlet bc, star stencil, separable
+  transfers of the default node or cell z-geometry);
+- `make_fused_legs_3d`: K1/K2 (as K3 and K4/K5, and n_pre, n_post >= 1).
+
+The TPU VMEM budget (`_max_k`) has no meaning here and is not ported.  The
+CUDA transfers take at most MAX_TAPS taps per dim in y and x as well as
+in z, where the TPU kernels applied y/x as dense matrices of any width:
+a separable transfer wider than 3 taps in y or x only runs the plain ops
+here.
 """
 
 from __future__ import annotations
@@ -16,7 +26,10 @@ from exastencils_tpu_torch.ops.cuda.stream3d import (  # noqa: F401
     MAX_TAPS,
     _star_coefs,
     cuda_applicable_3d,
+    prolong_correct,
     prolong_correct_smooth,
+    rbgs_fused,
+    res_restrict,
     smooth_res_restrict,
 )
 from exastencils_tpu_torch.ops.transfer import separable_kernels
@@ -30,6 +43,64 @@ def _z_geometry_ok(lo_r: int, n_r: int, lo_p: int, n_p: int) -> bool:
     if (lo_r, n_r) not in ((-1, 3), (0, 2)):
         return False
     return n_p <= 3
+
+
+def _transfer_taps(restrict_op, prolong_op):
+    """(r_kern, p_kern) for the kernels, or None where the transfers are
+    not separable, leave the default z-geometries or exceed MAX_TAPS."""
+    try:
+        r_kern = separable_kernels(restrict_op)
+        p_kern = separable_kernels(prolong_op)
+    except ValueError:
+        return None
+    if not _z_geometry_ok(int(restrict_op.lo[0]), len(r_kern[0]),
+                          int(prolong_op.lo[0]), len(p_kern[0])):
+        return None
+    if max(len(k) for k in r_kern + p_kern) > MAX_TAPS:
+        return None
+    return r_kern, p_kern
+
+
+def make_fused_smoother_3d(A, field: Field, level: int, shape, omega: float,
+                           num_colors: int, color_fn=None):
+    """K3 for the dense 3D path: smooth_n(n, sol, rhs) -> sol, n RBGS
+    iterations in place on sol, or None outside the contract."""
+    if num_colors != 2 or color_fn is not None:
+        return None
+    if not isinstance(field.bc_at(level), DirichletBC):
+        return None
+    if not cuda_applicable_3d(tuple(shape), A.offsets, A.coefs):
+        return None
+
+    def smooth_n(n, sol, rhs):
+        return rbgs_fused(sol, rhs, A, omega, n)
+
+    return smooth_n
+
+
+def make_fused_transfers_3d(A, field: Field, level: int, fine_shape, coarse_shape,
+                            restrict_op, prolong_op):
+    """K4/K5 for the dense 3D path: (res_restrict(sol, rhs) -> rhs_c,
+    prolong_correct(sol, sol_c) -> sol, in place), or (None, None)
+    outside the contract."""
+    if not isinstance(field.bc_at(level), DirichletBC):
+        return None, None
+    if not cuda_applicable_3d(tuple(fine_shape), A.offsets, A.coefs):
+        return None, None
+    taps = _transfer_taps(restrict_op, prolong_op)
+    if taps is None:
+        return None, None
+    r_kern, p_kern = taps
+    coarse_shape = tuple(coarse_shape)
+    r_lo, p_lo = tuple(restrict_op.lo), tuple(prolong_op.lo)
+
+    def down(sol, rhs):
+        return res_restrict(sol, rhs, A, r_kern, r_lo, coarse_shape)
+
+    def up(sol, sol_c):
+        return prolong_correct(sol, sol_c, p_kern, p_lo)
+
+    return down, up
 
 
 def make_fused_legs_3d(
@@ -48,16 +119,10 @@ def make_fused_legs_3d(
         return None, None
     if n_pre < 1 or n_post < 1:
         return None, None
-    try:
-        r_kern = separable_kernels(restrict_op)
-        p_kern = separable_kernels(prolong_op)
-    except ValueError:
+    taps = _transfer_taps(restrict_op, prolong_op)
+    if taps is None:
         return None, None
-    if not _z_geometry_ok(int(restrict_op.lo[0]), len(r_kern[0]),
-                          int(prolong_op.lo[0]), len(p_kern[0])):
-        return None, None
-    if max(len(k) for k in r_kern + p_kern) > MAX_TAPS:
-        return None, None
+    r_kern, p_kern = taps
     coarse_shape = tuple(coarse_shape)
     r_lo, p_lo = tuple(restrict_op.lo), tuple(prolong_op.lo)
 

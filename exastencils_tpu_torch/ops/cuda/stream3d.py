@@ -1,18 +1,25 @@
-"""Whole-leg kernels K1 (down leg) and K2 (up leg): wrappers, plain
-PyTorch versions and the CUDA library loader.
+"""The 3D streaming kernels K1-K5: wrappers, plain PyTorch versions and
+the CUDA library loader.
 
-Reference: exastencils_tpu/ops/pallas/stream3d.py
-(`smooth_res_restrict_fused_3d` :603, `prolong_correct_smooth_fused_3d`
+Reference: exastencils_tpu/ops/pallas/stream3d.py (`rbgs_fused_3d` :192,
+`res_restrict_fused_3d` :365, `prolong_correct_fused_3d` :454,
+`smooth_res_restrict_fused_3d` :603, `prolong_correct_smooth_fused_3d`
 :746, `_star_coefs`, `pallas_applicable_3d`) and
-exastencils_tpu/ops/pallas/stream3d_pair.py (the kernels
-`_smooth_down_kernel_p2` :177 and `_up_smooth_kernel_p2` :328).
+exastencils_tpu/ops/pallas/stream3d_pair.py (the kernels behind them).
+
+    K1 smooth_res_restrict     K RBGS iterations + residual + restriction
+    K2 prolong_correct_smooth  prolongation + correction + K RBGS iterations
+    K3 rbgs_fused              K RBGS iterations
+    K4 res_restrict            residual + restriction
+    K5 prolong_correct         prolongation + correction
 
 The kernels are CUDA C++ for sm_90a in ../../csrc/stream3d.cu, compiled
 with nvcc on first use into build/exastencils_tpu_torch/ at the repository
 root and loaded with ctypes.  A wrapper given CUDA tensors launches the
 kernels (or raises); given CPU tensors it runs the plain version; any
-other device raises.  Both paths update `sol` in place and return it,
-where the JAX version relied on the donated iterate.
+other device raises.  Each wrapper counts the kernel launches it makes in
+its own `.launches`.  Wrappers that update `sol` do so in place and return
+it, where the JAX version relied on the donated iterate.
 """
 
 from __future__ import annotations
@@ -139,7 +146,7 @@ def load_library() -> ctypes.CDLL:
 
 
 # ----------------------------------------------------------------------
-# argument marshalling
+# argument marshalling and launches
 # ----------------------------------------------------------------------
 
 
@@ -163,6 +170,13 @@ def _check_cuda_fields(sol: torch.Tensor, *others: torch.Tensor):
             raise ValueError("kernels take contiguous 3D tensors")
         if max(t.shape[:2]) > 65535:
             raise ValueError(f"shape {tuple(t.shape)}: z and y must be <= 65535 (grid dims)")
+
+
+def _check_shapes(sol, rhs, coarse_shape=None):
+    if tuple(rhs.shape) != tuple(sol.shape):
+        raise ValueError("rhs must match sol")
+    if coarse_shape is not None and len(coarse_shape) != 3:
+        raise ValueError("coarse_shape must be 3D")
 
 
 def _star_array(A: BoundStencil):
@@ -197,15 +211,50 @@ def _check(lib, err: int, name: str):
         raise RuntimeError(f"{name}: CUDA error {err} ({lib.exa_error_string(err).decode()})")
 
 
-def _half_sweeps(lib, sol, rhs, coefs, scale, K, excl_c, is_double, stream, counted):
+def _is_double(t: torch.Tensor) -> int:
+    return int(t.dtype == torch.float64)
+
+
+def _stream():
+    return torch.cuda.current_stream().cuda_stream
+
+
+def _half_sweeps(lib, sol, rhs, A, omega, K, excl_c, counted):
+    """2K rbgs_half_sweep launches, red first, in place on sol."""
+    c0, coefs = _star_array(A)
     nz, ny, nx = sol.shape
     for _ in range(K):
         for color in (0, 1):
             err = lib.exa_rbgs_half_sweep(
-                sol.data_ptr(), rhs.data_ptr(), nz, ny, nx, coefs, scale,
-                color, excl_c, is_double, stream)
+                sol.data_ptr(), rhs.data_ptr(), nz, ny, nx, coefs, omega / c0,
+                color, excl_c, _is_double(sol), _stream())
             _check(lib, err, "rbgs_half_sweep")
             counted.launches += 1
+
+
+def _residual_restrict(lib, sol, rhs, A, r_kernels, r_lo, coarse_shape, excl_c):
+    """One residual_restrict launch; returns the new coarse tensor."""
+    _, coefs = _star_array(A)
+    taps, ntaps, lo = _taps_arrays(r_kernels, r_lo)
+    nz, ny, nx = sol.shape
+    nzc, nyc, nxc = (int(n) for n in coarse_shape)
+    out = torch.empty((nzc, nyc, nxc), dtype=sol.dtype, device=sol.device)
+    err = lib.exa_residual_restrict(
+        sol.data_ptr(), rhs.data_ptr(), out.data_ptr(), nz, ny, nx,
+        nzc, nyc, nxc, coefs, taps, ntaps, lo, excl_c, _is_double(sol), _stream())
+    _check(lib, err, "residual_restrict")
+    return out
+
+
+def _prolong_correct(lib, sol, sol_c, p_kernels, p_lo, excl_c):
+    """One prolong_correct launch, in place on sol."""
+    taps, ntaps, lo = _taps_arrays(p_kernels, p_lo)
+    nz, ny, nx = sol.shape
+    nzc, nyc, nxc = sol_c.shape
+    err = lib.exa_prolong_correct(
+        sol.data_ptr(), sol_c.data_ptr(), nz, ny, nx, nzc, nyc, nxc,
+        taps, ntaps, lo, excl_c, _is_double(sol), _stream())
+    _check(lib, err, "prolong_correct")
 
 
 # ----------------------------------------------------------------------
@@ -232,27 +281,54 @@ def _rbgs_plain(sol, rhs, A, omega, K, inner):
     return sol
 
 
-def smooth_res_restrict_plain(sol, rhs, A: BoundStencil, omega: float, K: int,
-                              r_kernels, r_lo, coarse_shape, excl=NO_EXCL):
-    """K RBGS iterations (masked-Jacobi half-sweeps, red first), the
-    residual masked to inner nodes, then the banded-matrix restriction.
-    Out of place: returns (smoothed sol, coarse rhs)."""
-    inner = _inner_mask(sol.shape, excl, sol.device)
-    sol = _rbgs_plain(sol, rhs, A, omega, K, inner)
+def _res_restrict_plain(sol, rhs, A, r_kernels, r_lo, coarse_shape, inner):
     res = torch.where(inner, rhs - apply_stencil(A, sol), 0.0)
     mats = [restriction_matrix_1d(r_kernels[d], r_lo[d], coarse_shape[d],
                                   sol.shape[d], coarse_shape[d]) for d in range(3)]
-    return sol, apply_separable(mats, res)
+    return apply_separable(mats, res)
+
+
+def _prolong_correct_plain(sol, sol_c, p_kernels, p_lo, inner):
+    mats = [prolongation_matrix_1d(p_kernels[d], p_lo[d], sol.shape[d],
+                                   sol_c.shape[d], sol.shape[d]) for d in range(3)]
+    return torch.where(inner, sol + apply_separable(mats, sol_c), sol)
+
+
+def rbgs_fused_plain(sol, rhs, A: BoundStencil, omega: float, K: int, excl=NO_EXCL):
+    """K RBGS iterations as masked-Jacobi half-sweeps, red first, on the
+    inner non-excl nodes.  Out of place: returns the new sol."""
+    return _rbgs_plain(sol, rhs, A, omega, K, _inner_mask(sol.shape, excl, sol.device))
+
+
+def res_restrict_plain(sol, rhs, A: BoundStencil, r_kernels, r_lo, coarse_shape):
+    """The residual masked to inner nodes, then the banded-matrix
+    restriction.  Returns the coarse rhs."""
+    inner = _inner_mask(sol.shape, NO_EXCL, sol.device)
+    return _res_restrict_plain(sol, rhs, A, r_kernels, r_lo, coarse_shape, inner)
+
+
+def prolong_correct_plain(sol, sol_c, p_kernels, p_lo):
+    """sol + P sol_c on inner nodes (banded-matrix prolongation); the
+    boundary keeps its values.  Out of place: returns the new sol."""
+    inner = _inner_mask(sol.shape, NO_EXCL, sol.device)
+    return _prolong_correct_plain(sol, sol_c, p_kernels, p_lo, inner)
+
+
+def smooth_res_restrict_plain(sol, rhs, A: BoundStencil, omega: float, K: int,
+                              r_kernels, r_lo, coarse_shape, excl=NO_EXCL):
+    """K RBGS iterations, then the residual restricted.  Out of place:
+    returns (smoothed sol, coarse rhs)."""
+    inner = _inner_mask(sol.shape, excl, sol.device)
+    sol = _rbgs_plain(sol, rhs, A, omega, K, inner)
+    return sol, _res_restrict_plain(sol, rhs, A, r_kernels, r_lo, coarse_shape, inner)
 
 
 def prolong_correct_smooth_plain(sol, sol_c, rhs, A: BoundStencil, omega: float,
                                  K: int, p_kernels, p_lo, excl=NO_EXCL):
-    """sol + P sol_c on inner nodes (banded-matrix prolongation), then K
-    RBGS iterations.  Out of place: returns the new sol."""
+    """sol + P sol_c on inner nodes, then K RBGS iterations.  Out of
+    place: returns the new sol."""
     inner = _inner_mask(sol.shape, excl, sol.device)
-    mats = [prolongation_matrix_1d(p_kernels[d], p_lo[d], sol.shape[d],
-                                   sol_c.shape[d], sol.shape[d]) for d in range(3)]
-    sol = torch.where(inner, sol + apply_separable(mats, sol_c), sol)
+    sol = _prolong_correct_plain(sol, sol_c, p_kernels, p_lo, inner)
     return _rbgs_plain(sol, rhs, A, omega, K, inner)
 
 
@@ -273,24 +349,11 @@ def smooth_res_restrict(sol, rhs, A: BoundStencil, omega: float, K: int,
                                             r_lo, coarse_shape, excl)
         return sol.copy_(new), rc
     _check_cuda_fields(sol, rhs)
-    if tuple(rhs.shape) != tuple(sol.shape) or len(coarse_shape) != 3:
-        raise ValueError("rhs must match sol; coarse_shape must be 3D")
-    lib = load_library()
-    c0, coefs = _star_array(A)
-    taps, ntaps, lo = _taps_arrays(r_kernels, r_lo)
-    excl_c = _excl_array(excl)
-    is_double = int(sol.dtype == torch.float64)
-    nz, ny, nx = sol.shape
-    nzc, nyc, nxc = (int(n) for n in coarse_shape)
+    _check_shapes(sol, rhs, coarse_shape)
+    lib, excl_c = load_library(), _excl_array(excl)
     with torch.cuda.device(sol.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        _half_sweeps(lib, sol, rhs, coefs, omega / c0, K, excl_c, is_double,
-                     stream, smooth_res_restrict)
-        out = torch.empty((nzc, nyc, nxc), dtype=sol.dtype, device=sol.device)
-        err = lib.exa_residual_restrict(
-            sol.data_ptr(), rhs.data_ptr(), out.data_ptr(), nz, ny, nx,
-            nzc, nyc, nxc, coefs, taps, ntaps, lo, excl_c, is_double, stream)
-        _check(lib, err, "residual_restrict")
+        _half_sweeps(lib, sol, rhs, A, omega, K, excl_c, smooth_res_restrict)
+        out = _residual_restrict(lib, sol, rhs, A, r_kernels, r_lo, coarse_shape, excl_c)
         smooth_res_restrict.launches += 1
     return sol, out
 
@@ -306,25 +369,68 @@ def prolong_correct_smooth(sol, sol_c, rhs, A: BoundStencil, omega: float,
         return sol.copy_(prolong_correct_smooth_plain(
             sol, sol_c, rhs, A, omega, K, p_kernels, p_lo, excl))
     _check_cuda_fields(sol, sol_c, rhs)
-    if tuple(rhs.shape) != tuple(sol.shape):
-        raise ValueError("rhs must match sol")
-    lib = load_library()
-    c0, coefs = _star_array(A)
-    taps, ntaps, lo = _taps_arrays(p_kernels, p_lo)
-    excl_c = _excl_array(excl)
-    is_double = int(sol.dtype == torch.float64)
-    nz, ny, nx = sol.shape
-    nzc, nyc, nxc = sol_c.shape
+    _check_shapes(sol, rhs)
+    lib, excl_c = load_library(), _excl_array(excl)
     with torch.cuda.device(sol.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.exa_prolong_correct(
-            sol.data_ptr(), sol_c.data_ptr(), nz, ny, nx, nzc, nyc, nxc,
-            taps, ntaps, lo, excl_c, is_double, stream)
-        _check(lib, err, "prolong_correct")
+        _prolong_correct(lib, sol, sol_c, p_kernels, p_lo, excl_c)
         prolong_correct_smooth.launches += 1
-        _half_sweeps(lib, sol, rhs, coefs, omega / c0, K, excl_c, is_double,
-                     stream, prolong_correct_smooth)
+        _half_sweeps(lib, sol, rhs, A, omega, K, excl_c, prolong_correct_smooth)
     return sol
 
 
 prolong_correct_smooth.launches = 0
+
+
+def rbgs_fused(sol, rhs, A: BoundStencil, omega: float, K: int, excl=NO_EXCL):
+    """K3, the fused smoother: K damped RBGS iterations (global parity,
+    red first; the ring and excl planes never written) in place on `sol`.
+    Returns sol.  One call takes any K (the TPU dispatcher cut K into
+    chunks of at most 8 for its VMEM window); K = 0 changes nothing."""
+    if _device_type(sol, rhs) == "cpu":
+        return sol.copy_(rbgs_fused_plain(sol, rhs, A, omega, K, excl))
+    _check_cuda_fields(sol, rhs)
+    _check_shapes(sol, rhs)
+    lib, excl_c = load_library(), _excl_array(excl)
+    with torch.cuda.device(sol.device):
+        _half_sweeps(lib, sol, rhs, A, omega, K, excl_c, rbgs_fused)
+    return sol
+
+
+rbgs_fused.launches = 0
+
+
+def res_restrict(sol, rhs, A: BoundStencil, r_kernels, r_lo,
+                 coarse_shape: Tuple[int, int, int]):
+    """K4, the down-leg tail: the residual rhs - A sol (zero on the
+    boundary) restricted to `coarse_shape` in one pass.  Returns the
+    coarse rhs; sol and rhs are read only."""
+    if _device_type(sol, rhs) == "cpu":
+        return res_restrict_plain(sol, rhs, A, r_kernels, r_lo, coarse_shape)
+    _check_cuda_fields(sol, rhs)
+    _check_shapes(sol, rhs, coarse_shape)
+    lib = load_library()
+    with torch.cuda.device(sol.device):
+        out = _residual_restrict(lib, sol, rhs, A, r_kernels, r_lo, coarse_shape,
+                                 _excl_array(NO_EXCL))
+        res_restrict.launches += 1
+    return out
+
+
+res_restrict.launches = 0
+
+
+def prolong_correct(sol, sol_c, p_kernels, p_lo):
+    """K5, the up-leg head: sol += P sol_c on inner nodes, in place, in
+    one pass; the boundary is not written and bc is not reapplied (for
+    Dirichlet the same as bc_sol(sol + P sol_c)).  Returns sol."""
+    if _device_type(sol, sol_c) == "cpu":
+        return sol.copy_(prolong_correct_plain(sol, sol_c, p_kernels, p_lo))
+    _check_cuda_fields(sol, sol_c)
+    lib = load_library()
+    with torch.cuda.device(sol.device):
+        _prolong_correct(lib, sol, sol_c, p_kernels, p_lo, _excl_array(NO_EXCL))
+        prolong_correct.launches += 1
+    return sol
+
+
+prolong_correct.launches = 0

@@ -2,8 +2,9 @@
 
 Reference: exastencils_tpu/ops/smoothers.py (`color_mask`,
 `jacobi_update`, `make_smoother`).  Colour masks come from the global
-index sum `(i+j+k) % 2`; on the dense path global and local indices agree.
-The update keeps the reference's FP order `(omega/diag) * (rhs - A sol)`.
+index sum `(i+j+k) % num_colors` or a custom colour function of the
+indices; on the dense path global and local indices agree.  The update
+keeps the reference's FP order `(omega/diag) * (rhs - A sol)`.
 """
 
 from __future__ import annotations
@@ -16,15 +17,19 @@ from exastencils_tpu_torch.core.stencil import BoundStencil
 from exastencils_tpu_torch.ops.stencil_apply import apply_stencil
 
 
-def color_mask(shape: Tuple[int, ...], color: int, device) -> torch.Tensor:
-    """Mask of DOFs with `(sum_d i_d) % 2 == color` (red = 0, black = 1)."""
+def color_mask(shape: Tuple[int, ...], color: int, device, num_colors: int = 2,
+               color_fn: Callable = None) -> torch.Tensor:
+    """Mask of DOFs with `(sum_d i_d) % num_colors == color` (default; red
+    = 0, black = 1), or `color_fn(*index_grids) % num_colors == color`.
+    The index grids are int32 and broadcast against each other."""
     nd = len(shape)
-    total = 0
+    grids = []
     for d, n in enumerate(shape):
         view = [1] * nd
         view[d] = n
-        total = total + torch.arange(n, dtype=torch.int32, device=device).reshape(view)
-    return (total % 2) == color
+        grids.append(torch.arange(n, dtype=torch.int32, device=device).reshape(view))
+    expr = color_fn(*grids) if color_fn is not None else sum(grids)
+    return torch.broadcast_to((expr % num_colors) == color, tuple(shape))
 
 
 def jacobi_update(

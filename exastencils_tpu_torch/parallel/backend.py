@@ -44,16 +44,16 @@ class DenseLevelHandle:
     def bc_applier(self, field: Field, level: int) -> Callable:
         return make_bc_applier(field, self.grid, level)
 
-    def color_masks(self):
-        """Red and black masks, each built on first use and kept."""
+    def color_masks(self, num_colors: int = 2, color_fn=None):
+        """One mask per colour, each built on first use and kept."""
         cache = {}
 
         def mask(c):
             if c not in cache:
-                cache[c] = color_mask(self.shape, c, self.device)
+                cache[c] = color_mask(self.shape, c, self.device, num_colors, color_fn)
             return cache[c]
 
-        return [(lambda c=c: mask(c)) for c in (0, 1)]
+        return [(lambda c=c: mask(c)) for c in range(num_colors)]
 
     def coords(self):
         return self.grid.coord_mesh(NODE)

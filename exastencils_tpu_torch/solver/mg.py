@@ -1,18 +1,20 @@
-"""Geometric multigrid V-cycle.
+"""Geometric multigrid cycles: V, W and F, FAS, and full multigrid.
 
 Reference: exastencils_tpu/solver/mg.py (`MGLevelOps`, `Multigrid.cycle`,
-`residual`, `res_norm`, `solve`).  V-cycles only in this port (W/F, FMG
-and FAS are later work).  PyTorch runs eagerly, so the level hierarchy is
-walked in Python on every cycle.
+`fmg`, `residual`, `res_norm`, `solve`).  PyTorch runs eagerly, so the
+level hierarchy is walked in Python on every cycle; `solve_jit` has no
+counterpart yet.  The dense backend has no halo exchange, so the
+reference's `exchange` calls are absent, and every level above the
+coarsest has `restrict_fn`/`prolong_fn`.
 
-In-place contract: where a level has whole-leg kernels, the cycle updates
+In-place contract: where a level has kernels (ops/cuda), the cycle updates
 the iterate in place (the reference donated it); callers that reuse the
 tensor they pass in must clone it first.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field as dc_field
 from typing import Callable, Dict, Optional
 
 import torch
@@ -22,6 +24,18 @@ from exastencils_tpu_torch.ops.reductions import dot, norm_l2
 
 def _ident(x):
     return x
+
+
+def _smooth_n(lv, n: int, sol, rhs):
+    """n smoother iterations: the fused smoother K3 where the level has
+    one, else n calls of `smooth`."""
+    if n <= 0:
+        return sol
+    if lv.smooth_n is not None:
+        return lv.smooth_n(n, sol, rhs)
+    for _ in range(n):
+        sol = lv.smooth(sol, rhs)
+    return sol
 
 
 @dataclass
@@ -37,22 +51,22 @@ class MGLevelOps:
     prolong_fn: Optional[Callable] = None  # coarse sol -> fine correction
     dot_fn: Callable = dot
     norm_fn: Callable = norm_l2
-    # whole-leg kernels K1/K2 (ops/cuda): pre-smooth + residual + restrict
-    # and prolong + correct + post-smooth, each updating sol in place;
-    # they supersede the smoothing and transfer calls when set
+    # fused n-iteration smoother K3 (ops/cuda); overrides `smooth`
+    smooth_n: Optional[Callable] = None  # (n, sol, rhs) -> sol
+    # fused transfers K4 (residual + restriction) and K5 (prolongation +
+    # correction, in place on sol)
+    res_restrict_fn: Optional[Callable] = None  # (sol, rhs) -> rhs_c
+    prolong_correct_fn: Optional[Callable] = None  # (sol, sol_c) -> sol
+    # whole-leg kernels K1/K2: pre-smooth + residual + restrict and
+    # prolong + correct + post-smooth, each updating sol in place; they
+    # supersede the pair above and the smoothing calls when set
     down_leg_fn: Optional[Callable] = None  # (sol, rhs) -> (sol, rhs_c)
     up_leg_fn: Optional[Callable] = None  # (sol, sol_c, rhs) -> sol
 
 
-def _smooth_n(lv: MGLevelOps, n: int, sol, rhs):
-    for _ in range(n):
-        sol = lv.smooth(sol, rhs)
-    return sol
-
-
 @dataclass
 class Multigrid:
-    """V-cycle over a static level hierarchy."""
+    """V/W/F-cycle over a static level hierarchy."""
 
     levels: Dict[int, MGLevelOps]
     min_level: int
@@ -60,33 +74,100 @@ class Multigrid:
     coarse_solve: Callable  # (sol, rhs) -> sol
     n_pre: int = 3
     n_post: int = 3
+    cycle_type: str = "V"  # V | W | F
+    fas: bool = False
+    # user hooks per stage, "pre" and "post": (level, sol, rhs) -> (sol, rhs)
+    modifications: Dict[str, Callable] = dc_field(default_factory=dict)
 
     def residual(self, level: int, sol, rhs):
         lv = self.levels[level]
         return lv.bc_res(rhs - lv.A_apply(sol))
 
-    def cycle(self, sol, rhs, level: Optional[int] = None):
-        """One V-cycle on `level` (default finest)."""
+    def _hook(self, stage: str, level: int, sol, rhs):
+        fn = self.modifications.get(stage)
+        return fn(level, sol, rhs) if fn is not None else (sol, rhs)
+
+    def cycle(self, sol, rhs, level: Optional[int] = None, kind: Optional[str] = None):
+        """One multigrid cycle on `level` (default finest).
+
+        kind: V = one recursion; W = two recursions (same kind);
+        F = F-recursion followed by a V-recursion."""
         level = self.max_level if level is None else level
+        kind = self.cycle_type if kind is None else kind
+        if kind not in ("V", "W", "F"):
+            raise ValueError(f"unknown cycle type {kind!r} (V | W | F)")
         lv = self.levels[level]
+
         if level == self.min_level:
             return self.coarse_solve(sol, rhs)
-        coarse = self.levels[level - 1]
 
-        if lv.down_leg_fn is not None:
-            sol, rhs_c = lv.down_leg_fn(sol, rhs)
-        else:
+        sol, rhs = self._hook("pre", level, sol, rhs)
+        fused_down = lv.down_leg_fn is not None and not self.fas
+        if not fused_down:
             sol = _smooth_n(lv, self.n_pre, sol, rhs)
+
+        coarse = self.levels[level - 1]
+        if fused_down:
+            sol, rhs_c = lv.down_leg_fn(sol, rhs)
+        elif lv.res_restrict_fn is not None and not self.fas:
+            rhs_c = lv.res_restrict_fn(sol, rhs)
+        else:
             rhs_c = lv.restrict_fn(self.residual(level, sol, rhs))
+        if self.fas:
+            # tau-corrected coarse problem A_c(u_c) = R r + A_c(R u), initial
+            # guess u_c = R u, correction P(u_c - R u).  The coarse cycle may
+            # update its iterate in place, so it gets a copy of R u.
+            sol_c0 = coarse.bc_sol(lv.restrict_fn(sol))
+            rhs_c = rhs_c + coarse.A_apply(sol_c0)
+            sol_c = sol_c0.clone()
+        else:
+            sol_c = coarse.bc_sol(torch.zeros(coarse.shape, dtype=rhs_c.dtype,
+                                              device=rhs_c.device))
 
-        sol_c = coarse.bc_sol(torch.zeros(coarse.shape, dtype=rhs_c.dtype,
-                                          device=rhs_c.device))
-        sol_c = self.cycle(sol_c, rhs_c, level - 1)
+        if level - 1 > self.min_level and kind in ("W", "F"):
+            recurse_kinds = ("W", "W") if kind == "W" else ("F", "V")
+        else:
+            recurse_kinds = (kind,)
+        for rk in recurse_kinds:
+            sol_c = self.cycle(sol_c, rhs_c, level - 1, kind=rk)
 
-        if lv.up_leg_fn is not None:
-            return lv.up_leg_fn(sol, sol_c, rhs)
-        sol = lv.bc_sol(sol + lv.prolong_fn(sol_c))
-        return _smooth_n(lv, self.n_post, sol, rhs)
+        if lv.up_leg_fn is not None and not self.fas:
+            sol = lv.up_leg_fn(sol, sol_c, rhs)
+        else:
+            if lv.prolong_correct_fn is not None and not self.fas:
+                sol = lv.prolong_correct_fn(sol, sol_c)
+            else:
+                corr = lv.prolong_fn(sol_c - sol_c0) if self.fas else lv.prolong_fn(sol_c)
+                sol = lv.bc_sol(sol + corr)
+            sol = _smooth_n(lv, self.n_post, sol, rhs)
+        sol, rhs = self._hook("post", level, sol, rhs)
+        return sol
+
+    def fmg(self, rhs_fine, start_level: Optional[int] = None):
+        """Full multigrid: restrict the rhs down to `start_level`, solve
+        there, then per level upward prolongate and cycle.
+
+        Each upward cycle runs on its own level.  The reference calls
+        `self.cycle(sol, rhs)` there, which cycles on the finest level
+        whatever the iterate's shape, and so fails for start levels below
+        maxLevel - 1; from maxLevel - 1 up the two agree."""
+        start = self.min_level if start_level is None else start_level
+        rhs_per_level = {self.max_level: rhs_fine}
+        for lvl in range(self.max_level, start, -1):
+            rhs_per_level[lvl - 1] = self.levels[lvl].restrict_fn(rhs_per_level[lvl])
+
+        lv0 = self.levels[start]
+        sol = lv0.bc_sol(torch.zeros(lv0.shape, dtype=rhs_fine.dtype, device=rhs_fine.device))
+        sol = (
+            self.coarse_solve(sol, rhs_per_level[start])
+            if start == self.min_level
+            else self.cycle(sol, rhs_per_level[start], start)
+        )
+        for lvl in range(start + 1, self.max_level + 1):
+            lv = self.levels[lvl]
+            sol = lv.bc_sol(lv.prolong_fn(sol))
+            sol = self.cycle(sol, rhs_per_level[lvl], lvl)
+        return sol
 
     def res_norm(self, sol, rhs, level: Optional[int] = None):
         level = self.max_level if level is None else level

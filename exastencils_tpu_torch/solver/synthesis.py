@@ -4,10 +4,12 @@ Reference: exastencils_tpu/solver/synthesis.py (`Equation`,
 `GeneratedSolver.init_state/solve`, the dense branch of
 `generate_solver`).  Kernel selection keeps the reference's conditions
 (:384-443) with `tpu_use_pallas` read as "use the hand-written kernels",
-so one Knowledge selects the same kernel mode in both packages.  Of the
-reference's kernels only the whole-leg pair K1/K2 is ported; where the
-reference would fall back to its fused smoother (K3) or fused transfers
-(K4/K5), this port runs the plain ops.
+so one Knowledge selects the same kernel mode in both packages: on a 3D
+RBGS level the fused smoother K3 (`smooth_n`), then the whole-leg kernels
+K1/K2, and where the legs decline (another smoother, n_pre or n_post 0)
+the fused transfers K4/K5.  FAS cycles bypass K1/K2 and K4/K5 and keep K3
+(solver/mg.py).  The coarse solvers are CG and `Smoother`; the other
+Krylov solvers, the sharded backend and cell/face fields are not ported.
 """
 
 from __future__ import annotations
@@ -27,13 +29,18 @@ from exastencils_tpu_torch.core.stencil import (
     node_restriction,
 )
 from exastencils_tpu_torch.device import real_dtype
-from exastencils_tpu_torch.ops.cuda import make_fused_legs_3d
+from exastencils_tpu_torch.ops.cuda import (
+    make_fused_legs_3d,
+    make_fused_smoother_3d,
+    make_fused_transfers_3d,
+)
 from exastencils_tpu_torch.ops.smoothers import make_smoother
 from exastencils_tpu_torch.ops.stencil_apply import apply_stencil
 from exastencils_tpu_torch.solver.krylov import cg
 from exastencils_tpu_torch.solver.mg import MGLevelOps, Multigrid
 
 _GS = ("RBGS", "GaussSeidel", "GS")
+_CG = ("CG", "ConjugateGradient")
 
 
 @dataclass
@@ -65,10 +72,14 @@ class GeneratedSolver:
 
     def __post_init__(self):
         b = self.backend
-        # the cycle updates the iterate in place where K1/K2 run (the
+        # the cycle updates the iterate in place where kernels run (the
         # reference donated it): clone an iterate before reusing it
         self._cycle = b.wrap(self.mg.cycle, ("field", "field"), "field")
         self._res_norm = b.wrap(self.mg.res_norm, ("field", "field"), "scalar")
+        if self.knowledge.solver_useFMG:
+            self._fmg = b.wrap(
+                lambda r: self.mg.fmg(r, start_level=self.knowledge.solver_fmg_startLevel),
+                ("field",), "field")
         if self.error_fn is not None:
             self._err = b.wrap(self._max_error_local, ("field",), "scalar")
 
@@ -88,7 +99,8 @@ class GeneratedSolver:
               print_error=None, state=None):
         """`repeat until curRes <= eps * initRes` loop with reduced-
         precision printing.  `state` is an initial (sol, rhs), default
-        init_state(); sol is updated in place."""
+        init_state(); sol is updated in place.  With solver_useFMG the
+        initial sol is full multigrid's, from the rhs alone."""
         k = self.knowledge
         max_its = k.solver_maxNumIts if max_its is None else max_its
         eps = k.solver_targetResReduction if target_res_reduction is None else target_res_reduction
@@ -100,6 +112,8 @@ class GeneratedSolver:
         lines = []
         emit = out if out is not None else lines.append
         sol, rhs = self.init_state() if state is None else state
+        if k.solver_useFMG:
+            sol = self._fmg(rhs)
 
         def fmt(x):
             return reduced_prec_str(float(x), k.testing_maxPrecision, k.testing_zeroThreshold)
@@ -122,6 +136,7 @@ def generate_solver(
     backend,
     grids,
     options: Dict = None,
+    modifications: Dict[str, Callable] = None,
     residual_bc=0.0,
     error_fn: Callable = None,
     restrict_op: IntergridStencil = None,
@@ -129,7 +144,7 @@ def generate_solver(
 ) -> GeneratedSolver:
     """Expand `generate solver for u in eq with {options}` on the dense
     backend.  `options` are Knowledge keys without the `solver_` prefix
-    or full keys."""
+    or full keys; `modifications` are the cycle's "pre"/"post" hooks."""
     k = knowledge
     for key, val in (options or {}).items():
         full = key if hasattr(k, key) else f"solver_{key}"
@@ -137,10 +152,8 @@ def generate_solver(
     k.update()
     if backend.is_sharded:
         raise NotImplementedError("the port has the dense backend only")
-    if k.mg_cycle != "V" or k.solver_useFAS or k.solver_useFMG:
-        raise NotImplementedError("the port runs V-cycles only (no W/F, FAS, FMG)")
-    if k.solver_cgs != "CG":
-        raise NotImplementedError(f"coarse solver {k.solver_cgs!r}: the port has CG only")
+    if k.solver_cgs not in _CG + ("Smoother",):
+        raise NotImplementedError(f"coarse solver {k.solver_cgs!r}: the port has CG and Smoother")
 
     u = equation.unknown
     nd = u.domain.ndim
@@ -158,9 +171,9 @@ def generate_solver(
         # lexicographic GS has no parallel order; red-black is the
         # reference's documented stand-in
         coloring_kind = "red-black"
-    num_colors = {"": 0, "red-black": 2}.get(coloring_kind)
-    if num_colors is None:
-        raise NotImplementedError(f"coloring {coloring_kind!r}: the port has red-black only")
+    num_colors = {"": 0, "red-black": 2, "4-way": 4, "9-way": 9, "27-way": 27}.get(
+        coloring_kind, 2
+    )
 
     levels: Dict[int, MGLevelOps] = {}
     for lvl in range(k.minLevel, k.maxLevel + 1):
@@ -169,19 +182,41 @@ def generate_solver(
         A = equation.stencil_at(lvl).bind(g)
         bc_sol = h.bc_applier(u, lvl)
         bc_res = h.bc_applier(residual_field, lvl)
-        coloring = h.color_masks() if num_colors == 2 else None
+        coloring = None
+        if num_colors == 2:
+            coloring = h.color_masks(2)
+        elif num_colors in (4, 9, 27):
+            base = round(num_colors ** (1.0 / nd))
+
+            def color_fn_nd(*idx, base=base):
+                expr = 0
+                for i in idx:
+                    expr = expr * base + (i % base)
+                return expr
+
+            coloring = h.color_masks(num_colors, color_fn=color_fn_nd)
         smooth = make_smoother(A, bc_sol, omega=omega, coloring=coloring)
+        smooth_n = None
+        if k.tpu_use_pallas and nd == 3 and num_colors == 2 and smoother_kind in _GS:
+            smooth_n = make_fused_smoother_3d(A, u, lvl, h.work_shape, omega, num_colors)
         restrict_fn = prolong_fn = None
+        res_restrict_fn = prolong_correct_fn = None
         down_leg_fn = up_leg_fn = None
         if lvl > k.minLevel:
             restrict_fn, prolong_fn = backend.transfer_fns(lvl, restrict_op, prolong_op)
-            if k.tpu_use_pallas and nd == 3 and smoother_kind in _GS:
-                down_leg_fn, up_leg_fn = make_fused_legs_3d(
-                    A, u, lvl, h.work_shape, backend.handle(lvl - 1).work_shape,
-                    restrict_op, prolong_op, omega,
-                    k.solver_smoother_numPre, k.solver_smoother_numPost,
-                    num_colors,
-                )
+            if k.tpu_use_pallas and nd == 3:
+                coarse_shape = backend.handle(lvl - 1).work_shape
+                if smoother_kind in _GS:
+                    down_leg_fn, up_leg_fn = make_fused_legs_3d(
+                        A, u, lvl, h.work_shape, coarse_shape,
+                        restrict_op, prolong_op, omega,
+                        k.solver_smoother_numPre, k.solver_smoother_numPost,
+                        num_colors,
+                    )
+                if down_leg_fn is None:
+                    res_restrict_fn, prolong_correct_fn = make_fused_transfers_3d(
+                        A, u, lvl, h.work_shape, coarse_shape, restrict_op, prolong_op,
+                    )
         levels[lvl] = MGLevelOps(
             shape=h.work_shape,
             A_apply=(lambda x, A=A: apply_stencil(A, x)),
@@ -192,22 +227,30 @@ def generate_solver(
             prolong_fn=prolong_fn,
             dot_fn=h.dot,
             norm_fn=h.norm_l2,
+            smooth_n=smooth_n,
+            res_restrict_fn=res_restrict_fn,
+            prolong_correct_fn=prolong_correct_fn,
             down_leg_fn=down_leg_fn,
             up_leg_fn=up_leg_fn,
         )
 
     lv0 = levels[k.minLevel]
-
-    def coarse_solve(sol, rhs):
-        return cg(
-            lv0.A_apply, sol, rhs,
-            bc_sol=lv0.bc_sol,
-            bc_res=lv0.bc_res,
-            max_its=k.solver_cgs_maxNumIts,
-            res_reduction=k.solver_cgs_targetResReduction,
-            dot_fn=lv0.dot_fn,
-            norm_fn=lv0.norm_fn,
-        ).sol
+    if k.solver_cgs == "Smoother":
+        def coarse_solve(sol, rhs):
+            for _ in range(k.solver_cgs_maxNumIts):
+                sol = lv0.smooth(sol, rhs)
+            return sol
+    else:
+        def coarse_solve(sol, rhs):
+            return cg(
+                lv0.A_apply, sol, rhs,
+                bc_sol=lv0.bc_sol,
+                bc_res=lv0.bc_res,
+                max_its=k.solver_cgs_maxNumIts,
+                res_reduction=k.solver_cgs_targetResReduction,
+                dot_fn=lv0.dot_fn,
+                norm_fn=lv0.norm_fn,
+            ).sol
 
     mg = Multigrid(
         levels=levels,
@@ -216,6 +259,9 @@ def generate_solver(
         coarse_solve=coarse_solve,
         n_pre=k.solver_smoother_numPre,
         n_post=k.solver_smoother_numPost,
+        cycle_type=k.mg_cycle,
+        fas=k.solver_useFAS,
+        modifications=modifications or {},
     )
     return GeneratedSolver(
         knowledge=k,
