@@ -3,22 +3,27 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels K1-K5 from csrc/, holds each against its plain
-PyTorch version on the card, drives three Poisson3D V(3,3)-cycle paths at
+Builds the CUDA kernels K1-K8 from csrc/, holds each against its plain
+PyTorch version on the card, drives five Poisson3D V(3,3)-cycle paths at
 513^3 float32 (the size `python bench.py` times), each with kernels and
 plain:
   main_path    RBGS, the whole-leg kernels K1/K2;
   jacobi_path  damped Jacobi, the fused transfers K4/K5;
   fas_path     RBGS under FAS, the fused smoother K3;
-and solves small float64 problems (RBGS, Jacobi, FAS, RBGS V(0,2)) on the
-GPU and on the CPU, which must print the same lines.  Every phase prints
+  v1_path      RBGS with EXA_STREAM_V1=1, the whole-leg wavefronts K7/K8;
+  v1_fas_path  RBGS under FAS with EXA_STREAM_V1=1, the wavefront K6;
+and solves small float64 problems (RBGS, Jacobi, FAS, RBGS V(0,2), and
+RBGS and FAS under EXA_STREAM_V1=1) on the GPU and on the CPU, which must
+print the same lines.  Every phase prints
 one line; any failure raises and exits non-zero.  The third-to-last line
 is the kernel table as JSON, then the card's name and power limit, the
 last line `{"ok": true, "device": ...}`.  Exits non-zero without printing
 a result when no CUDA device is present.
 """
 
+import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -40,7 +45,12 @@ KERNELS = {
     "K3": ("rbgs_fused", "exastencils_tpu/ops/pallas/stream3d_pair.py:94"),
     "K4": ("res_restrict", "exastencils_tpu/ops/pallas/stream3d.py:260"),
     "K5": ("prolong_correct", "exastencils_tpu/ops/pallas/stream3d.py:380"),
+    "K6": ("rbgs_wavefront", "exastencils_tpu/ops/pallas/stream3d.py:84"),
+    "K7": ("smooth_res_restrict_wavefront", "exastencils_tpu/ops/pallas/stream3d.py:475"),
+    "K8": ("prolong_correct_smooth_wavefront", "exastencils_tpu/ops/pallas/stream3d.py:629"),
 }
+SOURCES = {kk: "exastencils_tpu_torch/csrc/" + ("wavefront3d.cu" if kk in ("K6", "K7", "K8")
+                                                else "stream3d.cu") for kk in KERNELS}
 
 
 def phase(tag, **fields):
@@ -158,6 +168,66 @@ def compare_fused(level, K, dtype, excl=None, timed=False):
     return out
 
 
+def compare_wavefronts(level, K, dtype, excl=None, timed=False):
+    """K6, K7 and K8 against their plain versions on the same inputs, one
+    launch each; K6 and K7's sol bitwise (--fmad=false)."""
+    from exastencils_tpu_torch.core.stencil import node_prolongation, node_restriction
+    from exastencils_tpu_torch.ops.cuda import stream3d as s3
+    from exastencils_tpu_torch.ops.transfer import separable_kernels
+
+    A, sol, rhs, sol_c, cshape = leg_inputs(level, dtype, seed=level * 10 + K + 2)
+    R, P = node_restriction(3), node_prolongation(3)
+    rk, pk = separable_kernels(R), separable_kernels(P)
+    excl = s3.NO_EXCL if excl is None else excl
+    n0 = launch_counts()
+    s6 = s3.rbgs_wavefront(sol, rhs, A, OMEGA, K, excl)
+    s7, rc7 = s3.smooth_res_restrict_wavefront(sol, rhs, A, OMEGA, K, rk, R.lo, cshape)
+    s8 = s3.prolong_correct_smooth_wavefront(sol, sol_c, rhs, A, OMEGA, K, pk, P.lo)
+    torch.cuda.synchronize()
+    n1 = launch_counts()
+    launches = {kk: n1[kk] - n0[kk] for kk in ("K6", "K7", "K8")}
+    r6 = s3.rbgs_wavefront_plain(sol, rhs, A, OMEGA, K, excl)
+    r7, rrc7 = s3.smooth_res_restrict_wavefront_plain(sol, rhs, A, OMEGA, K, rk, R.lo, cshape)
+    r8 = s3.prolong_correct_smooth_wavefront_plain(sol, sol_c, rhs, A, OMEGA, K, pk, P.lo)
+    errs = {"K6": rel_err(s6, r6), "K7": max(rel_err(s7, r7), rel_err(rc7, rrc7)),
+            "K8": rel_err(s8, r8)}
+    tol = TOL[dtype]
+    bitwise = bool(torch.equal(s6, r6) and torch.equal(s7, r7))
+    phase("compare_wavefronts", level=level, K=K, dtype=str(dtype).split(".")[1], excl=excl,
+          **{f"{kk.lower()}_rel": f"{e[1]:.3e}" for kk, e in errs.items()}, tol=tol,
+          k6_k7_sol_bitwise=bitwise, launches=launches)
+    if not (bitwise and errs["K7"][1] <= tol and errs["K8"][1] <= tol):
+        raise AssertionError(f"wavefront/plain mismatch at level {level} K {K} {dtype} excl {excl}")
+    if launches != {"K6": 1, "K7": 1, "K8": 1}:
+        raise AssertionError(f"wavefronts took {launches} launches, not one each")
+    out = {kk: {"max_abs_err": e[0]} for kk, e in errs.items()}
+    if timed:
+        out["K6"]["ms"] = cuda_ms(lambda: s3.rbgs_wavefront(sol, rhs, A, OMEGA, K), 5)
+        out["K6"]["plain_ms"] = cuda_ms(lambda: s3.rbgs_wavefront_plain(sol, rhs, A, OMEGA, K), 3)
+        out["K7"]["ms"] = cuda_ms(lambda: s3.smooth_res_restrict_wavefront(
+            sol, rhs, A, OMEGA, K, rk, R.lo, cshape), 5)
+        out["K7"]["plain_ms"] = cuda_ms(lambda: s3.smooth_res_restrict_wavefront_plain(
+            sol, rhs, A, OMEGA, K, rk, R.lo, cshape), 3)
+        out["K8"]["ms"] = cuda_ms(lambda: s3.prolong_correct_smooth_wavefront(
+            sol, sol_c, rhs, A, OMEGA, K, pk, P.lo), 5)
+        out["K8"]["plain_ms"] = cuda_ms(lambda: s3.prolong_correct_smooth_wavefront_plain(
+            sol, sol_c, rhs, A, OMEGA, K, pk, P.lo), 3)
+        phase("wavefront_times", level=level, K=K, **{f"{k}_{f}": f"{v[f]:.4f}" for k, v in out.items()
+                                                      for f in ("ms", "plain_ms")})
+    return out
+
+
+@contextlib.contextmanager
+def v1_schedule():
+    """EXA_STREAM_V1=1 while the solver is built and run, as bench.py's
+    schedule A/B sets it (bench.py:207-218)."""
+    os.environ["EXA_STREAM_V1"] = "1"
+    try:
+        yield
+    finally:
+        os.environ.pop("EXA_STREAM_V1", None)
+
+
 def launch_counts(reset=False):
     """The wrappers' launch counters by kernel, optionally set to 0."""
     from exastencils_tpu_torch.ops.cuda import stream3d as s3
@@ -263,8 +333,15 @@ def main():
                 compare_fused(level, K, dtype)
     for dtype in (torch.float64, torch.float32):
         compare_fused(5, 3, dtype, excl=(2, 30, -1, 5, 1, -1))
+    for level in (4, 5):
+        for K in (1, 3):
+            for dtype in (torch.float64, torch.float32):
+                compare_wavefronts(level, K, dtype)
+    for dtype in (torch.float64, torch.float32):
+        compare_wavefronts(5, 3, dtype, excl=(2, 30, -1, 5, 1, -1))
     full = compare_legs(MAIN_LEVEL, K_MAIN, torch.float32, timed=True)
     full.update(compare_fused(MAIN_LEVEL, K_MAIN, torch.float32, timed=True))
+    full.update(compare_wavefronts(MAIN_LEVEL, K_MAIN, torch.float32, timed=True))
 
     none = dict.fromkeys(KERNELS, 0)
     per_leg = (MAIN_LEVEL - 1) * (2 * K_MAIN + 1)  # levels 2..9, 2K half-sweeps + 1 transfer
@@ -280,15 +357,25 @@ def main():
                                         solver_useFAS=True)
     phase("fas_path_k3", calls_per_cycle=fas["K3"] // (2 * K_MAIN), half_sweeps=fas["K3"])
     launches.update(K3=fas["K3"])
+    with v1_schedule():
+        v1 = path_with_and_without_kernels("v1_path", {**none, "K7": transfers, "K8": transfers},
+                                           0.1)
+        launches.update(K7=v1["K7"], K8=v1["K8"])
+        v1_fas = path_with_and_without_kernels("v1_fas_path", {**none, "K6": k3_calls}, 0.1,
+                                               solver_useFAS=True)
+        launches.update(K6=v1_fas["K6"])
 
     solve_both("rbgs")
     solve_both("jacobi", model_kw={"smoother": "Jac"})
     solve_both("fas", solver_useFAS=True)
     solve_both("rbgs_v02", model_kw={"n_pre": 0, "n_post": 2})
+    with v1_schedule():
+        solve_both("rbgs_v1")
+        solve_both("fas_v1", solver_useFAS=True)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
 
-    kernels = [{"name": f"{kk} {fn}", "route": "cuda", "source": "exastencils_tpu_torch/csrc/stream3d.cu",
+    kernels = [{"name": f"{kk} {fn}", "route": "cuda", "source": SOURCES[kk],
                 "replaces": rep, "launches": launches[kk], "max_abs_err": full[kk]["max_abs_err"],
                 "ms": full[kk]["ms"], "plain_ms": full[kk]["plain_ms"]}
                for kk, (fn, rep) in KERNELS.items()]

@@ -36,59 +36,18 @@
 // K iterations (and a transfer) are one pass over device memory.  A 513^2
 // f32 plane is ~1 MB against 227 KB of shared memory per block, so that
 // window cannot be copied.  This version is one simple launch per
-// half-sweep / transfer; the single-pass z-streaming wavefront tiled in
-// (y, x) is later work.  K4/K5 were already one pass each on the TPU, and
+// half-sweep / transfer; the single-pass z-streaming wavefront, tiled in
+// (y, x), is K6-K8 in wavefront3d.cu.  K4/K5 were already one pass each on the TPU, and
 // are one launch each here; their y/x transfer is a direct stride-2
 // stencil where the TPU kernels used banded matrix products.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "star3d.cuh"
 
 namespace {
 
-// Transfer taps per dim.  The loops over them are unrolled to this bound so
-// that the weights are read from the parameter bank: a loop with a runtime
-// bound indexes the Taps struct dynamically, which copies it to local memory
-// in every thread (on an H100 the transfers then ran at 216-356 GB/s).
-constexpr int kMaxTaps = 3;
+using namespace exa;
+
 constexpr int kBlock = 128;
-
-template <typename T>
-struct Star {
-  T c[7];  // centre, z-, z+, y-, y+, x-, x+
-};
-
-struct Excl {
-  int p[6];  // z lo, z hi, y lo, y hi, x lo, x hi; -1 = none
-};
-
-template <typename T>
-struct Taps {
-  T w[3][kMaxTaps];  // per dim (z, y, x)
-  int n[3];
-  int lo[3];
-};
-
-__device__ __forceinline__ bool updatable(int z, int y, int x, int nz, int ny,
-                                          int nx, const Excl& e) {
-  return z >= 1 && z <= nz - 2 && y >= 1 && y <= ny - 2 && x >= 1 &&
-         x <= nx - 2 && z != e.p[0] && z != e.p[1] && y != e.p[2] &&
-         y != e.p[3] && x != e.p[4] && x != e.p[5];
-}
-
-// A*u at inner point i, one rounding per operation in the reference order.
-template <typename T>
-__device__ __forceinline__ T star_apply(const T* u, int64_t i, int64_t sz,
-                                        int64_t sy, const Star<T>& s) {
-  T out = s.c[0] * u[i];
-  out = out + s.c[1] * u[i - sz];
-  out = out + s.c[2] * u[i + sz];
-  out = out + s.c[3] * u[i - sy];
-  out = out + s.c[4] * u[i + sy];
-  out = out + s.c[5] * u[i - 1];
-  out = out + s.c[6] * u[i + 1];
-  return out;
-}
 
 // rbgs_half_sweep: one colour of one damped red-black Gauss-Seidel
 // iteration, in place.  Shared by K1, K2 and K3.
@@ -111,7 +70,7 @@ __global__ void rbgs_half_sweep(T* __restrict__ sol, const T* __restrict__ rhs,
   const int64_t sy = nx;
   const int64_t sz = static_cast<int64_t>(ny) * nx;
   const int64_t i = z * sz + y * sy + x;
-  const T corr = scale * (rhs[i] - star_apply(sol, i, sz, sy, s));
+  const T corr = scale * (rhs[i] - star_apply(sol + i - sz, sol + i, sol + i + sz, sy, s));
   sol[i] = sol[i] + corr;
 }
 
@@ -124,7 +83,7 @@ __device__ __forceinline__ T residual_at(const T* __restrict__ sol,
   const int64_t sy = nx;
   const int64_t sz = static_cast<int64_t>(ny) * nx;
   const int64_t i = z * sz + y * sy + x;
-  return rhs[i] - star_apply(sol, i, sz, sy, s);
+  return rhs[i] - star_apply(sol + i - sz, sol + i, sol + i + sz, sy, s);
 }
 
 // residual_restrict: the tail of K1, and K4.  out[cz,cy,cx] = sum of
@@ -186,56 +145,8 @@ __global__ void prolong_correct(T* __restrict__ sol, const T* __restrict__ solc,
   const int y = blockIdx.y;
   const int z = blockIdx.z;
   if (x >= nx || !updatable(z, y, x, nz, ny, nx, e)) return;
-  T acc_x = T(0);
-#pragma unroll
-  for (int kx = 0; kx < kMaxTaps; ++kx) {
-    const int numx = x - t.lo[2] - kx;
-    const int cx = numx / 2;
-    if (kx >= t.n[2] || numx % 2 != 0 || cx < 0 || cx >= nxc) continue;
-    T acc_y = T(0);
-#pragma unroll
-    for (int ky = 0; ky < kMaxTaps; ++ky) {
-      const int numy = y - t.lo[1] - ky;
-      const int cy = numy / 2;
-      if (ky >= t.n[1] || numy % 2 != 0 || cy < 0 || cy >= nyc) continue;
-      T acc_z = T(0);
-#pragma unroll
-      for (int kz = 0; kz < kMaxTaps; ++kz) {
-        const int numz = z - t.lo[0] - kz;
-        const int cz = numz / 2;
-        if (kz >= t.n[0] || numz % 2 != 0 || cz < 0 || cz >= nzc) continue;
-        acc_z = acc_z + t.w[0][kz] * solc[(static_cast<int64_t>(cz) * nyc + cy) * nxc + cx];
-      }
-      acc_y = acc_y + t.w[1][ky] * acc_z;
-    }
-    acc_x = acc_x + t.w[2][kx] * acc_y;
-  }
   const int64_t i = (static_cast<int64_t>(z) * ny + y) * nx + x;
-  sol[i] = sol[i] + acc_x;
-}
-
-template <typename T>
-Star<T> make_star(const double* coefs) {
-  Star<T> s;
-  for (int k = 0; k < 7; ++k) s.c[k] = static_cast<T>(coefs[k]);
-  return s;
-}
-
-template <typename T>
-Taps<T> make_taps(const double* w, const int* n, const int* lo) {
-  Taps<T> t;
-  for (int d = 0; d < 3; ++d) {
-    t.n[d] = n[d];
-    t.lo[d] = lo[d];
-    for (int k = 0; k < kMaxTaps; ++k) t.w[d][k] = static_cast<T>(w[d * kMaxTaps + k]);
-  }
-  return t;
-}
-
-Excl make_excl(const int* excl) {
-  Excl e;
-  for (int k = 0; k < 6; ++k) e.p[k] = excl[k];
-  return e;
+  sol[i] = sol[i] + prolong_at(solc, z, y, x, nzc, nyc, nxc, t);
 }
 
 dim3 grid_for(int nx, int ny, int nz) {

@@ -12,6 +12,10 @@ mode in both packages:
   transfers of the default node or cell z-geometry);
 - `make_fused_legs_3d`: K1/K2 (as K3 and K4/K5, and n_pre, n_post >= 1).
 
+The smoother and the legs call the schedule dispatchers of stream3d.py,
+so with EXA_STREAM_V1=1 they run the single-plane wavefronts K6 (for K3)
+and K7/K8 (for K1/K2) instead, as the JAX package's dispatchers do.
+
 The TPU VMEM budget (`_max_k`) has no meaning here and is not ported.  The
 CUDA transfers take at most MAX_TAPS taps per dim in y and x as well as
 in z, where the TPU kernels applied y/x as dense matrices of any width:
@@ -27,10 +31,10 @@ from exastencils_tpu_torch.ops.cuda.stream3d import (  # noqa: F401
     _star_coefs,
     cuda_applicable_3d,
     prolong_correct,
-    prolong_correct_smooth,
-    rbgs_fused,
+    prolong_correct_smooth_fused_3d,
+    rbgs_fused_3d,
     res_restrict,
-    smooth_res_restrict,
+    smooth_res_restrict_fused_3d,
 )
 from exastencils_tpu_torch.ops.transfer import separable_kernels
 
@@ -63,8 +67,9 @@ def _transfer_taps(restrict_op, prolong_op):
 
 def make_fused_smoother_3d(A, field: Field, level: int, shape, omega: float,
                            num_colors: int, color_fn=None):
-    """K3 for the dense 3D path: smooth_n(n, sol, rhs) -> sol, n RBGS
-    iterations in place on sol, or None outside the contract."""
+    """K3 (K6 under EXA_STREAM_V1=1) for the dense 3D path:
+    smooth_n(n, sol, rhs) -> sol, n RBGS iterations (K3 in place on sol,
+    K6 into a new tensor), or None outside the contract."""
     if num_colors != 2 or color_fn is not None:
         return None
     if not isinstance(field.bc_at(level), DirichletBC):
@@ -73,7 +78,7 @@ def make_fused_smoother_3d(A, field: Field, level: int, shape, omega: float,
         return None
 
     def smooth_n(n, sol, rhs):
-        return rbgs_fused(sol, rhs, A, omega, n)
+        return rbgs_fused_3d(sol, rhs, A, omega, n)
 
     return smooth_n
 
@@ -108,9 +113,10 @@ def make_fused_legs_3d(
     restrict_op, prolong_op, omega: float, n_pre: int, n_post: int,
     num_colors: int,
 ):
-    """Whole-leg kernels for the dense 3D path.  Returns
-    (down(sol, rhs) -> (sol, rhs_c), up(sol, sol_c, rhs) -> sol), both
-    updating `sol` in place, or (None, None) outside the contract."""
+    """Whole-leg kernels for the dense 3D path, K1/K2 (K7/K8 under
+    EXA_STREAM_V1=1).  Returns (down(sol, rhs) -> (sol, rhs_c),
+    up(sol, sol_c, rhs) -> sol), K1/K2 updating `sol` in place and K7/K8
+    writing a new tensor, or (None, None) outside the contract."""
     if num_colors != 2:
         return None, None
     if not isinstance(field.bc_at(level), DirichletBC):
@@ -127,11 +133,11 @@ def make_fused_legs_3d(
     r_lo, p_lo = tuple(restrict_op.lo), tuple(prolong_op.lo)
 
     def down(sol, rhs):
-        return smooth_res_restrict(sol, rhs, A, omega, n_pre, r_kern, r_lo,
-                                   coarse_shape)
+        return smooth_res_restrict_fused_3d(sol, rhs, A, omega, n_pre, r_kern, r_lo,
+                                            coarse_shape)
 
     def up(sol, sol_c, rhs):
-        return prolong_correct_smooth(sol, sol_c, rhs, A, omega, n_post,
-                                      p_kern, p_lo)
+        return prolong_correct_smooth_fused_3d(sol, sol_c, rhs, A, omega, n_post,
+                                               p_kern, p_lo)
 
     return down, up

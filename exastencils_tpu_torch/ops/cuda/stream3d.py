@@ -1,25 +1,38 @@
-"""The 3D streaming kernels K1-K5: wrappers, plain PyTorch versions and
-the CUDA library loader.
+"""The 3D streaming kernels K1-K8: wrappers, plain PyTorch versions, the
+schedule dispatchers and the CUDA library loader.
 
 Reference: exastencils_tpu/ops/pallas/stream3d.py (`rbgs_fused_3d` :192,
 `res_restrict_fused_3d` :365, `prolong_correct_fused_3d` :454,
 `smooth_res_restrict_fused_3d` :603, `prolong_correct_smooth_fused_3d`
-:746, `_star_coefs`, `pallas_applicable_3d`) and
-exastencils_tpu/ops/pallas/stream3d_pair.py (the kernels behind them).
+:746, `_pair_schedule` :184, `_star_coefs`, `pallas_applicable_3d`, and
+the v1 kernels behind them) and exastencils_tpu/ops/pallas/stream3d_pair.py
+(the v2 kernels).
 
     K1 smooth_res_restrict     K RBGS iterations + residual + restriction
     K2 prolong_correct_smooth  prolongation + correction + K RBGS iterations
     K3 rbgs_fused              K RBGS iterations
     K4 res_restrict            residual + restriction
     K5 prolong_correct         prolongation + correction
+    K6 rbgs_wavefront                    K3's maths, one z-streaming pass
+    K7 smooth_res_restrict_wavefront     K1's maths, one z-streaming pass
+    K8 prolong_correct_smooth_wavefront  K2's maths, one z-streaming pass
 
-The kernels are CUDA C++ for sm_90a in ../../csrc/stream3d.cu, compiled
-with nvcc on first use into build/exastencils_tpu_torch/ at the repository
-root and loaded with ctypes.  A wrapper given CUDA tensors launches the
-kernels (or raises); given CPU tensors it runs the plain version; any
-other device raises.  Each wrapper counts the kernel launches it makes in
-its own `.launches`.  Wrappers that update `sol` do so in place and return
-it, where the JAX version relied on the donated iterate.
+As in the JAX package, the dispatchers `rbgs_fused_3d`,
+`smooth_res_restrict_fused_3d` and `prolong_correct_smooth_fused_3d` run
+K3/K1/K2 (the v2 schedule, the default) or, with EXA_STREAM_V1=1 in the
+environment when they are called, K6/K7/K8 (the v1 single-plane
+schedule).
+
+The kernels are CUDA C++ for sm_90a in ../../csrc/ (stream3d.cu: K1-K5;
+wavefront3d.cu: K6-K8), compiled with nvcc on first use into
+build/exastencils_tpu_torch/ at the repository root and loaded with
+ctypes.  A wrapper given CUDA tensors launches the kernels (or raises);
+given CPU tensors it runs the plain version; any other device raises.
+Each wrapper counts the kernel launches it makes in its own `.launches`.
+K1-K3 and K5 update `sol` in place and return it, where the JAX version
+relied on the donated iterate; K6-K8 write a new tensor and return it
+(their blocks run concurrently, so an in-place write would race with a
+neighbour block's halo loads).
 """
 
 from __future__ import annotations
@@ -47,14 +60,20 @@ from exastencils_tpu_torch.ops.transfer import (
 NO_EXCL = (-1,) * 6  # per-dim lo/hi planes excluded from updates; -1 = none
 MAX_TAPS = 3  # transfer taps per dim the kernels take (kMaxTaps)
 
-SOURCE = Path(__file__).resolve().parents[2] / "csrc" / "stream3d.cu"
+CSRC = Path(__file__).resolve().parents[2] / "csrc"
+SOURCES = (CSRC / "stream3d.cu", CSRC / "wavefront3d.cu")
+HEADERS = (CSRC / "star3d.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "exastencils_tpu_torch"
 # --fmad=false: no mul+add contraction, so the RBGS and residual
 # arithmetic rounds exactly as the plain PyTorch path does
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# K6-K8's (y, x) output tile edge (kWaveTile in wavefront3d.cu) and the
+# dynamic shared memory one block may use on Hopper (227 KB)
+WAVE_TILE = 32
+SMEM_LIMIT = 232448
 
 
 def _star_coefs(offsets, coefs, ndim: int):
@@ -108,40 +127,67 @@ def _nvcc() -> str:
 
 
 def library_path() -> Path:
-    """Where the build of the current source and flags lives."""
-    tag = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """Where the build of the current sources and flags lives."""
+    tag = hashlib.sha256()
+    for f in (*SOURCES, *HEADERS):
+        tag.update(f.read_bytes())
+    tag.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"libstream3d_{tag.hexdigest()[:16]}.so"
+
+
+def _build(so: Path):
+    """One nvcc per source, all started together, then one link.  The
+    compilers' output, including ptxas register counts, is kept beside
+    the library as .log."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    stem = so.with_name(f"{so.name}.{os.getpid()}")
+    objs = [stem.with_name(f"{stem.name}.{src.stem}.o") for src in SOURCES]
+    procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(SOURCES, objs)]
+    logs = [proc.communicate()[0] for proc in procs]
+    for src, proc, log in zip(SOURCES, procs, logs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {src}:\n{log}")
+    tmp = stem.with_name(f"{stem.name}.tmp")
+    link = subprocess.run([_nvcc(), "-shared", "-o", str(tmp), *map(str, objs)],
+                          capture_output=True, text=True)
+    for obj in objs:
+        obj.unlink()
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc failed to link {so.name}:\n{link.stdout}{link.stderr}")
+    so.with_suffix(".log").write_text("".join(logs))
+    os.replace(tmp, so)
 
 
 @functools.cache
 def load_library() -> ctypes.CDLL:
-    """Build (once per source version) and load the kernel library.  The
-    compiler's output, including ptxas register counts, is kept beside the
-    library as .log."""
+    """Build (once per source version) and load the kernel library."""
     so = library_path()
     if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-            capture_output=True, text=True,
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {SOURCE}:\n{proc.stdout}{proc.stderr}")
-        so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, so)
+        _build(so)
     lib = ctypes.CDLL(str(so))
     p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     pd, pi = ctypes.POINTER(ctypes.c_double), ctypes.POINTER(ctypes.c_int)
     lib.exa_max_taps.argtypes, lib.exa_max_taps.restype = [], i
+    lib.exa_wavefront_tile.argtypes, lib.exa_wavefront_tile.restype = [], i
     lib.exa_error_string.argtypes, lib.exa_error_string.restype = [i], ctypes.c_char_p
     lib.exa_rbgs_half_sweep.argtypes = [p, p, i, i, i, pd, d, i, pi, i, p]
     lib.exa_residual_restrict.argtypes = [p, p, p, i, i, i, i, i, i, pd, pd, pi, pi, pi, i, p]
     lib.exa_prolong_correct.argtypes = [p, p, i, i, i, i, i, i, pd, pi, pi, pi, i, p]
-    for fn in (lib.exa_rbgs_half_sweep, lib.exa_residual_restrict, lib.exa_prolong_correct):
+    lib.exa_rbgs_wavefront.argtypes = [p, p, p, i, i, i, pd, d, i, pi, i, p]
+    lib.exa_smooth_res_restrict_wavefront.argtypes = [
+        p, p, p, p, i, i, i, i, i, i, pd, d, i, i, pd, pi, pi, i, p]
+    lib.exa_prolong_correct_smooth_wavefront.argtypes = [
+        p, p, p, p, i, i, i, i, i, i, pd, d, i, pd, pi, pi, i, p]
+    for fn in (lib.exa_rbgs_half_sweep, lib.exa_residual_restrict, lib.exa_prolong_correct,
+               lib.exa_rbgs_wavefront, lib.exa_smooth_res_restrict_wavefront,
+               lib.exa_prolong_correct_smooth_wavefront):
         fn.restype = i
     if lib.exa_max_taps() != MAX_TAPS:
         raise RuntimeError(f"{so}: kMaxTaps {lib.exa_max_taps()} != {MAX_TAPS}")
+    if lib.exa_wavefront_tile() != WAVE_TILE:
+        raise RuntimeError(f"{so}: kWaveTile {lib.exa_wavefront_tile()} != {WAVE_TILE}")
     return lib
 
 
@@ -434,3 +480,203 @@ def prolong_correct(sol, sol_c, p_kernels, p_lo):
 
 
 prolong_correct.launches = 0
+
+
+# ----------------------------------------------------------------------
+# K6-K8: the single-plane wavefronts (v1 schedule)
+# ----------------------------------------------------------------------
+
+
+def _wave_smem(kernel: int, K: int, reach: int, itemsize: int) -> int:
+    """Dynamic shared memory of one K6/K7/K8 block (wavefront_smem in
+    wavefront3d.cu): a ring of 2K+2 windows (K7: 2K+3, and 4 residual
+    boxes of (WAVE_TILE + 2 reach)^2) of (WAVE_TILE + 2 halo)^2 nodes,
+    halo 2K (K7: 2K+1+reach)."""
+    halo = 2 * K + 1 + reach if kernel == 7 else 2 * K
+    slots = 2 * K + 3 if kernel == 7 else 2 * K + 2
+    rres = 4 * (WAVE_TILE + 2 * reach) ** 2 if kernel == 7 else 0
+    return (slots * (WAVE_TILE + 2 * halo) ** 2 + rres) * itemsize
+
+
+def max_wavefront_k(dtype: torch.dtype, reach: int = 1) -> int:
+    """The deepest K that one launch of each of K6, K7 and K8 holds in
+    shared memory: 5 for float32 and 3 for float64 with the node
+    restriction (`reach` 1, see _restrict_reach; the cell restriction's is
+    0).  K7's window is the largest of the three, so it sets the bound."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    k = 0
+    while _wave_smem(7, k + 1, reach, itemsize) <= SMEM_LIMIT:
+        k += 1
+    return k
+
+
+def _restrict_reach(r_kernels, r_lo) -> int:
+    """How far K7's y/x restriction taps reach outside the fine tile that
+    a coarse tile covers (1 for the node restriction, 0 for the cell one)."""
+    return max(max(0, -int(r_lo[d]), int(r_lo[d]) + len(r_kernels[d]) - 2) for d in (1, 2))
+
+
+# K6-K8 compute what K3, K1 and K2 compute; so do their plain versions.
+rbgs_wavefront_plain = rbgs_fused_plain
+smooth_res_restrict_wavefront_plain = smooth_res_restrict_plain
+prolong_correct_smooth_wavefront_plain = prolong_correct_smooth_plain
+
+
+def _on_cuda(sol, rhs, *others) -> bool:
+    """True for CUDA tensors that the kernels take (else raises), False
+    for CPU tensors."""
+    if _device_type(sol, rhs, *others) == "cpu":
+        return False
+    _check_cuda_fields(sol, rhs, *others)
+    _check_shapes(sol, rhs)
+    return True
+
+
+def rbgs_wavefront(sol, rhs, A: BoundStencil, omega: float, K: int, excl=NO_EXCL):
+    """K6 (TPU: exastencils_tpu/ops/pallas/stream3d.py:_rbgs_kernel): K
+    damped RBGS iterations (global parity, red first; the ring and excl
+    planes never written) as single-pass z-streaming wavefronts, one
+    launch per chunk of at most max_wavefront_k iterations (the TPU
+    dispatcher chunked by its VMEM window).  Not in place: returns a new
+    tensor and leaves `sol` as it was (K = 0 returns `sol`)."""
+    cuda = _on_cuda(sol, rhs)
+    kmax = max_wavefront_k(sol.dtype)
+    while K > 0:
+        k = min(K, kmax)
+        sol = (_rbgs_wavefront_launch(sol, rhs, A, omega, k, excl) if cuda
+               else rbgs_wavefront_plain(sol, rhs, A, omega, k, excl))
+        K -= k
+    return sol
+
+
+rbgs_wavefront.launches = 0
+
+
+def _rbgs_wavefront_launch(sol, rhs, A, omega, K, excl):
+    lib, excl_c = load_library(), _excl_array(excl)
+    c0, coefs = _star_array(A)
+    nz, ny, nx = sol.shape
+    out = torch.empty_like(sol)
+    with torch.cuda.device(sol.device):
+        err = lib.exa_rbgs_wavefront(
+            out.data_ptr(), sol.data_ptr(), rhs.data_ptr(), nz, ny, nx, coefs,
+            omega / c0, K, excl_c, _is_double(sol), _stream())
+        _check(lib, err, "rbgs_wavefront")
+        rbgs_wavefront.launches += 1
+    return out
+
+
+def smooth_res_restrict_wavefront(sol, rhs, A: BoundStencil, omega: float, K: int,
+                                  r_kernels, r_lo, coarse_shape: Tuple[int, int, int]):
+    """K7 (TPU: exastencils_tpu/ops/pallas/stream3d.py:_smooth_down_kernel),
+    the whole down leg in one launch: K RBGS iterations, then the residual
+    (zero on the boundary) restricted to `coarse_shape`.  No excl planes,
+    as the TPU kernel.  A K deeper than max_wavefront_k first runs the
+    excess as K6.  Not in place: returns (new sol, coarse rhs)."""
+    cuda = _on_cuda(sol, rhs)
+    reach = _restrict_reach(r_kernels, r_lo)
+    kmax = max_wavefront_k(sol.dtype, reach)
+    if kmax < 1:
+        raise ValueError(f"restriction reach {reach} leaves no room for K7's window")
+    if K > kmax:
+        sol = rbgs_wavefront(sol, rhs, A, omega, K - kmax)
+        K = kmax
+    if not cuda:
+        return smooth_res_restrict_wavefront_plain(sol, rhs, A, omega, K, r_kernels, r_lo,
+                                                   coarse_shape)
+    _check_shapes(sol, rhs, coarse_shape)
+    lib = load_library()
+    c0, coefs = _star_array(A)
+    taps, ntaps, lo = _taps_arrays(r_kernels, r_lo)
+    nz, ny, nx = sol.shape
+    nzc, nyc, nxc = (int(n) for n in coarse_shape)
+    out = torch.empty_like(sol)
+    out_c = torch.empty((nzc, nyc, nxc), dtype=sol.dtype, device=sol.device)
+    with torch.cuda.device(sol.device):
+        err = lib.exa_smooth_res_restrict_wavefront(
+            out.data_ptr(), out_c.data_ptr(), sol.data_ptr(), rhs.data_ptr(), nz, ny, nx,
+            nzc, nyc, nxc, coefs, omega / c0, K, reach, taps, ntaps, lo,
+            _is_double(sol), _stream())
+        _check(lib, err, "smooth_res_restrict_wavefront")
+        smooth_res_restrict_wavefront.launches += 1
+    return out, out_c
+
+
+smooth_res_restrict_wavefront.launches = 0
+
+
+def prolong_correct_smooth_wavefront(sol, sol_c, rhs, A: BoundStencil, omega: float,
+                                     K: int, p_kernels, p_lo):
+    """K8 (TPU: exastencils_tpu/ops/pallas/stream3d.py:_up_smooth_kernel),
+    the whole up leg in one launch: sol + P sol_c on inner nodes (bc not
+    reapplied), then K RBGS iterations.  No excl planes, as the TPU
+    kernel.  A K deeper than max_wavefront_k runs the excess afterwards
+    as K6.  Not in place: returns the new sol."""
+    cuda = _on_cuda(sol, rhs, sol_c)
+    k = min(K, max_wavefront_k(sol.dtype))
+    if cuda:
+        sol = _prolong_correct_smooth_wavefront_launch(sol, sol_c, rhs, A, omega, k,
+                                                       p_kernels, p_lo)
+    else:
+        sol = prolong_correct_smooth_wavefront_plain(sol, sol_c, rhs, A, omega, k,
+                                                     p_kernels, p_lo)
+    if K > k:
+        sol = rbgs_wavefront(sol, rhs, A, omega, K - k)
+    return sol
+
+
+prolong_correct_smooth_wavefront.launches = 0
+
+
+def _prolong_correct_smooth_wavefront_launch(sol, sol_c, rhs, A, omega, K, p_kernels, p_lo):
+    lib = load_library()
+    c0, coefs = _star_array(A)
+    taps, ntaps, lo = _taps_arrays(p_kernels, p_lo)
+    nz, ny, nx = sol.shape
+    nzc, nyc, nxc = sol_c.shape
+    out = torch.empty_like(sol)
+    with torch.cuda.device(sol.device):
+        err = lib.exa_prolong_correct_smooth_wavefront(
+            out.data_ptr(), sol.data_ptr(), sol_c.data_ptr(), rhs.data_ptr(), nz, ny, nx,
+            nzc, nyc, nxc, coefs, omega / c0, K, taps, ntaps, lo, _is_double(sol), _stream())
+        _check(lib, err, "prolong_correct_smooth_wavefront")
+        prolong_correct_smooth_wavefront.launches += 1
+    return out
+
+
+# ----------------------------------------------------------------------
+# schedule dispatchers (the JAX package's names and switch)
+# ----------------------------------------------------------------------
+
+
+def _pair_schedule() -> bool:
+    """The v2 kernels K1-K3 are the default; EXA_STREAM_V1=1 selects the
+    single-plane wavefronts K6-K8.  Read at every call, as the JAX
+    package's `_pair_schedule` is."""
+    return os.environ.get("EXA_STREAM_V1", "0") != "1"
+
+
+def rbgs_fused_3d(sol, rhs, A: BoundStencil, omega: float, K: int, excl=NO_EXCL):
+    """K RBGS iterations: K3 (in place) or, under EXA_STREAM_V1=1, K6 (a
+    new tensor).  Callers use the returned sol."""
+    if _pair_schedule():
+        return rbgs_fused(sol, rhs, A, omega, K, excl)
+    return rbgs_wavefront(sol, rhs, A, omega, K, excl)
+
+
+def smooth_res_restrict_fused_3d(sol, rhs, A: BoundStencil, omega: float, K: int,
+                                 r_kernels, r_lo, coarse_shape):
+    """The down leg: K1 (sol in place) or, under EXA_STREAM_V1=1, K7 (a
+    new sol).  Returns (sol, coarse rhs)."""
+    if _pair_schedule():
+        return smooth_res_restrict(sol, rhs, A, omega, K, r_kernels, r_lo, coarse_shape)
+    return smooth_res_restrict_wavefront(sol, rhs, A, omega, K, r_kernels, r_lo, coarse_shape)
+
+
+def prolong_correct_smooth_fused_3d(sol, sol_c, rhs, A: BoundStencil, omega: float,
+                                    K: int, p_kernels, p_lo):
+    """The up leg: K2 (in place) or, under EXA_STREAM_V1=1, K8 (a new
+    tensor).  Callers use the returned sol."""
+    if _pair_schedule():
+        return prolong_correct_smooth(sol, sol_c, rhs, A, omega, K, p_kernels, p_lo)
+    return prolong_correct_smooth_wavefront(sol, sol_c, rhs, A, omega, K, p_kernels, p_lo)

@@ -7,9 +7,11 @@ counterpart yet.  The dense backend has no halo exchange, so the
 reference's `exchange` calls are absent, and every level above the
 coarsest has `restrict_fn`/`prolong_fn`.
 
-In-place contract: where a level has kernels (ops/cuda), the cycle updates
-the iterate in place (the reference donated it); callers that reuse the
-tensor they pass in must clone it first.
+In-place contract: where a level has kernels (ops/cuda), the cycle may
+update the iterate in place (the reference donated it); callers that
+reuse the tensor they pass in must clone it first.  K1-K3 and K5 update
+in place; the wavefronts K6-K8 (EXA_STREAM_V1=1) write new tensors, so
+the cycle always continues with the tensor a kernel returns.
 """
 
 from __future__ import annotations
@@ -27,8 +29,8 @@ def _ident(x):
 
 
 def _smooth_n(lv, n: int, sol, rhs):
-    """n smoother iterations: the fused smoother K3 where the level has
-    one, else n calls of `smooth`."""
+    """n smoother iterations: the fused smoother (K3 or K6) where the
+    level has one, else n calls of `smooth`."""
     if n <= 0:
         return sol
     if lv.smooth_n is not None:
@@ -51,15 +53,17 @@ class MGLevelOps:
     prolong_fn: Optional[Callable] = None  # coarse sol -> fine correction
     dot_fn: Callable = dot
     norm_fn: Callable = norm_l2
-    # fused n-iteration smoother K3 (ops/cuda); overrides `smooth`
+    # fused n-iteration smoother K3 (K6 under EXA_STREAM_V1=1, ops/cuda);
+    # overrides `smooth`
     smooth_n: Optional[Callable] = None  # (n, sol, rhs) -> sol
     # fused transfers K4 (residual + restriction) and K5 (prolongation +
     # correction, in place on sol)
     res_restrict_fn: Optional[Callable] = None  # (sol, rhs) -> rhs_c
     prolong_correct_fn: Optional[Callable] = None  # (sol, sol_c) -> sol
-    # whole-leg kernels K1/K2: pre-smooth + residual + restrict and
-    # prolong + correct + post-smooth, each updating sol in place; they
-    # supersede the pair above and the smoothing calls when set
+    # whole-leg kernels K1/K2 (K7/K8 under EXA_STREAM_V1=1): pre-smooth +
+    # residual + restrict and prolong + correct + post-smooth, each
+    # returning the new sol; they supersede the pair above and the
+    # smoothing calls when set
     down_leg_fn: Optional[Callable] = None  # (sol, rhs) -> (sol, rhs_c)
     up_leg_fn: Optional[Callable] = None  # (sol, sol_c, rhs) -> sol
 

@@ -1,4 +1,4 @@
-"""The port's CUDA kernels K1-K5 against their plain PyTorch versions, on the
+"""The port's CUDA kernels K1-K8 against their plain PyTorch versions, on the
 GPU, and solves on the GPU that print the CPU's lines.  Skips where torch.cuda.is_available() is false (the kernels have no
 interpret mode).  This file imports no jax, so on a GPU machine without jax
 it runs on its own:
@@ -91,6 +91,55 @@ def test_fused_kernels_match_plain(cuda, level, K, dtype):
         assert (got - ref).abs().max().item() <= TOL[dtype] * ref.abs().max().item()
 
 
+@pytest.mark.parametrize("level,K", [(4, 1), (4, 3), (5, 1), (5, 3)])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_wavefronts_match_plain(cuda, level, K, dtype):
+    """K6 (with and without excl planes) and K7's sol bitwise, K7's coarse
+    rhs and K8 within TOL; one launch per call; sol left as it was."""
+    rng = np.random.default_rng(level * 10 + K + 2)
+    n, nc = 2 ** level + 1, 2 ** (level - 1) + 1
+    sol, rhs = (torch.from_numpy(rng.standard_normal((n,) * 3)).to(cuda, dtype) for _ in range(2))
+    sol_c = torch.from_numpy(rng.standard_normal((nc,) * 3)).to(cuda, dtype)
+    before = sol.clone()
+    A = laplacian(level, dtype, cuda)
+    R, P = node_restriction(3), node_prolongation(3)
+    rk, pk = separable_kernels(R), separable_kernels(P)
+    excl = (2, n - 3, -1, 5, 1, -1)
+    counters = (s3.rbgs_wavefront, s3.smooth_res_restrict_wavefront,
+                s3.prolong_correct_smooth_wavefront)
+    n0 = [fn.launches for fn in counters]
+    s6 = s3.rbgs_wavefront(sol, rhs, A, OMEGA, K)
+    e6 = s3.rbgs_wavefront(sol, rhs, A, OMEGA, K, excl)
+    s7, rc7 = s3.smooth_res_restrict_wavefront(sol, rhs, A, OMEGA, K, rk, R.lo, (nc,) * 3)
+    s8 = s3.prolong_correct_smooth_wavefront(sol, sol_c, rhs, A, OMEGA, K, pk, P.lo)
+    torch.cuda.synchronize()
+    assert [fn.launches - k for fn, k in zip(counters, n0)] == [2, 1, 1]
+    assert torch.equal(sol, before)
+    assert torch.equal(s6, s3.rbgs_wavefront_plain(sol, rhs, A, OMEGA, K))
+    assert torch.equal(e6, s3.rbgs_wavefront_plain(sol, rhs, A, OMEGA, K, excl))
+    r7, rrc7 = s3.smooth_res_restrict_wavefront_plain(sol, rhs, A, OMEGA, K, rk, R.lo, (nc,) * 3)
+    assert torch.equal(s7, r7)
+    r8 = s3.prolong_correct_smooth_wavefront_plain(sol, sol_c, rhs, A, OMEGA, K, pk, P.lo)
+    for got, ref in ((rc7, rrc7), (s8, r8)):
+        assert (got - ref).abs().max().item() <= TOL[dtype] * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("level", [7, 9])
+def test_rbgs_wavefront_tile_edges(cuda, level):
+    """Blocks run concurrently; a tile that read a neighbour's smoothed
+    halo would differ from plain at tile edges, and only sometimes.
+    Several seeds, each run three times, all bitwise."""
+    n = 2 ** level + 1
+    A = laplacian(level, torch.float32, cuda)
+    for seed in range(3):
+        rng = np.random.default_rng(seed)
+        sol, rhs = (torch.from_numpy(rng.standard_normal((n,) * 3)).to(cuda, torch.float32)
+                    for _ in range(2))
+        ref = s3.rbgs_wavefront_plain(sol, rhs, A, OMEGA, 3)
+        for _ in range(3):
+            assert torch.equal(s3.rbgs_wavefront(sol, rhs, A, OMEGA, 3), ref)
+
+
 def test_wrapper_rejects_non_contiguous(cuda):
     A = laplacian(3, torch.float64, cuda)
     R = node_restriction(3)
@@ -107,9 +156,9 @@ SOLVES = {
 }
 
 
-def solve_l4(name, device, use_kernels=True):
+def solve_l4(name, device, use_kernels=True, max_level=4):
     knowledge_kw, model_kw = SOLVES[name]
-    k = Knowledge(dimensionality=3, minLevel=0, maxLevel=4, tpu_use_pallas=use_kernels,
+    k = Knowledge(dimensionality=3, minLevel=0, maxLevel=max_level, tpu_use_pallas=use_kernels,
                   **knowledge_kw).update()
     return PoissonMGSolver(k, device=device, **model_kw).solve(
         max_its=100, target_res_reduction=1e-10)
@@ -132,3 +181,22 @@ def test_kernel_solve_matches_plain_solve_on_cuda(cuda, name):
     got, want = solve_l4(name, "cuda"), solve_l4(name, "cuda", use_kernels=False)
     assert got[1] == want[1]
     assert (got[3], got[4]) == (want[3], want[4])
+
+
+@pytest.mark.parametrize("name", ["fas", "rbgs"])
+def test_v1_solve_matches_plain_solve_on_cuda(cuda, monkeypatch, name):
+    """EXA_STREAM_V1=1, maxLevel 5 f64: with the wavefronts K6 (FAS) or
+    K7/K8 (RBGS) the lines and the final residual equal the card's plain
+    solve to the last bit, and no K1-K3 kernel runs."""
+    monkeypatch.setenv("EXA_STREAM_V1", "1")
+    v2 = (s3.smooth_res_restrict, s3.prolong_correct_smooth, s3.rbgs_fused)
+    v1 = (s3.rbgs_wavefront, s3.smooth_res_restrict_wavefront,
+          s3.prolong_correct_smooth_wavefront)
+    n0 = [fn.launches for fn in v1 + v2]
+    got = solve_l4(name, "cuda", max_level=5)
+    moved = [fn.launches - k for fn, k in zip(v1 + v2, n0)]
+    want = solve_l4(name, "cuda", use_kernels=False, max_level=5)
+    assert got[1] == want[1]
+    assert (got[3], got[4]) == (want[3], want[4])
+    assert moved[3:] == [0, 0, 0]
+    assert (moved[0] > 0) if name == "fas" else (moved[1] > 0 and moved[2] > 0)
