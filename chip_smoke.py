@@ -12,9 +12,17 @@ plain:
   fas_path     RBGS under FAS, the fused smoother K3;
   v1_path      RBGS with EXA_STREAM_V1=1, the whole-leg wavefronts K7/K8;
   v1_fas_path  RBGS under FAS with EXA_STREAM_V1=1, the wavefront K6;
-and solves small float64 problems (RBGS, Jacobi, FAS, RBGS V(0,2), and
+solves small float64 problems (RBGS, Jacobi, FAS, RBGS V(0,2), and
 RBGS and FAS under EXA_STREAM_V1=1) on the GPU and on the CPU, which must
-print the same lines.  Every phase prints
+print the same lines, and drives the DSL entry points on
+examples/poisson_3d_bench.exa4:
+  dsl_path     the L4 executor at 513^3 float32, MGCycle@finest with the
+               fast path (K1/K2 on levels 5-9) and without it;
+  dsl_v1_path  the same with EXA_STREAM_V1=1 (K7/K8);
+  dsl_lines    maxLevel 6 float64 3D and the 2D example: GPU lines equal
+               the CPU's;
+  dsl_cli      `python -m exastencils_tpu_torch` in a subprocess on the GPU.
+Every phase prints
 one line; any failure raises and exits non-zero.  The third-to-last line
 is the kernel table as JSON, then the card's name and power limit, the
 last line `{"ok": true, "device": ...}`.  Exits non-zero without printing
@@ -275,15 +283,19 @@ def drive_path(tag, use_kernels, drop_bound, model_kw=None, **knowledge_kw):
 
 def path_with_and_without_kernels(tag, expected, drop_bound, model_kw=None, **knowledge_kw):
     """drive_path with kernels (launch counts must equal `expected`), then
-    plain; prints the difference of the two cycles' outputs."""
+    plain; the two cycles' outputs must agree to the float32 tolerance.
+    Returns the launch counts and the cycle ms with kernels."""
     ms_k, launches, s_k = drive_path(tag, True, drop_bound, model_kw, **knowledge_kw)
     if launches != expected:
         raise AssertionError(f"{tag}: launches per cycle {launches}, expected {expected}")
     ms_p, _, s_p = drive_path(tag, False, drop_bound, model_kw, **knowledge_kw)
     d = rel_err(s_k, s_p)
-    phase(f"{tag}_kernel_vs_plain", max_abs=f"{d[0]:.3e}", rel=f"{d[1]:.3e}",
+    tol = TOL[torch.float32]
+    phase(f"{tag}_kernel_vs_plain", max_abs=f"{d[0]:.3e}", rel=f"{d[1]:.3e}", tol=tol,
           speedup=f"{ms_p / ms_k:.2f}")
-    return launches
+    if not d[1] <= tol:
+        raise AssertionError(f"{tag}: kernel and plain cycles differ by {d[1]:.3e} (relative)")
+    return launches, ms_k
 
 
 def solve_both(tag, model_kw=None, **knowledge_kw):
@@ -303,6 +315,121 @@ def solve_both(tag, model_kw=None, **knowledge_kw):
         raise AssertionError(f"{tag}: residual lines differ:\n{out['cuda']}\n{out['cpu']}")
     phase(f"solve_l5_f64_{tag}", cycles=out["cuda"][1], lines_identical=True,
           last=out["cuda"][0][-1])
+
+
+BENCH_EXA4 = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples",
+                          "poisson_3d_bench.exa4")
+EX2D_EXA4 = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples", "poisson_2d.exa4")
+
+
+def dsl_executable(path, device, fastpath=True, dims=3, min_level=1, max_level=None,
+                   f64=False, lines=None):
+    """The port's L4Executable for an example program, as bench.py's
+    bench_dsl builds it (float32 unless f64)."""
+    from exastencils_tpu.dsl.parser import parse_l4
+
+    from exastencils_tpu_torch import Knowledge
+    from exastencils_tpu_torch.dsl.interpreter import L4Executable
+
+    k = Knowledge(dimensionality=dims, minLevel=min_level,
+                  maxLevel=MAIN_LEVEL if max_level is None else max_level,
+                  useDblPrecision=f64, tpu_compute_dtype="" if f64 else "float32",
+                  tpu_shard_dsl=False, tpu_dsl_fastpath=fastpath).update()
+    return L4Executable(parse_l4(path), k, device=device,
+                        out=(lambda s: None) if lines is None else lines.append)
+
+
+DSL_DROP_BOUND = 0.2
+# The DSL program's first cycle from zero reduces the residual by ~0.16
+# (0.155 in the reference's own lines at maxLevel 4; 0.163 at maxLevels 6
+# and 7 on the CPU, 0.164 at 513^3 on the card), hence 0.2.
+
+
+def drive_dsl(tag, fastpath, expected):
+    """The DSL benchmark program at 513^3 float32 on the card: InitF, one
+    checked MGCycle@finest with the launch counters set to 0 just before
+    it and read just after (residual by CalcRes + ResNorm before and
+    after), then MGCycle@finest timed with CUDA events over chained calls,
+    as bench_dsl times it.  Returns the cycle ms, and U@finest and the
+    residual after the checked cycle."""
+    ex = dsl_executable(BENCH_EXA4, "cuda", fastpath)
+    fin = ex.hi
+    fn = {name: ex.functions[(name, fin)] for name in ("InitF", "CalcRes", "ResNorm", "MGCycle")}
+
+    def res_norm():
+        ex.call_function(fn["CalcRes"], fin, [])
+        return float(ex.call_function(fn["ResNorm"], fin, []))
+
+    ex.call_function(fn["InitF"], fin, [])
+    r0 = res_norm()
+    launch_counts(reset=True)
+    ex.call_function(fn["MGCycle"], fin, [])
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    r1 = res_norm()
+    u = ex.get_field("U", fin)
+    if not (np.isfinite(r1) and tuple(u.shape) == (2 ** MAIN_LEVEL + 1,) * 3
+            and u.dtype == torch.float32):
+        raise AssertionError(f"{tag}: bad cycle output {tuple(u.shape)} {u.dtype}, residual {r1}")
+    if not r1 < DSL_DROP_BOUND * r0:
+        raise AssertionError(f"{tag}: residual drop {r1 / r0} not below {DSL_DROP_BOUND}")
+    if launches != expected:
+        raise AssertionError(f"{tag}: launches per cycle {launches}, expected {expected}")
+    u = u.clone()  # the timed cycles below update U@finest
+    ms = cuda_ms(lambda: ex.call_function(fn["MGCycle"], fin, []), 10 if fastpath else 3)
+    glups = (2 ** MAIN_LEVEL + 1) ** 3 / (ms * 1e-3) / 1e9
+    phase(tag, fastpath=fastpath, residual_drop=f"{r1 / r0:.4e}", bound=DSL_DROP_BOUND,
+          cycle_ms=f"{ms:.3f}", glups=f"{glups:.4f}", launches_per_cycle=launches)
+    return ms, u, r1
+
+
+def dsl_fast_vs_plain(fast, plain):
+    """The checked cycle's U@finest and residual with the fast path against
+    the plain executor's, both from InitF: float32 tolerance."""
+    d = rel_err(fast[1], plain[1])
+    dr = abs(fast[2] - plain[2]) / plain[2]
+    tol = TOL[torch.float32]
+    phase("dsl_path_fast_vs_plain", u_max_abs=f"{d[0]:.3e}", u_rel=f"{d[1]:.3e}",
+          residual_rel=f"{dr:.3e}", tol=tol)
+    if not (d[1] <= tol and dr <= tol):
+        raise AssertionError(f"dsl_path: fast path and plain differ: U {d[1]:.3e}, residual {dr:.3e}")
+
+
+def dsl_lines(tag, path, dims, min_level, max_level):
+    """A float64 run of an example on the card and on the CPU (fast path
+    off there): the printed lines must be identical."""
+    out = {}
+    for dev in ("cuda", "cpu"):
+        lines = []
+        dsl_executable(path, dev, dev == "cuda", dims, min_level, max_level, True, lines).run()
+        out[dev] = lines
+    if out["cuda"] != out["cpu"] or len(out["cpu"]) < 3:
+        raise AssertionError(f"{tag}: lines differ:\n{out['cuda']}\n{out['cpu']}")
+    phase(tag, lines_identical=True, n_lines=len(out["cpu"]), first=out["cpu"][0],
+          last_residual=out["cpu"][-2], cycles=out["cpu"][-1])
+    return out["cpu"]
+
+
+def dsl_cli(want):
+    """`python -m exastencils_tpu_torch --f64` on the card from temporary
+    settings and knowledge files (the maxLevel 6 bench program): it must
+    print the lines of the in-process CPU run."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as d:
+        settings, knowledge = os.path.join(d, "b.settings"), os.path.join(d, "b.knowledge")
+        with open(settings, "w") as f:
+            f.write(f'l4file = "{BENCH_EXA4}"\n')
+        with open(knowledge, "w") as f:
+            f.write("dimensionality = 3\nminLevel = 1\nmaxLevel = 6\ntpu_shard_dsl = false\n")
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, "-m", "exastencils_tpu_torch", "--f64", settings,
+                              knowledge], capture_output=True, text=True, timeout=300,
+                             cwd=os.path.dirname(os.path.abspath(__file__)))
+    if run.returncode != 0 or run.stdout.splitlines() != want:
+        raise AssertionError(f"dsl_cli: rc {run.returncode}\n{run.stdout}\n{run.stderr[-2000:]}")
+    phase("dsl_cli", rc=run.returncode, lines_identical=True,
+          seconds=f"{time.perf_counter() - t0:.2f}")
 
 
 def main():
@@ -344,24 +471,26 @@ def main():
     full.update(compare_wavefronts(MAIN_LEVEL, K_MAIN, torch.float32, timed=True))
 
     none = dict.fromkeys(KERNELS, 0)
-    per_leg = (MAIN_LEVEL - 1) * (2 * K_MAIN + 1)  # levels 2..9, 2K half-sweeps + 1 transfer
+    per_level = 2 * K_MAIN + 1  # 2K half-sweeps + 1 transfer per leg and level
+    per_leg = (MAIN_LEVEL - 1) * per_level  # levels 2..9
     launches = {}
-    main = path_with_and_without_kernels("main_path", {**none, "K1": per_leg, "K2": per_leg}, 0.1)
+    main, main_ms = path_with_and_without_kernels("main_path",
+                                                  {**none, "K1": per_leg, "K2": per_leg}, 0.1)
     launches.update(K1=main["K1"], K2=main["K2"])
     transfers = MAIN_LEVEL - 1  # one K4 and one K5 per level 2..9
-    jac = path_with_and_without_kernels("jacobi_path", {**none, "K4": transfers, "K5": transfers},
+    jac, _ = path_with_and_without_kernels("jacobi_path", {**none, "K4": transfers, "K5": transfers},
                                         0.4, model_kw={"smoother": "Jac"})
     launches.update(K4=jac["K4"], K5=jac["K5"])
     k3_calls = 2 * (MAIN_LEVEL - 1)  # pre- and post-smoothing on levels 2..9
-    fas = path_with_and_without_kernels("fas_path", {**none, "K3": k3_calls * 2 * K_MAIN}, 0.1,
+    fas, _ = path_with_and_without_kernels("fas_path", {**none, "K3": k3_calls * 2 * K_MAIN}, 0.1,
                                         solver_useFAS=True)
     phase("fas_path_k3", calls_per_cycle=fas["K3"] // (2 * K_MAIN), half_sweeps=fas["K3"])
     launches.update(K3=fas["K3"])
     with v1_schedule():
-        v1 = path_with_and_without_kernels("v1_path", {**none, "K7": transfers, "K8": transfers},
-                                           0.1)
+        v1, v1_ms = path_with_and_without_kernels("v1_path",
+                                                  {**none, "K7": transfers, "K8": transfers}, 0.1)
         launches.update(K7=v1["K7"], K8=v1["K8"])
-        v1_fas = path_with_and_without_kernels("v1_fas_path", {**none, "K6": k3_calls}, 0.1,
+        v1_fas, _ = path_with_and_without_kernels("v1_fas_path", {**none, "K6": k3_calls}, 0.1,
                                                solver_useFAS=True)
         launches.update(K6=v1_fas["K6"])
 
@@ -372,6 +501,23 @@ def main():
     with v1_schedule():
         solve_both("rbgs_v1")
         solve_both("fas_v1", solver_useFAS=True)
+    dsl_levels = MAIN_LEVEL - 4  # levels 5..9: >= 33 nodes per dim (dsl/fastpath.py)
+    fast = drive_dsl("dsl_path", True, {**none, "K1": dsl_levels * per_level,
+                                        "K2": dsl_levels * per_level})
+    plain = drive_dsl("dsl_path", False, none)
+    dsl_fast_vs_plain(fast, plain)
+    dsl_ms, dsl_plain_ms = fast[0], plain[0]
+    del fast, plain
+    phase("dsl_path_summary", fastpath_ms=f"{dsl_ms:.3f}", plain_ms=f"{dsl_plain_ms:.3f}",
+          speedup=f"{dsl_plain_ms / dsl_ms:.2f}", main_path_ms=f"{main_ms:.3f}",
+          dsl_vs_main_path=f"{dsl_ms / main_ms:.3f}")
+    with v1_schedule():
+        dsl_v1_ms = drive_dsl("dsl_v1_path", True, {**none, "K7": dsl_levels, "K8": dsl_levels})[0]
+    phase("dsl_v1_path_summary", cycle_ms=f"{dsl_v1_ms:.3f}",
+          dsl_v1_vs_v1_path=f"{dsl_v1_ms / v1_ms:.3f}")
+    want = dsl_lines("dsl_lines_3d_l6_f64", BENCH_EXA4, 3, 1, 6)
+    dsl_lines("dsl_lines_2d_l5_f64", EX2D_EXA4, 2, 0, 5)
+    dsl_cli(want)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
 

@@ -7,6 +7,7 @@ level's device.
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Tuple
 
@@ -40,6 +41,19 @@ class LevelGrid:
 
     def grid_width(self, dim: int) -> float:
         return self.domain.aabb.width(dim) / self.cells[dim]
+
+    def width_b(self, dim: int) -> float:
+        """vf_gridWidth as an expression operand (a scalar on uniform
+        grids)."""
+        return self.grid_width(dim)
+
+    @property
+    def widths(self) -> Tuple[float, ...]:
+        return tuple(self.grid_width(d) for d in range(self.ndim))
+
+    @property
+    def cell_volume(self) -> float:
+        return math.prod(self.widths)
 
     def node_pos_1d(self, dim: int) -> torch.Tensor:
         lo = self.domain.aabb.lower[dim]

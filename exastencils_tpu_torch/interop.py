@@ -45,3 +45,22 @@ def stencil_from_jax(st):
         kernels = tuple(tuple(float(v) for v in k) for k in st.kernels_1d)
     return IntergridStencil(st.kind, np.array(st.weights, dtype=np.float64),
                             tuple(int(v) for v in st.lo), kernels)
+
+
+def dsl_state_from_jax(state_np, device, dtype: torch.dtype):
+    """The port's DSL state from a JAX `L4Executable.state` whose arrays
+    the caller converted to numpy: {(field, level): tensor on `device`},
+    slots included (a slotted field keeps its leading slot dim).  Real
+    arrays become `dtype`, complex arrays its complex counterpart, other
+    arrays keep their dtype.  The caller copies `slot_index` as is."""
+    device = check_device(device)
+    cdtype = torch.complex128 if dtype == torch.float64 else torch.complex64
+    out = {}
+    for key, a in state_np.items():
+        t = torch.from_numpy(np.array(a))
+        if t.dtype.is_complex:
+            t = t.to(cdtype)
+        elif t.dtype.is_floating_point:
+            t = t.to(dtype)
+        out[key] = t.to(device).contiguous()
+    return out

@@ -1,7 +1,8 @@
 """Boundary-condition application on dense node tensors.
 
 Reference: exastencils_tpu/ops/boundary.py (`make_bc_applier`).  The
-boundary DOFs of a node field are the outermost planes; the applier writes
+boundary DOFs of a node field are the outermost planes (of a Face_d
+field, its outermost planes along d; cell fields have none); the applier writes
 them by slice assignment on a clone, so its input is never modified.  The
 reference's iota-select plane writes (ops/shardsafe.py) work around an
 XLA SPMD miscompile and have no counterpart here.
@@ -14,7 +15,7 @@ from typing import Callable
 import torch
 
 from exastencils_tpu_torch.core.field import DirichletBC, Field, NeumannBC, NoBC
-from exastencils_tpu_torch.core.grid import NODE, LevelGrid
+from exastencils_tpu_torch.core.grid import FACES, NODE, LevelGrid
 
 
 def _plane(nd: int, dim: int, index) -> tuple:
@@ -29,8 +30,29 @@ def make_bc_applier(field: Field, grid: LevelGrid, level: int = None) -> Callabl
     if isinstance(bc, NoBC):
         return lambda arr: arr
     if field.localization != NODE:
-        raise NotImplementedError(
-            f"bc on {field.localization} fields is not ported (node fields only)")
+        # cell dims take their bc through the DSL's virtual ghosts at
+        # stencil-apply time; Face_d fields also have on-boundary DOF
+        # planes along d that Dirichlet sets
+        if field.localization in FACES and isinstance(bc, DirichletBC):
+            fd = FACES.index(field.localization)
+            values = {idx: bc.value for idx in (0, -1)}
+            if callable(bc.value):
+                coords = grid.coord_mesh(field.localization)
+                plane_shape = tuple(n for i, n in enumerate(grid.shape_of(field.localization))
+                                    if i != fd)
+                for idx in (0, -1):
+                    pl = _plane(nd, fd, idx)
+                    values[idx] = bc.value(*(c[pl] for c in coords)) + torch.zeros(
+                        plane_shape, dtype=grid.dtype, device=grid.device)
+
+            def apply_face_dirichlet(arr):
+                out = arr.clone(memory_format=torch.contiguous_format)
+                for idx in (0, -1):
+                    out[_plane(nd, fd, idx)] = values[idx]
+                return out
+
+            return apply_face_dirichlet
+        return lambda arr: arr
 
     if isinstance(bc, DirichletBC):
         # values only on the 2*nd boundary planes, computed once per level

@@ -16,24 +16,48 @@ import torch.nn.functional as F
 from exastencils_tpu_torch.core.stencil import BoundStencil, IntergridStencil
 
 
-def _pad(x: torch.Tensor, pads) -> torch.Tensor:
-    """numpy-style per-dim (lo, hi) zero padding of all dims."""
-    flat = []
-    for lo, hi in reversed(pads):
-        flat += [lo, hi]
-    return F.pad(x, flat)
+def _pad(x: torch.Tensor, pads, mode: str = "constant") -> torch.Tensor:
+    """numpy-style padding (jnp.pad): `pads` is one (lo, hi) pair per dim,
+    or one int for all dims; mode 'constant' (zeros) or 'edge'."""
+    if isinstance(pads, int):
+        pads = ((pads, pads),) * x.dim()
+    if mode == "constant":
+        flat = []
+        for lo, hi in reversed(tuple(pads)):
+            flat += [int(lo), int(hi)]
+        return F.pad(x, flat)
+    if mode != "edge":
+        raise ValueError(f"pad mode {mode!r}")
+    for d, (lo, hi) in enumerate(pads):
+        parts = [x]
+        if lo:
+            parts.insert(0, x.narrow(d, 0, 1).expand(*[lo if i == d else -1 for i in range(x.dim())]))
+        if hi:
+            last = x.narrow(d, x.shape[d] - 1, 1)
+            parts.append(last.expand(*[hi if i == d else -1 for i in range(x.dim())]))
+        if len(parts) > 1:
+            x = torch.cat(parts, dim=d)
+    return x
 
 
-def apply_stencil(st: BoundStencil, x: torch.Tensor) -> torch.Tensor:
+def apply_stencil(st: BoundStencil, x: torch.Tensor, padded_radius: int = None,
+                  out_shape: Tuple[int, ...] = None) -> torch.Tensor:
     """out[i] = sum_k c_k * x[i + off_k] over the full array, with zero
-    ghosts (the node-field boundary semantics)."""
+    ghosts (the node-field boundary semantics).  When the caller already
+    supplies a ghost-padded operand (the DSL's bc-aware padding), pass
+    `padded_radius` and the unpadded `out_shape`."""
     if len(st.offsets) == 1 and st.radius == 0:
+        if padded_radius is not None:
+            x = x[tuple(slice(padded_radius, padded_radius + n) for n in out_shape)]
         return st.coefs[0] * x
-    r = st.radius
-    xp = _pad(x, [(r, r)] * x.dim())
+    if padded_radius is None:
+        r, shape = st.radius, x.shape
+        xp = _pad(x, [(r, r)] * x.dim())
+    else:
+        r, shape, xp = padded_radius, tuple(out_shape), x
     out = None
     for off, c in st.items():
-        sl = tuple(slice(r + o, r + o + n) for o, n in zip(off, x.shape))
+        sl = tuple(slice(r + o, r + o + n) for o, n in zip(off, shape))
         term = c * xp[sl]
         out = term if out is None else out + term
     return out

@@ -21,12 +21,18 @@ from exastencils_tpu.config import Knowledge
 from exastencils_tpu.utils.printing import reduced_prec_str
 
 from exastencils_tpu_torch.core.field import Field
-from exastencils_tpu_torch.core.grid import NODE
+from exastencils_tpu_torch.core.grid import CELL, FACES, NODE
 from exastencils_tpu_torch.core.stencil import (
     IntergridStencil,
     Stencil,
+    cell_prolongation,
+    cell_restriction,
+    cell_restriction_integral,
+    face_prolongation,
+    face_restriction,
     node_prolongation,
     node_restriction,
+    node_restriction_integral,
 )
 from exastencils_tpu_torch.device import real_dtype
 from exastencils_tpu_torch.ops.cuda import (
@@ -41,6 +47,25 @@ from exastencils_tpu_torch.solver.mg import MGLevelOps, Multigrid
 
 _GS = ("RBGS", "GaussSeidel", "GS")
 _CG = ("CG", "ConjugateGradient")
+
+
+def default_transfer_ops(localization: str, ndim: int,
+                         interpolation: str = "linear"):
+    """(restriction, prolongation) per field localization and
+    interpolation kind (reference synthesis.py:59-83): 'integral_linear'
+    restricts by summing (FV/FE residuals), 'linear' by averaging (FD)."""
+    integral = interpolation == "integral_linear"
+    if localization == NODE:
+        r = node_restriction_integral(ndim) if integral else node_restriction(ndim)
+        return r, node_prolongation(ndim)
+    if localization == CELL:
+        r = cell_restriction_integral(ndim) if integral else cell_restriction(ndim)
+        return r, cell_prolongation(ndim)
+    if localization in FACES:
+        d = FACES.index(localization)
+        return (face_restriction(d, ndim, integral),
+                face_prolongation(d, ndim, integral))
+    raise ValueError(f"no default transfer ops for localization {localization!r}")
 
 
 @dataclass

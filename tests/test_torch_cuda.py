@@ -6,6 +6,8 @@ it runs on its own:
     python -m pytest --noconftest tests/test_torch_cuda.py -m cuda
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -200,3 +202,64 @@ def test_v1_solve_matches_plain_solve_on_cuda(cuda, monkeypatch, name):
     assert (got[3], got[4]) == (want[3], want[4])
     assert moved[3:] == [0, 0, 0]
     assert (moved[0] > 0) if name == "fas" else (moved[1] > 0 and moved[2] > 0)
+
+
+# ----------------------------------------------------------------------
+# the DSL path: examples/poisson_3d_bench.exa4 through the L4 executor
+# ----------------------------------------------------------------------
+
+BENCH_EXA4 = os.path.join(os.path.dirname(os.path.abspath(__file__)), os.pardir,
+                          "examples", "poisson_3d_bench.exa4")
+
+
+def dsl_bench(device, max_level=6, fastpath=True):
+    """The bench program at maxLevel `max_level`, f64: (executable, lines)."""
+    from exastencils_tpu.dsl.parser import parse_l4
+
+    from exastencils_tpu_torch.dsl.interpreter import L4Executable
+
+    k = Knowledge(dimensionality=3, minLevel=1, maxLevel=max_level, useDblPrecision=True,
+                  tpu_shard_dsl=False, tpu_dsl_fastpath=fastpath).update()
+    lines = []
+    ex = L4Executable(parse_l4(BENCH_EXA4), k, device=device, out=lines.append)
+    return ex, lines
+
+
+def test_dsl_on_cuda_prints_the_cpu_lines(cuda):
+    ex, got = dsl_bench("cuda")
+    assert ex._fastpath is not None
+    ex.run()
+    cpu, want = dsl_bench("cpu", fastpath=False)
+    cpu.run()
+    assert got == want
+
+
+@pytest.mark.parametrize("v1", [False, True])
+def test_dsl_cycle_launches_the_leg_kernels(cuda, monkeypatch, v1):
+    """One MGCycle@finest at maxLevel 6: levels 5 and 6 (>= 33 nodes) run
+    the whole-leg kernels, K1/K2 2K+1 = 7 launches per level and leg, or
+    with EXA_STREAM_V1=1 K7/K8 one launch per level and leg."""
+    if v1:
+        monkeypatch.setenv("EXA_STREAM_V1", "1")
+    kernels = (s3.smooth_res_restrict, s3.prolong_correct_smooth, s3.rbgs_fused,
+               s3.smooth_res_restrict_wavefront, s3.prolong_correct_smooth_wavefront,
+               s3.rbgs_wavefront)
+    ex, _ = dsl_bench("cuda")
+    finest = ex.hi
+    ex.call_function(ex.functions[("InitF", finest)], finest, [])
+    n0 = [fn.launches for fn in kernels]
+    ex.call_function(ex.functions[("MGCycle", finest)], finest, [])
+    torch.cuda.synchronize()
+    moved = [fn.launches - k for fn, k in zip(kernels, n0)]
+    assert moved == ([0, 0, 0, 2, 2, 0] if v1 else [14, 14, 0, 0, 0, 0])
+
+
+def test_dsl_profile_reports_every_level(cuda):
+    """The DSL cycle breakdown tool at maxLevel 6: a time for every
+    MGCycle level, device activity in the trace, cycle times by block."""
+    from exastencils_tpu_torch.runtime import dsl_profile
+
+    r = dsl_profile.profile_variant(6, True, 2)
+    assert sorted(r["exclusive_ms_by_level"]) == list(range(1, 7))
+    assert len(r["cycle_ms_by_block"]) == 4 and min(r["cycle_ms_by_block"]) > 0
+    assert r["device_busy_ms_per_cycle"] > 0 and r["device_kernels_per_cycle"] > 0
