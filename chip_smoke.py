@@ -4,7 +4,9 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels K1-K8 from csrc/, holds each against its plain
-PyTorch version on the card, drives five Poisson3D V(3,3)-cycle paths at
+PyTorch version on the card (K1/K2 also at odd shapes, excl planes and
+K = 1..4, and bitwise against the K3/K4/K5 compositions they replace),
+drives five Poisson3D V(3,3)-cycle paths at
 513^3 float32 (the size `python bench.py` times), each with kernels and
 plain:
   main_path    RBGS, the whole-leg kernels K1/K2;
@@ -57,8 +59,14 @@ KERNELS = {
     "K7": ("smooth_res_restrict_wavefront", "exastencils_tpu/ops/pallas/stream3d.py:475"),
     "K8": ("prolong_correct_smooth_wavefront", "exastencils_tpu/ops/pallas/stream3d.py:629"),
 }
-SOURCES = {kk: "exastencils_tpu_torch/csrc/" + ("wavefront3d.cu" if kk in ("K6", "K7", "K8")
+SOURCES = {kk: "exastencils_tpu_torch/csrc/" + ("legs3d.cu" if kk in ("K1", "K2") else
+                                                "wavefront3d.cu" if kk in ("K6", "K7", "K8")
                                                 else "stream3d.cu") for kk in KERNELS}
+# Published H100 SXM peaks (NVIDIA's data sheet, at 700 W): HBM bytes/s, and
+# FLOP/s outside the tensor cores (the kernels use none: TF32 would break
+# the bitwise RBGS)
+PEAK_BYTES_S = 3.35e12
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 
 
 def phase(tag, **fields):
@@ -101,39 +109,160 @@ def rel_err(got, ref):
     return d, d / max(ref.abs().max().item(), 1e-300)
 
 
-def compare_legs(level, K, dtype, timed=False):
-    """Both wrappers against their plain versions on the same inputs."""
+def star_inputs(shape, cshape, dtype, seed):
+    """Random fine/coarse fields of any shape on the card and a 7-point star
+    with distinct coefficients, so a neighbour read from the wrong side
+    shows."""
+    from exastencils_tpu_torch.core.stencil import BoundStencil
+
+    rng = np.random.default_rng(seed)
+    offs = ((0, 0, 0), (-1, 0, 0), (1, 0, 0), (0, -1, 0), (0, 1, 0), (0, 0, -1), (0, 0, 1))
+    A = BoundStencil("A", offs, (6.5, -0.9, -1.1, -0.7, -1.3, -0.95, -1.05))
+    sol, rhs, sol_c = (torch.as_tensor(rng.standard_normal(sh), device="cuda").to(dtype)
+                       for sh in (shape, shape, cshape))
+    return A, sol, rhs, sol_c, tuple(cshape)
+
+
+def compare_legs(level, K, dtype, timed=False, shape=None, excl=None):
+    """K1/K2 (legs3d.cu) against their plain versions and, without excl
+    planes, against the compositions they replace (K1 = K3 then K4, K2 =
+    K5 then K3) on the same inputs: one launch per call up to max_leg_k;
+    K1's sol bitwise the plain version's; without excl planes K1's coarse
+    rhs and K2 bitwise the compositions'.  `shape` = (fine, coarse) for an
+    odd shape with a star of distinct coefficients, else the level's
+    Laplacian."""
     from exastencils_tpu_torch.core.stencil import node_prolongation, node_restriction
     from exastencils_tpu_torch.ops.cuda import stream3d as s3
     from exastencils_tpu_torch.ops.transfer import separable_kernels
 
-    A, sol, rhs, sol_c, cshape = leg_inputs(level, dtype, seed=level * 10 + K)
+    seed = (level or 0) * 10 + K
+    A, sol, rhs, sol_c, cshape = (leg_inputs(level, dtype, seed) if shape is None
+                                  else star_inputs(*shape, dtype, seed))
     R, P = node_restriction(3), node_prolongation(3)
     rk, pk = separable_kernels(R), separable_kernels(P)
     omega = OMEGA
-    s_ref, rc_ref = s3.smooth_res_restrict_plain(sol.clone(), rhs, A, omega, K, rk, R.lo, cshape)
-    s_got, rc_got = s3.smooth_res_restrict(sol.clone(), rhs, A, omega, K, rk, R.lo, cshape)
-    u_ref = s3.prolong_correct_smooth_plain(sol.clone(), sol_c, rhs, A, omega, K, pk, P.lo)
-    u_got = s3.prolong_correct_smooth(sol.clone(), sol_c, rhs, A, omega, K, pk, P.lo)
+    excl = s3.NO_EXCL if excl is None else excl
+    n0 = launch_counts()
+    s_got, rc_got = s3.smooth_res_restrict(sol.clone(), rhs, A, omega, K, rk, R.lo, cshape, excl)
+    u_got = s3.prolong_correct_smooth(sol.clone(), sol_c, rhs, A, omega, K, pk, P.lo, excl)
     torch.cuda.synchronize()
+    n1 = launch_counts()
+    launches = (n1["K1"] - n0["K1"], n1["K2"] - n0["K2"])
+    want = tuple(len(s3.leg_chain(m, K, dtype, r))
+                 for m, r in ((s3.LEG_RESTRICT, s3._restrict_reach(rk, R.lo)), (s3.LEG_PROLONG, 0)))
+    s_ref, rc_ref = s3.smooth_res_restrict_plain(sol, rhs, A, omega, K, rk, R.lo, cshape, excl)
+    u_ref = s3.prolong_correct_smooth_plain(sol, sol_c, rhs, A, omega, K, pk, P.lo, excl)
     e_s, e_rc, e_u = rel_err(s_got, s_ref), rel_err(rc_got, rc_ref), rel_err(u_got, u_ref)
     k1_abs, k1_rel = max(e_s[0], e_rc[0]), max(e_s[1], e_rc[1])
     tol = TOL[dtype]
-    phase("compare", level=level, K=K, dtype=str(dtype).split(".")[1],
-          k1_rel=f"{k1_rel:.3e}", k2_rel=f"{e_u[1]:.3e}", tol=tol,
-          k1_sol_bitwise=bool(torch.equal(s_got, s_ref)))
-    if not (k1_rel <= tol and e_u[1] <= tol):
-        raise AssertionError(f"kernel/plain mismatch at level {level} K {K} {dtype}")
+    sol_bitwise = bool(torch.equal(s_got, s_ref))
+    comp = {}
+    if excl == s3.NO_EXCL:
+        c_s = s3.rbgs_fused(sol.clone(), rhs, A, omega, K)
+        c_rc = s3.res_restrict(c_s, rhs, A, rk, R.lo, cshape)
+        c_u = s3.rbgs_fused(s3.prolong_correct(sol.clone(), sol_c, pk, P.lo), rhs, A, omega, K)
+        comp = {"k1_coarse_bitwise": bool(torch.equal(rc_got, c_rc)),
+                "k2_bitwise_vs_k5_k3": bool(torch.equal(u_got, c_u))}
+    phase("compare", level=level, shape=tuple(sol.shape), K=K,
+          dtype=str(dtype).split(".")[1], excl=excl, k1_rel=f"{k1_rel:.3e}",
+          k2_rel=f"{e_u[1]:.3e}", tol=tol, k1_sol_bitwise=sol_bitwise, **comp, launches=launches)
+    if not (sol_bitwise and k1_rel <= tol and e_u[1] <= tol and all(comp.values())):
+        raise AssertionError(f"leg kernel mismatch at {tuple(sol.shape)} K {K} {dtype} excl {excl}")
+    if launches != want:
+        raise AssertionError(f"legs took {launches} launches, not {want}")
     out = {"K1": {"max_abs_err": k1_abs}, "K2": {"max_abs_err": e_u[0]}}
     if timed:
         s = sol.clone()
         out["K1"]["ms"] = cuda_ms(lambda: s3.smooth_res_restrict(s, rhs, A, omega, K, rk, R.lo, cshape), 5)
         out["K1"]["plain_ms"] = cuda_ms(lambda: s3.smooth_res_restrict_plain(s, rhs, A, omega, K, rk, R.lo, cshape), 3)
+        out["K1"]["composition_ms"] = cuda_ms(lambda: s3.res_restrict(
+            s3.rbgs_fused(s, rhs, A, omega, K), rhs, A, rk, R.lo, cshape), 5)
         out["K2"]["ms"] = cuda_ms(lambda: s3.prolong_correct_smooth(s, sol_c, rhs, A, omega, K, pk, P.lo), 5)
         out["K2"]["plain_ms"] = cuda_ms(lambda: s3.prolong_correct_smooth_plain(s, sol_c, rhs, A, omega, K, pk, P.lo), 3)
+        out["K2"]["composition_ms"] = cuda_ms(lambda: s3.rbgs_fused(
+            s3.prolong_correct(s, sol_c, pk, P.lo), rhs, A, omega, K), 5)
         phase("leg_times", level=level, K=K, **{f"{k}_{f}": f"{v[f]:.4f}" for k, v in out.items()
-                                                 for f in ("ms", "plain_ms")})
+                                                 for f in ("ms", "plain_ms", "composition_ms")})
     return out
+
+
+def leg_level_times(level, K):
+    """K1/K2 (legs3d.cu) and the compositions they replace, float32, on one
+    level's Laplacian: device ms of one call each."""
+    from exastencils_tpu_torch.core.stencil import node_prolongation, node_restriction
+    from exastencils_tpu_torch.ops.cuda import stream3d as s3
+    from exastencils_tpu_torch.ops.transfer import separable_kernels
+
+    A, sol, rhs, sol_c, cshape = leg_inputs(level, torch.float32, seed=level)
+    R, P = node_restriction(3), node_prolongation(3)
+    rk, pk = separable_kernels(R), separable_kernels(P)
+    t = {"K1_ms": lambda: s3.smooth_res_restrict(sol, rhs, A, OMEGA, K, rk, R.lo, cshape),
+         "K1_composition_ms": lambda: s3.res_restrict(s3.rbgs_fused(sol, rhs, A, OMEGA, K), rhs,
+                                                      A, rk, R.lo, cshape),
+         "K2_ms": lambda: s3.prolong_correct_smooth(sol, sol_c, rhs, A, OMEGA, K, pk, P.lo),
+         "K2_composition_ms": lambda: s3.rbgs_fused(s3.prolong_correct(sol, sol_c, pk, P.lo),
+                                                    rhs, A, OMEGA, K)}
+    phase("leg_level_times", level=level, K=K, chunk=s3.leg_chunk(sol.shape, _sm_count()),
+          **{k: f"{cuda_ms(fn, 10):.4f}" for k, fn in t.items()})
+
+
+def _sm_count():
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
+def leg_launch_shape(level, K):
+    """K1/K2's launch at one level in float32 and float64: per launch of
+    its chain the grid's blocks, threads and shared memory of a block, and
+    the blocks one SM holds (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    from exastencils_tpu_torch.ops.cuda import stream3d as s3
+
+    lib, n = s3.load_library(), 2 ** level + 1
+    chunk, tiles = s3.leg_chunk((n,) * 3, _sm_count()), -(-n // s3.LEG_TILE)
+    for kk, mode, reach in (("K1", s3.LEG_RESTRICT, 1), ("K2", s3.LEG_PROLONG, 0)):
+        for dtype in (torch.float32, torch.float64):
+            size, launches = torch.empty((), dtype=dtype).element_size(), []
+            for m, k in s3.leg_chain(mode, K, dtype, reach):
+                r = reach if m == s3.LEG_RESTRICT else 0
+                launches.append({"mode": m, "K": k, "blocks": tiles * tiles * -(-n // chunk),
+                                 "threads": s3._leg_threads(m, k, r),
+                                 "smem": s3._leg_smem(m, k, r, size),
+                                 "blocks_per_sm": lib.exa_leg_occupancy(m, k, r, int(size == 8))})
+            phase("leg_launch_shape", kernel=kk, level=level, K=K,
+                  dtype=str(dtype).split(".")[1], chunk=chunk, launches=launches)
+
+
+# K1/K2 at odd shapes, the smallest level, excl planes (one at a z-chunk
+# edge) and two z-chunks: (fine, coarse) shapes and excl planes
+LEG_CASES = (
+    (((5, 5, 5), (3, 3, 3)), None),
+    (((17, 33, 9), (9, 17, 5)), None),
+    (((17, 33, 9), (9, 17, 5)), (2, 14, -1, 20, 1, -1)),
+    (((65, 65, 65), (33, 33, 33)), (31, 33, -1, 16, 15, -1)),
+    (((139, 9, 17), (70, 5, 9)), None),
+    (((139, 9, 17), (70, 5, 9)), (127, 129, -1, -1, 8, -1)),
+)
+
+
+def bound(kk, n, nc, K, dtype):
+    """(bound_ms, bound_by) of kernel kk on a 3D grid of n^3 fine and nc^3
+    coarse nodes: the larger of the bytes it must move (each input read
+    once, each output written once) over PEAK_BYTES_S and its floating
+    point operations over PEAK_FLOPS.  Operations per inner node: 16 per
+    RBGS update (7 mul, 6 add, sub, mul, add), 14 per residual, 2 per
+    prolongation tap (27/8 taps per fine node on average); 2 per
+    restriction tap, 27 per coarse node."""
+    size = torch.empty((), dtype=dtype).element_size()
+    N, Nc, inner = n ** 3, nc ** 3, (n - 2) ** 3
+    leg, smooth, restrict, prolong = 3 * N + Nc, 3 * N, 2 * N + Nc, 2 * N + Nc
+    values, ops = {
+        "K1": (leg, (16 * K + 14) * inner + 54 * Nc),
+        "K2": (leg, (16 * K + 6.75) * inner),
+        "K3": (smooth, 16 * K * inner),
+        "K4": (restrict, 14 * inner + 54 * Nc),
+        "K5": (prolong, 6.75 * inner),
+    }[{"K6": "K3", "K7": "K1", "K8": "K2"}.get(kk, kk)]
+    t_bytes, t_ops = values * size / PEAK_BYTES_S * 1e3, ops / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def compare_fused(level, K, dtype, excl=None, timed=False):
@@ -326,7 +455,7 @@ def dsl_executable(path, device, fastpath=True, dims=3, min_level=1, max_level=N
                    f64=False, lines=None):
     """The port's L4Executable for an example program, as bench.py's
     bench_dsl builds it (float32 unless f64)."""
-    from exastencils_tpu.dsl.parser import parse_l4
+    from exastencils_tpu_torch.dsl.parser import parse_l4
 
     from exastencils_tpu_torch import Knowledge
     from exastencils_tpu_torch.dsl.interpreter import L4Executable
@@ -454,6 +583,10 @@ def main():
     for level, K in ((4, 1), (5, 3)):
         for dtype in (torch.float64, torch.float32):
             compare_legs(level, K, dtype)
+    for shape, excl in LEG_CASES:
+        for K in (1, 2, 3, 4):
+            for dtype in (torch.float64, torch.float32):
+                compare_legs(None, K, dtype, shape=shape, excl=excl)
     for level in (4, 5):
         for K in (1, 3):
             for dtype in (torch.float64, torch.float32):
@@ -467,15 +600,19 @@ def main():
     for dtype in (torch.float64, torch.float32):
         compare_wavefronts(5, 3, dtype, excl=(2, 30, -1, 5, 1, -1))
     full = compare_legs(MAIN_LEVEL, K_MAIN, torch.float32, timed=True)
+    leg_launch_shape(MAIN_LEVEL, K_MAIN)
+    for level in range(2, MAIN_LEVEL):
+        leg_level_times(level, K_MAIN)
     full.update(compare_fused(MAIN_LEVEL, K_MAIN, torch.float32, timed=True))
     full.update(compare_wavefronts(MAIN_LEVEL, K_MAIN, torch.float32, timed=True))
 
     none = dict.fromkeys(KERNELS, 0)
-    per_level = 2 * K_MAIN + 1  # 2K half-sweeps + 1 transfer per leg and level
-    per_leg = (MAIN_LEVEL - 1) * per_level  # levels 2..9
+    # legs3d.cu launches per leg and level: one (K=3 fits one launch in float32)
+    per_level = {kk: len(s3.leg_chain(m, K_MAIN, torch.float32, r))
+                 for kk, m, r in (("K1", s3.LEG_RESTRICT, 1), ("K2", s3.LEG_PROLONG, 0))}
     launches = {}
-    main, main_ms = path_with_and_without_kernels("main_path",
-                                                  {**none, "K1": per_leg, "K2": per_leg}, 0.1)
+    main, main_ms = path_with_and_without_kernels(
+        "main_path", {**none, **{kk: (MAIN_LEVEL - 1) * v for kk, v in per_level.items()}}, 0.1)
     launches.update(K1=main["K1"], K2=main["K2"])
     transfers = MAIN_LEVEL - 1  # one K4 and one K5 per level 2..9
     jac, _ = path_with_and_without_kernels("jacobi_path", {**none, "K4": transfers, "K5": transfers},
@@ -502,8 +639,7 @@ def main():
         solve_both("rbgs_v1")
         solve_both("fas_v1", solver_useFAS=True)
     dsl_levels = MAIN_LEVEL - 4  # levels 5..9: >= 33 nodes per dim (dsl/fastpath.py)
-    fast = drive_dsl("dsl_path", True, {**none, "K1": dsl_levels * per_level,
-                                        "K2": dsl_levels * per_level})
+    fast = drive_dsl("dsl_path", True, {**none, **{kk: dsl_levels * v for kk, v in per_level.items()}})
     plain = drive_dsl("dsl_path", False, none)
     dsl_fast_vs_plain(fast, plain)
     dsl_ms, dsl_plain_ms = fast[0], plain[0]
@@ -521,10 +657,15 @@ def main():
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
 
-    kernels = [{"name": f"{kk} {fn}", "route": "cuda", "source": SOURCES[kk],
-                "replaces": rep, "launches": launches[kk], "max_abs_err": full[kk]["max_abs_err"],
-                "ms": full[kk]["ms"], "plain_ms": full[kk]["plain_ms"]}
-               for kk, (fn, rep) in KERNELS.items()]
+    n, nc = 2 ** MAIN_LEVEL + 1, 2 ** (MAIN_LEVEL - 1) + 1
+    kernels = []
+    for kk, (fn, rep) in KERNELS.items():
+        b_ms, b_by = bound(kk, n, nc, K_MAIN, torch.float32)
+        kernels.append({"name": f"{kk} {fn}", "route": "cuda", "source": SOURCES[kk],
+                        "replaces": rep, "launches": launches[kk],
+                        "max_abs_err": full[kk]["max_abs_err"], "ms": full[kk]["ms"],
+                        "plain_ms": full[kk]["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
+                        "library_ms": None})  # no single PyTorch call computes any of them
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

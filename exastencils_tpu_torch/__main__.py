@@ -44,8 +44,8 @@ def main(argv=None):
 
     import torch
 
-    from exastencils_tpu.config import Knowledge
-    from exastencils_tpu.config.parser import parse_config_file
+    from exastencils_tpu_torch.config import Knowledge
+    from exastencils_tpu_torch.config.parser import parse_config_file
 
     from exastencils_tpu_torch.device import real_dtype
     from exastencils_tpu_torch.dsl.driver import build_program
@@ -84,7 +84,7 @@ def main(argv=None):
         ex.run(args.function)
 
     if args.check:
-        from exastencils_tpu.native import check_results
+        from exastencils_tpu_torch.native import check_results
 
         with tempfile.NamedTemporaryFile("w", suffix=".out", delete=False) as f:
             f.write("\n".join(lines) + ("\n" if lines else ""))

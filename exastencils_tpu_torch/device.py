@@ -1,7 +1,8 @@
 """Device and dtype selection for the port.
 
 Reference: `Knowledge.real_dtype` (exastencils_tpu/config/knowledge.py:224-229),
-which imports jax and is therefore not called here.  The device is always
+which returns a jax.numpy dtype; the port's copy of Knowledge returns
+this module's torch dtype instead.  The device is always
 passed explicitly; only the CPU (the plain PyTorch path) and CUDA (the
 hand-written kernels) are supported.
 """

@@ -1,5 +1,6 @@
 """ExaSlang L4 execution on PyTorch (reference: exastencils_tpu/dsl).
 
 The front end (lexer, parser, nodes, L1-L3, solver generation, grid
-calls) is imported from exastencils_tpu.dsl, which is jax-free; this
-package ports the executor and what it reaches."""
+calls) is a copy of the JAX package's jax-free front end, so the port
+imports nothing of exastencils_tpu; beside it this package ports the
+executor and what it reaches."""

@@ -3,8 +3,8 @@
 Reference: exastencils_tpu/dsl/driver.py (copied: that module imports
 the JAX executor).  Parse the deepest declared layer file, progress
 L1->L2 (FD discretization), merge L2/L3/L4 files, expand `generate
-solver`, and build an executable L4 program; the front end itself is
-imported from exastencils_tpu.dsl.  `run_config` runs it on the port's
+solver`, and build an executable L4 program with the port's copy of
+the front end.  `run_config` runs it on the port's
 L4Executable on an explicit device.
 
 Settings keys honored: l1file..l4file, basePathPrefix, configName with
@@ -17,13 +17,13 @@ import os
 import re
 from typing import Dict, Optional
 
-from exastencils_tpu.config import Knowledge
-from exastencils_tpu.config.parser import _strip_comment, parse_config_file, parse_value
-from exastencils_tpu.dsl import nodes as N
-from exastencils_tpu.dsl.l1 import discretize_l1, parse_l1_file
-from exastencils_tpu.dsl.l2 import parse_l2_file
-from exastencils_tpu.dsl.l3 import L3Program, lower_l3, parse_l3_file
-from exastencils_tpu.dsl.parser import parse_l4
+from exastencils_tpu_torch.config import Knowledge
+from exastencils_tpu_torch.config.parser import _strip_comment, parse_config_file, parse_value
+from exastencils_tpu_torch.dsl import nodes as N
+from exastencils_tpu_torch.dsl.l1 import discretize_l1, parse_l1_file
+from exastencils_tpu_torch.dsl.l2 import parse_l2_file
+from exastencils_tpu_torch.dsl.l3 import L3Program, lower_l3, parse_l3_file
+from exastencils_tpu_torch.dsl.parser import parse_l4
 
 from exastencils_tpu_torch.dsl.interpreter import L4Executable
 

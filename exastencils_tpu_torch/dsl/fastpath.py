@@ -62,7 +62,7 @@ from typing import Callable, List, Optional
 import numpy as np
 import torch
 
-from exastencils_tpu.dsl import nodes as N
+from exastencils_tpu_torch.dsl import nodes as N
 
 from exastencils_tpu_torch.core.field import DirichletBC, Field
 from exastencils_tpu_torch.core.grid import NODE

@@ -14,8 +14,8 @@ import math
 import numpy as np
 import torch
 
-from exastencils_tpu.dsl import nodes as N
-from exastencils_tpu.utils.printing import reduced_prec_str
+from exastencils_tpu_torch.dsl import nodes as N
+from exastencils_tpu_torch.utils.printing import reduced_prec_str
 
 from exastencils_tpu_torch.core import matval as MV
 from exastencils_tpu_torch.core.matval import MatVal, is_mat
@@ -60,7 +60,7 @@ class L4BuiltinsMixin:
             hit = self._gridcall_cache.get(key)
             cached = hit[1] if hit is not None and hit[0] is e else None
             if cached is None:
-                from exastencils_tpu.dsl.gridops import expand_grid_call
+                from exastencils_tpu_torch.dsl.gridops import expand_grid_call
 
                 def loc_of(nm):
                     if nm in self.stencil_templates:

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from exastencils_tpu.dsl import nodes as N
+from exastencils_tpu_torch.dsl import nodes as N
 
 from exastencils_tpu_torch.core.field import DirichletBC
 from exastencils_tpu_torch.core.grid import CELL, FACES, NODE

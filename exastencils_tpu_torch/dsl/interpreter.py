@@ -30,8 +30,8 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from exastencils_tpu.config import Knowledge
-from exastencils_tpu.dsl import nodes as N
+from exastencils_tpu_torch.config import Knowledge
+from exastencils_tpu_torch.dsl import nodes as N
 
 from exastencils_tpu_torch.core.domain import AABB, Domain, unit_domain
 from exastencils_tpu_torch.core.field import DirichletBC, Field, NeumannBC

@@ -1,8 +1,7 @@
 """Whole-program field liveness for the L4 fast path.
 
-Reference: exastencils_tpu/dsl/liveness.py (the same code: it was
-jax-free apart from importing DirichletBC from exastencils_tpu.core,
-whose package imports jax; here that is the port's DirichletBC).
+Reference: exastencils_tpu/dsl/liveness.py (the same code, on the
+port's own AST nodes and DirichletBC).
 
 The fused down leg (pre-smooth + residual + restriction in one
 memory pass, dsl/fastpath.py) never materializes the residual field the
@@ -31,9 +30,8 @@ from __future__ import annotations
 
 from typing import Dict, FrozenSet, List, Optional, Tuple
 
-from exastencils_tpu.dsl import nodes as N
-
 from exastencils_tpu_torch.core.field import DirichletBC
+from exastencils_tpu_torch.dsl import nodes as N
 
 Key = Tuple[str, int]  # (field name, level)
 

@@ -15,7 +15,7 @@ from typing import Callable, Optional
 
 import torch
 
-from exastencils_tpu.config import Knowledge
+from exastencils_tpu_torch.config import Knowledge
 
 from exastencils_tpu_torch.core.domain import Domain, unit_domain
 from exastencils_tpu_torch.core.field import DirichletBC, Field

@@ -23,16 +23,17 @@ K3/K1/K2 (the v2 schedule, the default) or, with EXA_STREAM_V1=1 in the
 environment when they are called, K6/K7/K8 (the v1 single-plane
 schedule).
 
-The kernels are CUDA C++ for sm_90a in ../../csrc/ (stream3d.cu: K1-K5;
-wavefront3d.cu: K6-K8), compiled with nvcc on first use into
-build/exastencils_tpu_torch/ at the repository root and loaded with
-ctypes.  A wrapper given CUDA tensors launches the kernels (or raises);
-given CPU tensors it runs the plain version; any other device raises.
-Each wrapper counts the kernel launches it makes in its own `.launches`.
-K1-K3 and K5 update `sol` in place and return it, where the JAX version
-relied on the donated iterate; K6-K8 write a new tensor and return it
-(their blocks run concurrently, so an in-place write would race with a
-neighbour block's halo loads).
+The kernels are CUDA C++ for sm_90a in ../../csrc/ (legs3d.cu: K1/K2,
+one launch per leg; stream3d.cu: K3-K5; wavefront3d.cu: K6-K8), compiled
+with nvcc on first use into build/exastencils_tpu_torch/ at the
+repository root and loaded with ctypes.  A wrapper given CUDA tensors
+launches the kernels (or raises); given CPU tensors it runs the plain
+version; any other device raises.  Each wrapper counts the kernel
+launches it makes in its own `.launches`.  K1-K3 and K5 update `sol` in
+place and return it, where the JAX version relied on the donated
+iterate: K1/K2's blocks run concurrently on overlapping windows, so their
+kernel writes a second tensor, which the wrapper copies back into `sol`.
+K6-K8 write a new tensor and return it.
 """
 
 from __future__ import annotations
@@ -40,6 +41,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import hashlib
+import itertools
 import os
 import shutil
 import subprocess
@@ -61,7 +63,7 @@ NO_EXCL = (-1,) * 6  # per-dim lo/hi planes excluded from updates; -1 = none
 MAX_TAPS = 3  # transfer taps per dim the kernels take (kMaxTaps)
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
-SOURCES = (CSRC / "stream3d.cu", CSRC / "wavefront3d.cu")
+SOURCES = (CSRC / "stream3d.cu", CSRC / "wavefront3d.cu", CSRC / "legs3d.cu")
 HEADERS = (CSRC / "star3d.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "exastencils_tpu_torch"
 # --fmad=false: no mul+add contraction, so the RBGS and residual
@@ -74,6 +76,12 @@ NVCC_FLAGS = (
 # dynamic shared memory one block may use on Hopper (227 KB)
 WAVE_TILE = 32
 SMEM_LIMIT = 232448
+# K1/K2 (legs3d.cu): leg_kernel's modes; one block's (y, x) output tile
+# edge and largest z-chunk, the planes in flight ahead of the one swept,
+# and the iterations one launch holds (kLegTile, kLegChunk, kLegAhead,
+# kMaxLegK)
+LEG_SMOOTH, LEG_PROLONG, LEG_RESTRICT = 0, 1, 2
+LEG_TILE, LEG_CHUNK, LEG_AHEAD, MAX_LEG_K = 32, 128, 2, 3
 
 
 def _star_coefs(offsets, coefs, ndim: int):
@@ -171,6 +179,10 @@ def load_library() -> ctypes.CDLL:
     pd, pi = ctypes.POINTER(ctypes.c_double), ctypes.POINTER(ctypes.c_int)
     lib.exa_max_taps.argtypes, lib.exa_max_taps.restype = [], i
     lib.exa_wavefront_tile.argtypes, lib.exa_wavefront_tile.restype = [], i
+    lib.exa_leg_constant.argtypes, lib.exa_leg_constant.restype = [i], i
+    lib.exa_leg_occupancy.argtypes, lib.exa_leg_occupancy.restype = [i, i, i, i], i
+    lib.exa_leg_smem.argtypes, lib.exa_leg_smem.restype = [i, i, i, i], ctypes.c_longlong
+    lib.exa_leg.argtypes = [p, p, p, p, p, i, i, i, i, i, i, pd, d, i, i, i, i, pd, pi, pi, pi, i, p]
     lib.exa_error_string.argtypes, lib.exa_error_string.restype = [i], ctypes.c_char_p
     lib.exa_rbgs_half_sweep.argtypes = [p, p, i, i, i, pd, d, i, pi, i, p]
     lib.exa_residual_restrict.argtypes = [p, p, p, i, i, i, i, i, i, pd, pd, pi, pi, pi, i, p]
@@ -182,12 +194,19 @@ def load_library() -> ctypes.CDLL:
         p, p, p, p, i, i, i, i, i, i, pd, d, i, pd, pi, pi, i, p]
     for fn in (lib.exa_rbgs_half_sweep, lib.exa_residual_restrict, lib.exa_prolong_correct,
                lib.exa_rbgs_wavefront, lib.exa_smooth_res_restrict_wavefront,
-               lib.exa_prolong_correct_smooth_wavefront):
+               lib.exa_prolong_correct_smooth_wavefront, lib.exa_leg):
         fn.restype = i
     if lib.exa_max_taps() != MAX_TAPS:
         raise RuntimeError(f"{so}: kMaxTaps {lib.exa_max_taps()} != {MAX_TAPS}")
     if lib.exa_wavefront_tile() != WAVE_TILE:
         raise RuntimeError(f"{so}: kWaveTile {lib.exa_wavefront_tile()} != {WAVE_TILE}")
+    leg = tuple(lib.exa_leg_constant(k) for k in range(4))
+    if leg != (LEG_TILE, LEG_CHUNK, LEG_AHEAD, MAX_LEG_K):
+        raise RuntimeError(f"{so}: legs3d.cu's layout constants {leg} differ from the wrapper's")
+    for args in itertools.product((LEG_SMOOTH, LEG_PROLONG, LEG_RESTRICT),
+                                  range(1, MAX_LEG_K + 1), (0, 1), (4, 8)):
+        if lib.exa_leg_smem(*args) != _leg_smem(*args):
+            raise RuntimeError(f"{so}: legs3d.cu's leg_smem{args} differs from the wrapper's")
     return lib
 
 
@@ -383,24 +402,129 @@ def prolong_correct_smooth_plain(sol, sol_c, rhs, A: BoundStencil, omega: float,
 # ----------------------------------------------------------------------
 
 
+def leg_halo(mode: int, K: int, reach: int) -> int:
+    """The window's halo around one block's tile (legs3d.cu geom_for):
+    2K, K1 2K+1+reach."""
+    return 2 * K + 1 + reach if mode == LEG_RESTRICT else 2 * K
+
+
+def _leg_smem(mode: int, K: int, reach: int, itemsize: int) -> int:
+    """Dynamic shared memory of one K1/K2 block (leg_smem in legs3d.cu):
+    rings of 2K+2+LEG_AHEAD window planes (K1: one more) of sol and of rhs,
+    then K2's 4 coarse boxes and 2 boxes of their z-sums, or K1's 4 boxes
+    of z-sums (the tile plus `reach`)."""
+    r = LEG_TILE + 2 * leg_halo(mode, K, reach)
+    down = mode == LEG_RESTRICT
+    slots = 2 * (2 * K + 2 + down + LEG_AHEAD)
+    extra = (6 * ((r + MAX_TAPS) // 2 + 1) ** 2 if mode == LEG_PROLONG
+             else 4 * (LEG_TILE + 2 * reach) ** 2 if down else 0)
+    return (slots * r * r + extra) * itemsize
+
+
+def _leg_threads(mode: int, K: int, reach: int) -> int:
+    """One thread per pair of window columns (K1: per two pairs), in whole
+    warps (leg_threads in legs3d.cu)."""
+    r = LEG_TILE + 2 * leg_halo(mode, K, reach)
+    threads = -(-r * (r // 2) // (2 if mode == LEG_RESTRICT else 1))
+    return -(-threads // 32) * 32
+
+
+def max_leg_k(dtype: torch.dtype, mode: int, reach: int = 1) -> int:
+    """The deepest K that one K1/K2 launch of `mode` holds: at most
+    MAX_LEG_K, its shared memory within one block's 227 KB and its threads
+    within 1024 (K1: 768).  With the node restriction: 3 in float32; in
+    float64 K2 2 and K1 1."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    limit = 768 if mode == LEG_RESTRICT else 1024
+    k = 0
+    while (k < MAX_LEG_K and _leg_smem(mode, k + 1, reach, itemsize) <= SMEM_LIMIT
+           and _leg_threads(mode, k + 1, reach) <= limit):
+        k += 1
+    return k
+
+
+def leg_chunk(shape, n_sm: int) -> int:
+    """Fine z-planes of one K1/K2 block on a level of `shape`: LEG_CHUNK,
+    halved (down to 4) while the grid would give fewer than two blocks to
+    each of the card's `n_sm` SMs; small levels trade the z-halo's
+    recomputation for parallelism."""
+    nz, ny, nx = (int(n) for n in shape)
+    tiles = -(-ny // LEG_TILE) * -(-nx // LEG_TILE)
+    chunk = LEG_CHUNK
+    while chunk > 4 and -(-nz // chunk) * tiles < 2 * n_sm:
+        chunk //= 2
+    return chunk
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def leg_chain(mode: int, K: int, dtype: torch.dtype, reach: int = 1):
+    """The launches [(mode, k), ...] of one K1 (LEG_RESTRICT) or K2
+    (LEG_PROLONG) call of K iterations: one launch up to max_leg_k; a
+    deeper K2 smooths the rest in LEG_SMOOTH launches after its first, a
+    deeper K1 before its last."""
+    kmax, ksmooth = max_leg_k(dtype, mode, reach), max_leg_k(dtype, LEG_SMOOTH)
+    if kmax < 1:
+        raise ValueError(f"restriction reach {reach} leaves no room for K1's window")
+    k = min(K, kmax)
+    rest = []
+    for _ in range(-(-(K - k) // ksmooth)):
+        rest.append((LEG_SMOOTH, min(ksmooth, K - k - ksmooth * len(rest))))
+    return [(mode, k)] + rest if mode == LEG_PROLONG else rest + [(mode, k)]
+
+
+_NO_TAPS = ((0.0,),) * 3, (0, 0, 0)
+
+
+def _leg_launches(sol, rhs, A, omega, K, mode, kernels, lo, excl, counted,
+                  sol_c=None, coarse_shape=None):
+    """The launches of leg_chain(mode, K) on CUDA tensors, each out of place
+    into the other of (sol, a scratch tensor); the result ends in sol.
+    Returns K1's coarse rhs (None for K2)."""
+    lib, excl_c = load_library(), _excl_array(excl)
+    c0, coefs = _star_array(A)
+    reach = _restrict_reach(kernels, lo) if mode == LEG_RESTRICT else 0
+    nz, ny, nx = sol.shape
+    nzc, nyc, nxc = sol_c.shape if sol_c is not None else coarse_shape
+    cur, spare, out_c = sol, torch.empty_like(sol), None
+    chunk = leg_chunk(sol.shape, _sm_count(sol.device.index))
+    for m, k in leg_chain(mode, K, sol.dtype, reach):
+        taps, ntaps, tlo = _taps_arrays(*((kernels, lo) if m != LEG_SMOOTH else _NO_TAPS))
+        if m == LEG_RESTRICT:
+            out_c = torch.empty((nzc, nyc, nxc), dtype=sol.dtype, device=sol.device)
+        err = lib.exa_leg(
+            spare.data_ptr(), (out_c if out_c is not None else spare).data_ptr(),
+            cur.data_ptr(), (sol_c if sol_c is not None else cur).data_ptr(), rhs.data_ptr(),
+            nz, ny, nx, nzc, nyc, nxc, coefs, omega / c0, k, reach, m, chunk, taps, ntaps, tlo,
+            excl_c, _is_double(sol), _stream())
+        _check(lib, err, "leg_kernel")
+        counted.launches += 1
+        cur, spare = spare, cur
+    if cur is not sol:
+        sol.copy_(cur)
+    return out_c
+
+
 def smooth_res_restrict(sol, rhs, A: BoundStencil, omega: float, K: int,
                         r_kernels, r_lo, coarse_shape: Tuple[int, int, int],
                         excl=NO_EXCL):
     """K1, the whole down leg: K RBGS iterations on `sol` (in place), then
     the residual restricted to `coarse_shape`.  Returns (sol, coarse rhs).
     `r_kernels`/`r_lo` are the per-dim restriction taps and window offsets
-    (ops/transfer.separable_kernels, IntergridStencil.lo)."""
+    (ops/transfer.separable_kernels, IntergridStencil.lo).  On CUDA one
+    legs3d.cu launch for K up to max_leg_k (leg_chain beyond)."""
     if _device_type(sol, rhs) == "cpu":
         new, rc = smooth_res_restrict_plain(sol, rhs, A, omega, K, r_kernels,
                                             r_lo, coarse_shape, excl)
         return sol.copy_(new), rc
     _check_cuda_fields(sol, rhs)
     _check_shapes(sol, rhs, coarse_shape)
-    lib, excl_c = load_library(), _excl_array(excl)
     with torch.cuda.device(sol.device):
-        _half_sweeps(lib, sol, rhs, A, omega, K, excl_c, smooth_res_restrict)
-        out = _residual_restrict(lib, sol, rhs, A, r_kernels, r_lo, coarse_shape, excl_c)
-        smooth_res_restrict.launches += 1
+        out = _leg_launches(sol, rhs, A, omega, K, LEG_RESTRICT, r_kernels, r_lo, excl,
+                            smooth_res_restrict, coarse_shape=tuple(int(n) for n in coarse_shape))
     return sol, out
 
 
@@ -410,17 +534,16 @@ smooth_res_restrict.launches = 0
 def prolong_correct_smooth(sol, sol_c, rhs, A: BoundStencil, omega: float,
                            K: int, p_kernels, p_lo, excl=NO_EXCL):
     """K2, the whole up leg: sol += P sol_c on inner nodes, then K RBGS
-    iterations, all in place on `sol`.  Returns sol."""
+    iterations, all in place on `sol`.  Returns sol.  On CUDA one
+    legs3d.cu launch for K up to max_leg_k (leg_chain beyond)."""
     if _device_type(sol, sol_c, rhs) == "cpu":
         return sol.copy_(prolong_correct_smooth_plain(
             sol, sol_c, rhs, A, omega, K, p_kernels, p_lo, excl))
     _check_cuda_fields(sol, sol_c, rhs)
     _check_shapes(sol, rhs)
-    lib, excl_c = load_library(), _excl_array(excl)
     with torch.cuda.device(sol.device):
-        _prolong_correct(lib, sol, sol_c, p_kernels, p_lo, excl_c)
-        prolong_correct_smooth.launches += 1
-        _half_sweeps(lib, sol, rhs, A, omega, K, excl_c, prolong_correct_smooth)
+        _leg_launches(sol, rhs, A, omega, K, LEG_PROLONG, p_kernels, p_lo, excl,
+                      prolong_correct_smooth, sol_c=sol_c)
     return sol
 
 

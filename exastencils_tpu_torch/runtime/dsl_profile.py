@@ -41,7 +41,7 @@ BENCH_EXA4 = os.path.join(os.path.dirname(os.path.abspath(__file__)), os.pardir,
 
 
 def bench_executable(max_level: int, fastpath: bool):
-    from exastencils_tpu.dsl.parser import parse_l4
+    from exastencils_tpu_torch.dsl.parser import parse_l4
 
     from exastencils_tpu_torch import Knowledge
     from exastencils_tpu_torch.dsl.interpreter import L4Executable

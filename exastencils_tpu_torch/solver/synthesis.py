@@ -17,8 +17,8 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Callable, Dict, Optional, Union
 
-from exastencils_tpu.config import Knowledge
-from exastencils_tpu.utils.printing import reduced_prec_str
+from exastencils_tpu_torch.config import Knowledge
+from exastencils_tpu_torch.utils.printing import reduced_prec_str
 
 from exastencils_tpu_torch.core.field import Field
 from exastencils_tpu_torch.core.grid import CELL, FACES, NODE

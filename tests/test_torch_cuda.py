@@ -41,9 +41,17 @@ def laplacian(level, dtype, device):
     return laplace_stencil(3).bind(level_grids(unit_domain(3), k, device, dtype=dtype)[level])
 
 
+def leg_launches(mode, K, dtype):
+    """legs3d.cu launches of one K1/K2 call: one up to max_leg_k."""
+    return len(s3.leg_chain(mode, K, dtype, 1 if mode == s3.LEG_RESTRICT else 0))
+
+
 @pytest.mark.parametrize("level,K", [(4, 1), (5, 3)])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_legs_match_plain(cuda, level, K, dtype):
+    """K1/K2 (legs3d.cu): one launch per call up to max_leg_k; the smoothed
+    sol bitwise the plain version's; K1's coarse rhs and K2 bitwise the
+    compositions K3+K4 and K5+K3, and within TOL of the plain versions."""
     rng = np.random.default_rng(level * 10 + K)
     n, nc = 2 ** level + 1, 2 ** (level - 1) + 1
     sol, rhs = (torch.from_numpy(rng.standard_normal((n,) * 3)).to(cuda, dtype) for _ in range(2))
@@ -56,10 +64,15 @@ def test_legs_match_plain(cuda, level, K, dtype):
     u_got = s3.prolong_correct_smooth(sol.clone(), sol_c, rhs, A, OMEGA, K, pk, P.lo)
     torch.cuda.synchronize()
     assert (s3.smooth_res_restrict.launches - n0[0],
-            s3.prolong_correct_smooth.launches - n0[1]) == (2 * K + 1, 2 * K + 1)
+            s3.prolong_correct_smooth.launches - n0[1]) == (
+        leg_launches(s3.LEG_RESTRICT, K, dtype), leg_launches(s3.LEG_PROLONG, K, dtype))
     s_ref, rc_ref = s3.smooth_res_restrict_plain(sol, rhs, A, OMEGA, K, rk, R.lo, (nc,) * 3)
     u_ref = s3.prolong_correct_smooth_plain(sol, sol_c, rhs, A, OMEGA, K, pk, P.lo)
     assert torch.equal(s_got, s_ref)  # --fmad=false: the RBGS is bitwise
+    assert torch.equal(rc_got, s3.res_restrict(s3.rbgs_fused(sol.clone(), rhs, A, OMEGA, K),
+                                               rhs, A, rk, R.lo, (nc,) * 3))
+    assert torch.equal(u_got, s3.rbgs_fused(s3.prolong_correct(sol.clone(), sol_c, pk, P.lo),
+                                            rhs, A, OMEGA, K))
     for got, ref in ((rc_got, rc_ref), (u_got, u_ref)):
         assert (got - ref).abs().max().item() <= TOL[dtype] * ref.abs().max().item()
 
@@ -142,6 +155,35 @@ def test_rbgs_wavefront_tile_edges(cuda, level):
             assert torch.equal(s3.rbgs_wavefront(sol, rhs, A, OMEGA, 3), ref)
 
 
+@pytest.mark.parametrize("level", [7, 9])
+def test_legs_tile_edges(cuda, level):
+    """K1/K2's blocks run concurrently on overlapping windows; a block that
+    read a neighbour's output, or missed a node of its halo or z-chunk,
+    would differ at tile or chunk edges, and only sometimes.  Several
+    seeds, each run three times, all bitwise: K1's sol the plain version's,
+    its coarse rhs K3+K4's, K2 K5+K3's."""
+    n, nc = 2 ** level + 1, 2 ** (level - 1) + 1
+    A = laplacian(level, torch.float32, cuda)
+    R, P = node_restriction(3), node_prolongation(3)
+    rk, pk = separable_kernels(R), separable_kernels(P)
+    for seed in range(3):
+        rng = np.random.default_rng(seed)
+        sol, rhs = (torch.from_numpy(rng.standard_normal((n,) * 3)).to(cuda, torch.float32)
+                    for _ in range(2))
+        sol_c = torch.from_numpy(rng.standard_normal((nc,) * 3)).to(cuda, torch.float32)
+        s_ref = s3.rbgs_fused_plain(sol, rhs, A, OMEGA, 3)
+        rc_ref = s3.res_restrict(s3.rbgs_fused(sol.clone(), rhs, A, OMEGA, 3), rhs, A, rk, R.lo,
+                                 (nc,) * 3)
+        u_ref = s3.rbgs_fused(s3.prolong_correct(sol.clone(), sol_c, pk, P.lo), rhs, A, OMEGA, 3)
+        for _ in range(3):
+            s_got, rc_got = s3.smooth_res_restrict(sol.clone(), rhs, A, OMEGA, 3, rk, R.lo,
+                                                   (nc,) * 3)
+            u_got = s3.prolong_correct_smooth(sol.clone(), sol_c, rhs, A, OMEGA, 3, pk, P.lo)
+            assert torch.equal(s_got, s_ref)
+            assert torch.equal(rc_got, rc_ref)
+            assert torch.equal(u_got, u_ref)
+
+
 def test_wrapper_rejects_non_contiguous(cuda):
     A = laplacian(3, torch.float64, cuda)
     R = node_restriction(3)
@@ -214,9 +256,8 @@ BENCH_EXA4 = os.path.join(os.path.dirname(os.path.abspath(__file__)), os.pardir,
 
 def dsl_bench(device, max_level=6, fastpath=True):
     """The bench program at maxLevel `max_level`, f64: (executable, lines)."""
-    from exastencils_tpu.dsl.parser import parse_l4
-
     from exastencils_tpu_torch.dsl.interpreter import L4Executable
+    from exastencils_tpu_torch.dsl.parser import parse_l4
 
     k = Knowledge(dimensionality=3, minLevel=1, maxLevel=max_level, useDblPrecision=True,
                   tpu_shard_dsl=False, tpu_dsl_fastpath=fastpath).update()
@@ -237,8 +278,9 @@ def test_dsl_on_cuda_prints_the_cpu_lines(cuda):
 @pytest.mark.parametrize("v1", [False, True])
 def test_dsl_cycle_launches_the_leg_kernels(cuda, monkeypatch, v1):
     """One MGCycle@finest at maxLevel 6: levels 5 and 6 (>= 33 nodes) run
-    the whole-leg kernels, K1/K2 2K+1 = 7 launches per level and leg, or
-    with EXA_STREAM_V1=1 K7/K8 one launch per level and leg."""
+    the whole-leg kernels, K1/K2 leg_launches per level and leg (f64, K=3:
+    two, as one launch holds K2 2 and K1 1 iterations in f64), or with
+    EXA_STREAM_V1=1 K7/K8 one launch per level and leg."""
     if v1:
         monkeypatch.setenv("EXA_STREAM_V1", "1")
     kernels = (s3.smooth_res_restrict, s3.prolong_correct_smooth, s3.rbgs_fused,
@@ -251,7 +293,8 @@ def test_dsl_cycle_launches_the_leg_kernels(cuda, monkeypatch, v1):
     ex.call_function(ex.functions[("MGCycle", finest)], finest, [])
     torch.cuda.synchronize()
     moved = [fn.launches - k for fn, k in zip(kernels, n0)]
-    assert moved == ([0, 0, 0, 2, 2, 0] if v1 else [14, 14, 0, 0, 0, 0])
+    k1, k2 = (2 * leg_launches(m, 3, torch.float64) for m in (s3.LEG_RESTRICT, s3.LEG_PROLONG))
+    assert moved == ([0, 0, 0, 2, 2, 0] if v1 else [k1, k2, 0, 0, 0, 0])
 
 
 def test_dsl_profile_reports_every_level(cuda):

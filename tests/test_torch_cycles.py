@@ -1,7 +1,8 @@
 """The port's Jacobi, FAS and V(0,2) solves against the JAX package: the
 paths that run the fused smoother K3 and the fused transfers K4/K5.
 
-Both packages get the same Knowledge and the same initial state
+Both packages get a Knowledge of the same keywords (each its own class)
+and the same initial state
 (interop.from_jax_state) and must select the same kernels on every level,
 print identical residual/error lines and take the same number of cycles.
 Float64 on the CPU; the JAX side runs its Pallas kernels in interpret
@@ -12,9 +13,10 @@ import numpy as np
 import pytest
 import torch
 
-from exastencils_tpu.config import Knowledge
+from exastencils_tpu.config import Knowledge as JaxKnowledge
 from exastencils_tpu.models.poisson import PoissonMGSolver as JaxPoisson
 
+from exastencils_tpu_torch import Knowledge
 from exastencils_tpu_torch.interop import from_jax_state
 from exastencils_tpu_torch.models.poisson import PoissonMGSolver
 
@@ -30,7 +32,7 @@ def kernel_modes(solver):
 
 
 def build_both(knowledge_kw, model_kw):
-    js = JaxPoisson(Knowledge(**knowledge_kw).update(), **model_kw)
+    js = JaxPoisson(JaxKnowledge(**knowledge_kw).update(), **model_kw)
     ts = PoissonMGSolver(Knowledge(**knowledge_kw).update(), device="cpu", **model_kw)
     return js, ts
 

@@ -1,8 +1,9 @@
 """The port's ExaSlang L4 executor against the JAX package's, on the CPU.
 
-The same programs and Knowledge go through `exastencils_tpu.dsl` and
-`exastencils_tpu_torch.dsl`; in float64 the two must print the same
-lines.  The JAX side runs with its fast path off or only plans (never its
+The same program files and Knowledge keywords go through
+`exastencils_tpu.dsl` and `exastencils_tpu_torch.dsl`, each package
+parsing the program and building the Knowledge with its own front end;
+in float64 the two must print the same lines.  The JAX side runs with its fast path off or only plans (never its
 Pallas kernels, so no interpret mode); the port's fast path is forced on
 the CPU with EXA_FASTPATH_FORCE=1, where the kernel wrappers run their
 plain versions.  Also: no jax behind the port's DSL modules, the fast
@@ -17,11 +18,13 @@ import numpy as np
 import pytest
 import torch
 
-from exastencils_tpu.config import Knowledge
+from exastencils_tpu.config import Knowledge as JaxKnowledge
 from exastencils_tpu.dsl.interpreter import L4Executable as JaxL4
-from exastencils_tpu.dsl.parser import parse_l4
+from exastencils_tpu.dsl.parser import parse_l4 as jax_parse_l4
 
+from exastencils_tpu_torch import Knowledge
 from exastencils_tpu_torch.dsl.interpreter import L4Executable
+from exastencils_tpu_torch.dsl.parser import parse_l4
 from exastencils_tpu_torch.interop import dsl_state_from_jax
 from exastencils_tpu_torch.ops.cuda import stream3d as s3
 
@@ -32,15 +35,21 @@ BENCH = os.path.join(REPO, "examples", "poisson_3d_bench.exa4")
 EX2D = os.path.join(REPO, "examples", "poisson_2d.exa4")
 
 
-def knowledge(which, f64=True, **kw):
+def knowledge(which, f64=True, cls=Knowledge, **kw):
+    """The port's Knowledge, or with cls=JaxKnowledge the JAX package's,
+    from the same keywords."""
     dims = dict(dimensionality=3, minLevel=1, maxLevel=4) if which == "3d" \
         else dict(dimensionality=2, minLevel=0, maxLevel=5)
-    return Knowledge(useDblPrecision=f64, tpu_shard_dsl=False, **dims, **kw).update()
+    return cls(useDblPrecision=f64, tpu_shard_dsl=False, **dims, **kw).update()
+
+
+def jax_knowledge(which, f64=True, **kw):
+    return knowledge(which, f64, JaxKnowledge, **kw)
 
 
 def run_jax(path, k):
     lines = []
-    JaxL4(parse_l4(path), k, out=lines.append).run()
+    JaxL4(jax_parse_l4(path), k, out=lines.append).run()
     return lines
 
 
@@ -56,11 +65,11 @@ def jax_lines():
     """JAX lines per (example, f64), fast path off (the plain staged path),
     and per (example, "eager"): float32 with staging off."""
     paths = {"3d": BENCH, "2d": EX2D}
-    out = {(w, f64): run_jax(paths[w], knowledge(w, f64, tpu_dsl_fastpath=False))
+    out = {(w, f64): run_jax(paths[w], jax_knowledge(w, f64, tpu_dsl_fastpath=False))
            for w in paths for f64 in (True, False)}
     for w, path in paths.items():
         lines = []
-        JaxL4(parse_l4(path), knowledge(w, False, tpu_dsl_fastpath=False),
+        JaxL4(jax_parse_l4(path), jax_knowledge(w, False, tpu_dsl_fastpath=False),
               out=lines.append, jit_functions=False).run()
         out[(w, "eager")] = lines
     return out
@@ -143,17 +152,18 @@ def bench_src(liveness_blocked=False):
     return src
 
 
-def parse_src(src, tmp_path):
+def parse_src(src, tmp_path, parse=parse_l4):
+    """`src` parsed by the port's parser (or `parse`) from a file."""
     p = tmp_path / "prog.exa4"
     p.write_text(src)
-    return parse_l4(str(p))
+    return parse(str(p))
 
 
 @pytest.mark.parametrize("blocked", [False, True])
 def test_fastpath_plans_match_jax(force_fastpath, tmp_path, blocked):
     src = bench_src(blocked)
     k = knowledge("3d")
-    jax_ex = JaxL4(parse_src(src, tmp_path), knowledge("3d"), out=lambda s: None)
+    jax_ex = JaxL4(parse_src(src, tmp_path, jax_parse_l4), jax_knowledge("3d"), out=lambda s: None)
     port = L4Executable(parse_src(src, tmp_path), k, device="cpu", out=lambda s: None)
     want = plans(jax_ex)
     got = plans(port)
@@ -286,8 +296,8 @@ def test_fused_segments_change_only_their_fields(force_fastpath):
 def test_dsl_state_carried_from_jax(tmp_path):
     """Two JAX cycles, the state carried into the port (slots included),
     then one more cycle in each package: the fields agree within 1e-12."""
-    k = knowledge("2d", tpu_dsl_fastpath=False)
-    jx = JaxL4(parse_l4(EX2D), k, out=lambda s: None)
+    k = jax_knowledge("2d", tpu_dsl_fastpath=False)
+    jx = JaxL4(jax_parse_l4(EX2D), k, out=lambda s: None)
     finest = k.maxLevel
     jx.call_function(jx.functions[("InitF", finest)], finest, [])
     cyc = jx.functions[("MGCycle", finest)]

@@ -1,6 +1,7 @@
 """Language features of the port's L4 executor against the JAX package's.
 
-Small inline programs, each run by both executors on the CPU in float64,
+Small inline programs, each parsed and run by both packages (each with
+its own parser and Knowledge) on the CPU in float64,
 must print the same lines at 13 significant digits: stencil algebra (products, transpose, scaled
 stencils), a sequential sweep whose damping is a function argument,
 point-wise `if` inside field loops, `where` conditions, min/max/sum
@@ -14,11 +15,13 @@ does not have yet (field IO builtins, the sharded DSL) raises."""
 import pytest
 import torch
 
-from exastencils_tpu.config import Knowledge
+from exastencils_tpu.config import Knowledge as JaxKnowledge
 from exastencils_tpu.dsl.interpreter import L4Executable as JaxL4
-from exastencils_tpu.dsl.parser import parse_l4
+from exastencils_tpu.dsl.parser import parse_l4 as jax_parse_l4
 
+from exastencils_tpu_torch import Knowledge
 from exastencils_tpu_torch.dsl.interpreter import L4Executable
+from exastencils_tpu_torch.dsl.parser import parse_l4
 
 torch.set_num_threads(1)
 
@@ -258,25 +261,34 @@ Function Application ( ) : Unit {
 }
 
 
-def knowledge():
-    return Knowledge(dimensionality=2, minLevel=0, maxLevel=4, testing_enabled=True,
-                     tpu_shard_dsl=False).update()
+def knowledge(cls=Knowledge):
+    return cls(dimensionality=2, minLevel=0, maxLevel=4, testing_enabled=True,
+               tpu_shard_dsl=False).update()
 
 
-def run(make, src):
-    """Lines printed at 13 significant digits (the reference's
+def precise(src):
+    """The program printing at 13 significant digits (the reference's
     std::cout.precision emulation), so the comparison is close to bitwise."""
-    src = src.replace("Function Application ( ) : Unit {",
-                      'Function Application ( ) : Unit {\n  native ( "std::cout.precision(13)" )', 1)
+    return src.replace("Function Application ( ) : Unit {",
+                       'Function Application ( ) : Unit {\n  native ( "std::cout.precision(13)" )', 1)
+
+
+def run_jax(src):
     lines = []
-    make(parse_l4(HEAD + src), knowledge(), lines.append).run()
+    JaxL4(jax_parse_l4(HEAD + precise(src)), knowledge(JaxKnowledge), out=lines.append).run()
+    return lines
+
+
+def run_port(src):
+    lines = []
+    L4Executable(parse_l4(HEAD + precise(src)), knowledge(), device="cpu", out=lines.append).run()
     return lines
 
 
 @pytest.mark.parametrize("name", sorted(PROGRAMS))
 def test_program_prints_the_jax_lines(name):
-    want = run(lambda p, k, o: JaxL4(p, k, out=o), PROGRAMS[name])
-    got = run(lambda p, k, o: L4Executable(p, k, device="cpu", out=o), PROGRAMS[name])
+    want = run_jax(PROGRAMS[name])
+    got = run_port(PROGRAMS[name])
     assert got == want
     assert got
 

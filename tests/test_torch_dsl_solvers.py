@@ -1,7 +1,8 @@
 """Generated solvers through the port's L4 executor, against the JAX
 package, and the port's transfer builders against the JAX builders.
 
-`generate solver` programs (L2 + L3, lowered by the shared front end)
+`generate solver` programs (L2 + L3, each lowered by its package's own
+front end, from the same source and Knowledge keywords)
 with each coarse-grid solver template (CG, BiCGStab, CR, MinRes) and the
 coloring-None Gauss-Seidel program (a sequential loop, the anti-diagonal
 wavefront) must print the JAX package's lines in float64 on the CPU."""
@@ -10,15 +11,17 @@ import numpy as np
 import pytest
 import torch
 
-from exastencils_tpu.config import Knowledge
+from exastencils_tpu.config import Knowledge as JaxKnowledge
 from exastencils_tpu.core import stencil as jst
-from exastencils_tpu.dsl import nodes as N
+from exastencils_tpu.dsl import l2 as jax_l2
+from exastencils_tpu.dsl import l3 as jax_l3
 from exastencils_tpu.dsl.interpreter import L4Executable as JaxL4
-from exastencils_tpu.dsl.l2 import parse_l2
-from exastencils_tpu.dsl.l3 import lower_l3, parse_l3
 from exastencils_tpu.solver.synthesis import default_transfer_ops as jax_default_transfer_ops
 
+from exastencils_tpu_torch import Knowledge
 from exastencils_tpu_torch.core import stencil as tst
+from exastencils_tpu_torch.dsl import l2, l3
+from exastencils_tpu_torch.dsl import nodes as N
 from exastencils_tpu_torch.dsl.interpreter import Frame, L4Executable
 from exastencils_tpu_torch.solver.synthesis import default_transfer_ops
 
@@ -27,17 +30,23 @@ from test_dsl_upper_layers import POISSON_L2
 torch.set_num_threads(1)
 
 
-def generated(src3, min_level, max_level):
-    k = Knowledge(dimensionality=2, minLevel=min_level, maxLevel=max_level,
-                  testing_enabled=True).update()
-    return lower_l3(parse_l2(POISSON_L2).merge(parse_l3(src3)), k), k
+PORT_FRONT, JAX_FRONT = (Knowledge, l2, l3), (JaxKnowledge, jax_l2, jax_l3)
+
+
+def generated(src3, min_level, max_level, front=PORT_FRONT):
+    """(L4 program, Knowledge) of POISSON_L2 + `src3`, built by the port's
+    front end or, with front=JAX_FRONT, the JAX package's."""
+    cls, m2, m3 = front
+    k = cls(dimensionality=2, minLevel=min_level, maxLevel=max_level,
+            testing_enabled=True).update()
+    return m3.lower_l3(m2.parse_l2(POISSON_L2).merge(m3.parse_l3(src3)), k), k
 
 
 def both_lines(src3, min_level, max_level):
     out = []
-    for make in (lambda p, k, o: JaxL4(p, k, out=o),
-                 lambda p, k, o: L4Executable(p, k, device="cpu", out=o)):
-        prog, k = generated(src3, min_level, max_level)
+    for front, make in ((JAX_FRONT, lambda p, k, o: JaxL4(p, k, out=o)),
+                        (PORT_FRONT, lambda p, k, o: L4Executable(p, k, device="cpu", out=o))):
+        prog, k = generated(src3, min_level, max_level, front)
         lines = []
         make(prog, k, lines.append).run()
         out.append(lines)

@@ -7,7 +7,7 @@ import numpy as np
 import pytest
 import torch
 
-from exastencils_tpu.config import Knowledge
+from exastencils_tpu.config import Knowledge as JaxKnowledge
 from exastencils_tpu.core import field as jfield
 from exastencils_tpu.core.domain import unit_domain as j_unit_domain
 from exastencils_tpu.core.grid import level_grids as j_level_grids
@@ -21,6 +21,7 @@ from exastencils_tpu.ops import stencil_apply as jstencil_apply
 from exastencils_tpu.ops import transfer as jtransfer
 from exastencils_tpu.solver import krylov as jkrylov
 
+from exastencils_tpu_torch import Knowledge
 from exastencils_tpu_torch.core import field as tfield
 from exastencils_tpu_torch.core.domain import unit_domain as t_unit_domain
 from exastencils_tpu_torch.core.grid import level_grids as t_level_grids
@@ -46,9 +47,9 @@ def close(got, want, rtol=RTOL):
 
 
 def grids(nd, level):
-    k = Knowledge(dimensionality=nd, minLevel=0, maxLevel=level).update()
-    jg = j_level_grids(j_unit_domain(nd), k, dtype=jnp.float64)
-    tg = t_level_grids(t_unit_domain(nd), k, "cpu", dtype=torch.float64)
+    kw = dict(dimensionality=nd, minLevel=0, maxLevel=level)
+    jg = j_level_grids(j_unit_domain(nd), JaxKnowledge(**kw).update(), dtype=jnp.float64)
+    tg = t_level_grids(t_unit_domain(nd), Knowledge(**kw).update(), "cpu", dtype=torch.float64)
     return jg[level], tg[level]
 
 

@@ -1,12 +1,15 @@
 """The port's Poisson multigrid slice as a whole against the JAX package.
 
-Both packages get the same Knowledge and the same initial state (the JAX
-solver's init_state, carried over by interop.from_jax_state) and must
+Both packages get a Knowledge built from the same keywords (each its own
+class) and the same initial state (the JAX solver's init_state, carried
+over by interop.from_jax_state) and must
 print identical residual/error lines, take the same number of cycles and
 converge to 1e-10.  Float64 on the CPU; with tpu_use_pallas the JAX side
 runs its Pallas legs in interpret mode and the port its K1/K2 wrappers
 (their plain versions on CPU tensors)."""
 
+import ast
+import pathlib
 import subprocess
 import sys
 
@@ -14,32 +17,34 @@ import numpy as np
 import pytest
 import torch
 
-from exastencils_tpu.config import Knowledge
+from exastencils_tpu.config import Knowledge as JaxKnowledge
 from exastencils_tpu.models.poisson import PoissonMGSolver as JaxPoisson
 
+from exastencils_tpu_torch import Knowledge
 from exastencils_tpu_torch.interop import from_jax_state
 from exastencils_tpu_torch.models.poisson import PoissonMGSolver
 
 torch.set_num_threads(1)
 
 
-def graft_entry_knowledge():
-    """__graft_entry__.entry()'s 2D configuration, in float64."""
-    return Knowledge(dimensionality=2, minLevel=0, maxLevel=5).update()
-
-
+# Knowledge keywords; "2d_graft_entry_l5" is __graft_entry__.entry()'s 2D
+# configuration, in float64
 CONFIGS = {
-    "3d_l4_kernels": lambda: Knowledge(dimensionality=3, minLevel=0, maxLevel=4).update(),
-    "3d_l4_plain": lambda: Knowledge(dimensionality=3, minLevel=0, maxLevel=4,
-                                     tpu_use_pallas=False).update(),
-    "2d_graft_entry_l5": graft_entry_knowledge,
+    "3d_l4_kernels": dict(dimensionality=3, minLevel=0, maxLevel=4),
+    "3d_l4_plain": dict(dimensionality=3, minLevel=0, maxLevel=4, tpu_use_pallas=False),
+    "2d_graft_entry_l5": dict(dimensionality=2, minLevel=0, maxLevel=5),
 }
+
+
+def both_solvers(name):
+    """The JAX solver on the JAX Knowledge, the port's on its own."""
+    return (JaxPoisson(JaxKnowledge(**CONFIGS[name]).update()),
+            PoissonMGSolver(Knowledge(**CONFIGS[name]).update(), device="cpu"))
 
 
 @pytest.mark.parametrize("name", sorted(CONFIGS))
 def test_solve_matches_jax(name):
-    js = JaxPoisson(CONFIGS[name]())
-    ts = PoissonMGSolver(CONFIGS[name](), device="cpu")
+    js, ts = both_solvers(name)
     for lvl in ts.levels:
         assert (ts.levels[lvl].down_leg_fn is None) == (js.levels[lvl].down_leg_fn is None)
     if name == "3d_l4_kernels":
@@ -60,26 +65,58 @@ def test_solve_matches_jax(name):
 
 
 def test_init_state_matches_jax():
-    js = JaxPoisson(CONFIGS["3d_l4_kernels"]())
-    ts = PoissonMGSolver(CONFIGS["3d_l4_kernels"](), device="cpu")
+    js, ts = both_solvers("3d_l4_kernels")
     for got, want in zip(ts.init_state(), js.init_state()):
         want = np.asarray(want)
         np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-12 * np.abs(want).max())
 
 
 def test_cycle_updates_iterate_in_place_with_kernels():
-    ts = PoissonMGSolver(CONFIGS["3d_l4_kernels"](), device="cpu")
+    ts = PoissonMGSolver(Knowledge(**CONFIGS["3d_l4_kernels"]).update(), device="cpu")
     sol, rhs = ts.init_state()
     assert ts._cycle(sol, rhs) is sol
 
 
 def test_rejects_unsupported_device():
     with pytest.raises(ValueError, match="unsupported device"):
-        PoissonMGSolver(CONFIGS["3d_l4_plain"](), device="meta")
+        PoissonMGSolver(Knowledge(**CONFIGS["3d_l4_plain"]).update(), device="meta")
 
 
-def test_import_leaves_jax_out():
-    code = ("import sys, exastencils_tpu_torch.models.poisson, exastencils_tpu_torch.interop, "
-            "exastencils_tpu_torch.ops.cuda; sys.exit(int('jax' in sys.modules))")
-    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True)
-    assert proc.returncode == 0, proc.stderr or "jax was imported"
+REPO = pathlib.Path(__file__).resolve().parents[1]
+
+
+@pytest.mark.parametrize("module", [
+    "exastencils_tpu_torch", "exastencils_tpu_torch.__main__", "exastencils_tpu_torch.dsl.driver",
+    "exastencils_tpu_torch.dsl.interpreter", "exastencils_tpu_torch.runtime.dsl_profile",
+    "exastencils_tpu_torch.ops.cuda", "exastencils_tpu_torch.models.poisson",
+    "exastencils_tpu_torch.interop"])
+def test_import_leaves_jax_out(module):
+    """Importing a module of the port, in a fresh interpreter, puts neither
+    jax nor the JAX package (exastencils_tpu or any of its submodules)
+    into sys.modules."""
+    code = ("import importlib, sys\n"
+            f"importlib.import_module({module!r})\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'exastencils_tpu'))\n"
+            "sys.exit(f'imported {bad}' if bad else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          cwd=REPO)
+    assert proc.returncode == 0, proc.stderr
+
+
+def _imported_modules(path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_no_port_file_imports_the_jax_package():
+    """No file of the port, nor chip_smoke.py, has an import statement
+    (at any depth, lazy ones included) of exastencils_tpu or its
+    submodules."""
+    files = sorted((REPO / "exastencils_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) > 40
+    bad = [(f.relative_to(REPO).as_posix(), m) for f in files for m in _imported_modules(f)
+           if m.split(".")[0] == "exastencils_tpu"]
+    assert not bad

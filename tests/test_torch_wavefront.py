@@ -15,7 +15,6 @@ import torch
 from test_torch_cycles import build_both, solve_both
 from test_torch_fused import close, fields, star3d
 
-from exastencils_tpu.config import Knowledge
 from exastencils_tpu.core.stencil import cell_prolongation as j_cell_prolongation
 from exastencils_tpu.core.stencil import cell_restriction as j_cell_restriction
 from exastencils_tpu.core.stencil import node_prolongation as j_node_prolongation
@@ -27,6 +26,7 @@ from exastencils_tpu.ops.pallas.stream3d import (
 )
 from exastencils_tpu.ops.transfer import build_prolong_mats, build_restrict_mats, separable_kernels
 
+from exastencils_tpu_torch import Knowledge
 from exastencils_tpu_torch.interop import stencil_from_jax
 from exastencils_tpu_torch.models.poisson import PoissonMGSolver
 from exastencils_tpu_torch.ops.cuda import stream3d as s3
