@@ -5,14 +5,16 @@
 
 Builds the CUDA kernels K1-K8 from csrc/, holds each against its plain
 PyTorch version on the card (K1/K2 also at odd shapes, excl planes and
-K = 1..4, and bitwise against the K3/K4/K5 compositions they replace),
-drives five Poisson3D V(3,3)-cycle paths at
+K = 1..4, and bitwise against the K3/K4/K5 compositions they replace;
+K7/K8 bitwise against K1/K2 at odd shapes and K = 1..4), prints K7/K8's
+launch shape on the card, times their cluster shapes (v1_launch_shape,
+cluster_variants), drives five Poisson3D V(3,3)-cycle paths at
 513^3 float32 (the size `python bench.py` times), each with kernels and
 plain:
   main_path    RBGS, the whole-leg kernels K1/K2;
   jacobi_path  damped Jacobi, the fused transfers K4/K5;
   fas_path     RBGS under FAS, the fused smoother K3;
-  v1_path      RBGS with EXA_STREAM_V1=1, the whole-leg wavefronts K7/K8;
+  v1_path      RBGS with EXA_STREAM_V1=1, the whole-leg cluster kernels K7/K8;
   v1_fas_path  RBGS under FAS with EXA_STREAM_V1=1, the wavefront K6;
 solves small float64 problems (RBGS, Jacobi, FAS, RBGS V(0,2), and
 RBGS and FAS under EXA_STREAM_V1=1) on the GPU and on the CPU, which must
@@ -23,8 +25,9 @@ examples/poisson_3d_bench.exa4:
   dsl_v1_path  the same with EXA_STREAM_V1=1 (K7/K8);
   dsl_lines    maxLevel 6 float64 3D and the 2D example: GPU lines equal
                the CPU's;
-  dsl_cli      `python -m exastencils_tpu_torch` in a subprocess on the GPU.
-Every phase prints
+  dsl_cli      `python -m exastencils_tpu_torch` in a subprocess on the GPU;
+and compares the two schedules in one process (ab_schedule: K7/K1, K8/K2,
+v1_path/main_path).  Every phase prints
 one line; any failure raises and exits non-zero.  The third-to-last line
 is the kernel table as JSON, then the card's name and power limit, the
 last line `{"ok": true, "device": ...}`.  Exits non-zero without printing
@@ -60,7 +63,8 @@ KERNELS = {
     "K8": ("prolong_correct_smooth_wavefront", "exastencils_tpu/ops/pallas/stream3d.py:629"),
 }
 SOURCES = {kk: "exastencils_tpu_torch/csrc/" + ("legs3d.cu" if kk in ("K1", "K2") else
-                                                "wavefront3d.cu" if kk in ("K6", "K7", "K8")
+                                                "cluster_legs3d.cu" if kk in ("K7", "K8") else
+                                                "wavefront3d.cu" if kk == "K6"
                                                 else "stream3d.cu") for kk in KERNELS}
 # Published H100 SXM peaks (NVIDIA's data sheet, at 700 W): HBM bytes/s, and
 # FLOP/s outside the tensor cores (the kernels use none: TF32 would break
@@ -307,7 +311,8 @@ def compare_fused(level, K, dtype, excl=None, timed=False):
 
 def compare_wavefronts(level, K, dtype, excl=None, timed=False):
     """K6, K7 and K8 against their plain versions on the same inputs, one
-    launch each; K6 and K7's sol bitwise (--fmad=false)."""
+    launch each (and a K6 launch for the iterations K7 or K8 does not hold,
+    in float64 at K=3); K6 and K7's sol bitwise (--fmad=false)."""
     from exastencils_tpu_torch.core.stencil import node_prolongation, node_restriction
     from exastencils_tpu_torch.ops.cuda import stream3d as s3
     from exastencils_tpu_torch.ops.transfer import separable_kernels
@@ -335,8 +340,10 @@ def compare_wavefronts(level, K, dtype, excl=None, timed=False):
           k6_k7_sol_bitwise=bitwise, launches=launches)
     if not (bitwise and errs["K7"][1] <= tol and errs["K8"][1] <= tol):
         raise AssertionError(f"wavefront/plain mismatch at level {level} K {K} {dtype} excl {excl}")
-    if launches != {"K6": 1, "K7": 1, "K8": 1}:
-        raise AssertionError(f"wavefronts took {launches} launches, not one each")
+    want = {"K6": 1 + sum(K > s3.max_cluster_k(dtype, m) for m in (s3.LEG_RESTRICT, s3.LEG_PROLONG)),
+            "K7": 1, "K8": 1}
+    if launches != want:
+        raise AssertionError(f"wavefronts took {launches} launches, not {want}")
     out = {kk: {"max_abs_err": e[0]} for kk, e in errs.items()}
     if timed:
         out["K6"]["ms"] = cuda_ms(lambda: s3.rbgs_wavefront(sol, rhs, A, OMEGA, K), 5)
@@ -354,6 +361,98 @@ def compare_wavefronts(level, K, dtype, excl=None, timed=False):
     return out
 
 
+def compare_v1_legs(level, K, dtype, shape=None):
+    """K7/K8 (cluster_legs3d.cu, default clusters) against K1/K2 (legs3d.cu)
+    on the same inputs: K7's sol and coarse rhs and K8 bitwise; one K7/K8
+    launch per call, K6 launches for the iterations one launch does not
+    hold; the inputs left as they were.  `shape` = (fine, coarse) for an
+    odd shape with a star of distinct coefficients, else the level's
+    Laplacian."""
+    from exastencils_tpu_torch.core.stencil import node_prolongation, node_restriction
+    from exastencils_tpu_torch.ops.cuda import stream3d as s3
+    from exastencils_tpu_torch.ops.transfer import separable_kernels
+
+    seed = (level or 0) * 10 + K + 3
+    A, sol, rhs, sol_c, cshape = (leg_inputs(level, dtype, seed) if shape is None
+                                  else star_inputs(*shape, dtype, seed))
+    R, P = node_restriction(3), node_prolongation(3)
+    rk, pk = separable_kernels(R), separable_kernels(P)
+    before = sol.clone()
+    n0 = launch_counts()
+    s7, c7 = s3.smooth_res_restrict_wavefront(sol, rhs, A, OMEGA, K, rk, R.lo, cshape)
+    s8 = s3.prolong_correct_smooth_wavefront(sol, sol_c, rhs, A, OMEGA, K, pk, P.lo)
+    torch.cuda.synchronize()
+    n1 = launch_counts()
+    launches = {kk: n1[kk] - n0[kk] for kk in ("K6", "K7", "K8")}
+    want = {"K6": sum(K > s3.max_cluster_k(dtype, m) for m in (s3.LEG_RESTRICT, s3.LEG_PROLONG)),
+            "K7": 1, "K8": 1}
+    s1, c1 = s3.smooth_res_restrict(sol.clone(), rhs, A, OMEGA, K, rk, R.lo, cshape)
+    s2 = s3.prolong_correct_smooth(sol.clone(), sol_c, rhs, A, OMEGA, K, pk, P.lo)
+    bitwise = {"k7_sol": bool(torch.equal(s7, s1)), "k7_coarse": bool(torch.equal(c7, c1)),
+               "k8": bool(torch.equal(s8, s2)), "input_kept": bool(torch.equal(sol, before))}
+    phase("compare_v1_legs", level=level, shape=tuple(sol.shape), K=K,
+          dtype=str(dtype).split(".")[1], **bitwise, launches=launches)
+    if not all(bitwise.values()):
+        raise AssertionError(f"K7/K8 differ from K1/K2 at {tuple(sol.shape)} K {K} {dtype}: {bitwise}")
+    if launches != want:
+        raise AssertionError(f"K7/K8 took {launches} launches, not {want}")
+
+
+def v1_launch_shape(level, K):
+    """K7/K8's launch at one level in float32 for every cluster shape: grid,
+    cluster dims, threads, dynamic shared memory, blocks one SM holds and
+    clusters the card holds at once (cudaOccupancyMaxActiveClusters)."""
+    import ctypes
+
+    from exastencils_tpu_torch.ops.cuda import stream3d as s3
+
+    lib, n, nc = s3.load_library(), 2 ** level + 1, 2 ** (level - 1) + 1
+    chunk = s3.leg_chunk((n,) * 3, _sm_count())
+    for kk, mode, reach in (("K7", s3.LEG_RESTRICT, 1), ("K8", s3.LEG_PROLONG, 0)):
+        for cluster in s3.CLUSTER_SHAPES:
+            grid = (ctypes.c_int * 3)()
+            lib.exa_cluster_grid(n, n, n, nc, nc, nc, mode, chunk, *cluster, grid)
+            per_sm = lib.exa_cluster_occupancy(mode, K, reach, *cluster, 0, 0)
+            phase("v1_launch_shape", kernel=kk, level=level, K=K, dtype="float32",
+                  cluster=cluster, default=cluster == s3.CLUSTER[mode], grid=tuple(grid),
+                  blocks=grid[0] * grid[1] * grid[2], chunk=chunk,
+                  threads=s3._cluster_threads(mode, K, reach, cluster),
+                  smem=s3._cluster_smem(mode, K, reach, 4, cluster), blocks_per_sm=per_sm,
+                  two_blocks_per_sm=per_sm >= 2,
+                  max_active_clusters=lib.exa_cluster_occupancy(mode, K, reach, *cluster, 0, 1))
+
+
+def cluster_variants(level, K):
+    """K7/K8 at one level, float32, on every cluster shape in one process:
+    each bitwise K1/K2, device ms of one call; returns {kernel: {shape: ms}}."""
+    from exastencils_tpu_torch.core.stencil import node_prolongation, node_restriction
+    from exastencils_tpu_torch.ops.cuda import stream3d as s3
+    from exastencils_tpu_torch.ops.transfer import separable_kernels
+
+    A, sol, rhs, sol_c, cshape = leg_inputs(level, torch.float32, seed=level + 7)
+    R, P = node_restriction(3), node_prolongation(3)
+    rk, pk = separable_kernels(R), separable_kernels(P)
+    s1, c1 = s3.smooth_res_restrict(sol.clone(), rhs, A, OMEGA, K, rk, R.lo, cshape)
+    s2 = s3.prolong_correct_smooth(sol.clone(), sol_c, rhs, A, OMEGA, K, pk, P.lo)
+    out = {"K7": {}, "K8": {}}
+    for cluster in s3.CLUSTER_SHAPES:
+        s7, c7 = s3.smooth_res_restrict_wavefront(sol, rhs, A, OMEGA, K, rk, R.lo, cshape,
+                                                  cluster=cluster)
+        s8 = s3.prolong_correct_smooth_wavefront(sol, sol_c, rhs, A, OMEGA, K, pk, P.lo,
+                                                 cluster=cluster)
+        if not (torch.equal(s7, s1) and torch.equal(c7, c1) and torch.equal(s8, s2)):
+            raise AssertionError(f"cluster {cluster}: K7/K8 differ from K1/K2 at level {level}")
+        out["K7"][cluster] = cuda_ms(lambda: s3.smooth_res_restrict_wavefront(
+            sol, rhs, A, OMEGA, K, rk, R.lo, cshape, cluster=cluster), 5)
+        out["K8"][cluster] = cuda_ms(lambda: s3.prolong_correct_smooth_wavefront(
+            sol, sol_c, rhs, A, OMEGA, K, pk, P.lo, cluster=cluster), 5)
+    for kk, mode in (("K7", s3.LEG_RESTRICT), ("K8", s3.LEG_PROLONG)):
+        phase("cluster_variants", kernel=kk, level=level, K=K, dtype="float32",
+              default=s3.CLUSTER[mode], bitwise_k1_k2=True,
+              **{f"ms_{cy}x{cx}": f"{ms:.4f}" for (cy, cx), ms in out[kk].items()})
+    return out
+
+
 @contextlib.contextmanager
 def v1_schedule():
     """EXA_STREAM_V1=1 while the solver is built and run, as bench.py's
@@ -363,6 +462,38 @@ def v1_schedule():
         yield
     finally:
         os.environ.pop("EXA_STREAM_V1", None)
+
+
+def ab_schedule(full, main_ms, v1_ms):
+    """The schedule A/B (bench.py's ab_schedule) in this process: the v1
+    legs K7/K8 against the v2 legs K1/K2 (513^3 f32, K=3, timed above), and
+    one solver's V(3,3) cycle on each schedule, timed in the order v2, v1,
+    v1, v2 (the host varies between blocks more than the legs do); the
+    paths' own cycle times beside them."""
+    from exastencils_tpu_torch import Knowledge
+    from exastencils_tpu_torch.models.poisson import PoissonMGSolver
+
+    k = Knowledge(dimensionality=3, minLevel=0, maxLevel=MAIN_LEVEL, useDblPrecision=False,
+                  tpu_compute_dtype="float32").update()
+    solver = PoissonMGSolver(k, device="cuda", omega=OMEGA, n_pre=K_MAIN, n_post=K_MAIN)
+    sol, rhs = solver.init_state()
+
+    def cycle_ms(v1):
+        with v1_schedule() if v1 else contextlib.nullcontext():
+            state = {"s": sol.clone()}
+
+            def step():
+                state["s"] = solver._cycle(state["s"], rhs)
+
+            return cuda_ms(step, 10)
+
+    ms = [cycle_ms(v1) for v1 in (False, True, True, False)]
+    v2_ms, v1_cycle_ms = (ms[0] + ms[3]) / 2, (ms[1] + ms[2]) / 2
+    phase("ab_schedule", **{f"{a}_ms": f"{full[a]['ms']:.4f}" for a in ("K7", "K1", "K8", "K2")},
+          K7_over_K1=f"{full['K7']['ms'] / full['K1']['ms']:.3f}",
+          K8_over_K2=f"{full['K8']['ms'] / full['K2']['ms']:.3f}",
+          cycle_ms_v2_v1_v1_v2=[f"{m:.3f}" for m in ms], v1_over_v2=f"{v1_cycle_ms / v2_ms:.3f}",
+          v1_path_ms=f"{v1_ms:.3f}", main_path_ms=f"{main_ms:.3f}")
 
 
 def launch_counts(reset=False):
@@ -599,12 +730,20 @@ def main():
                 compare_wavefronts(level, K, dtype)
     for dtype in (torch.float64, torch.float32):
         compare_wavefronts(5, 3, dtype, excl=(2, 30, -1, 5, 1, -1))
+    for K in (1, 2, 3, 4):
+        for dtype in (torch.float64, torch.float32):
+            for level in (4, 5):
+                compare_v1_legs(level, K, dtype)
+            for shape in dict.fromkeys(shape for shape, _ in LEG_CASES):  # K7/K8: no excl
+                compare_v1_legs(None, K, dtype, shape=shape)
     full = compare_legs(MAIN_LEVEL, K_MAIN, torch.float32, timed=True)
     leg_launch_shape(MAIN_LEVEL, K_MAIN)
     for level in range(2, MAIN_LEVEL):
         leg_level_times(level, K_MAIN)
     full.update(compare_fused(MAIN_LEVEL, K_MAIN, torch.float32, timed=True))
     full.update(compare_wavefronts(MAIN_LEVEL, K_MAIN, torch.float32, timed=True))
+    v1_launch_shape(MAIN_LEVEL, K_MAIN)
+    cluster_variants(MAIN_LEVEL, K_MAIN)
 
     none = dict.fromkeys(KERNELS, 0)
     # legs3d.cu launches per leg and level: one (K=3 fits one launch in float32)
@@ -651,6 +790,7 @@ def main():
         dsl_v1_ms = drive_dsl("dsl_v1_path", True, {**none, "K7": dsl_levels, "K8": dsl_levels})[0]
     phase("dsl_v1_path_summary", cycle_ms=f"{dsl_v1_ms:.3f}",
           dsl_v1_vs_v1_path=f"{dsl_v1_ms / v1_ms:.3f}")
+    ab_schedule(full, main_ms, v1_ms)
     want = dsl_lines("dsl_lines_3d_l6_f64", BENCH_EXA4, 3, 1, 6)
     dsl_lines("dsl_lines_2d_l5_f64", EX2D_EXA4, 2, 0, 5)
     dsl_cli(want)

@@ -27,7 +27,7 @@
 // flops per node and iteration, no tensor cores: TF32 would break the
 // bitwise parity) is a fifth of that at the 67 TFLOP/s f32 rate.  The
 // earlier design (stream3d.cu) made 2K+1 launches per leg, ~184 B/DOF;
-// the single-pass wavefronts K7/K8 (wavefront3d.cu) ran 289 chains of 519
+// the first single-pass wavefronts K7/K8 ran 289 chains of 519
 // plane steps in one under-filled wave, waiting on every load.  This design:
 //
 // - One pass per leg.  Each block owns a kLegTile^2 (y, x) tile of a

@@ -37,8 +37,9 @@
 // f32 plane is ~1 MB against 227 KB of shared memory per block, so that
 // window cannot be copied.  This version is one simple launch per
 // half-sweep / transfer; the single-pass z-streaming wavefront, tiled in
-// (y, x), is K6-K8 in wavefront3d.cu.  K4/K5 were already one pass each on the TPU, and
-// are one launch each here; their y/x transfer is a direct stride-2
+// (y, x), is K6 in wavefront3d.cu (K7/K8: cluster_legs3d.cu).  K4/K5 were
+// already one pass each on the TPU, and are one launch each here; their
+// y/x transfer is a direct stride-2
 // stencil where the TPU kernels used banded matrix products.
 
 #include "star3d.cuh"

@@ -14,8 +14,8 @@ the v1 kernels behind them) and exastencils_tpu/ops/pallas/stream3d_pair.py
     K4 res_restrict            residual + restriction
     K5 prolong_correct         prolongation + correction
     K6 rbgs_wavefront                    K3's maths, one z-streaming pass
-    K7 smooth_res_restrict_wavefront     K1's maths, one z-streaming pass
-    K8 prolong_correct_smooth_wavefront  K2's maths, one z-streaming pass
+    K7 smooth_res_restrict_wavefront     K1's maths, one pass, cluster-shared halo
+    K8 prolong_correct_smooth_wavefront  K2's maths, one pass, cluster-shared halo
 
 As in the JAX package, the dispatchers `rbgs_fused_3d`,
 `smooth_res_restrict_fused_3d` and `prolong_correct_smooth_fused_3d` run
@@ -24,7 +24,9 @@ environment when they are called, K6/K7/K8 (the v1 single-plane
 schedule).
 
 The kernels are CUDA C++ for sm_90a in ../../csrc/ (legs3d.cu: K1/K2,
-one launch per leg; stream3d.cu: K3-K5; wavefront3d.cu: K6-K8), compiled
+one launch per leg; stream3d.cu: K3-K5; wavefront3d.cu: K6;
+cluster_legs3d.cu: K7/K8, one launch per leg on thread-block clusters
+that share their y/x halo), compiled
 with nvcc on first use into build/exastencils_tpu_torch/ at the
 repository root and loaded with ctypes.  A wrapper given CUDA tensors
 launches the kernels (or raises); given CPU tensors it runs the plain
@@ -63,7 +65,8 @@ NO_EXCL = (-1,) * 6  # per-dim lo/hi planes excluded from updates; -1 = none
 MAX_TAPS = 3  # transfer taps per dim the kernels take (kMaxTaps)
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
-SOURCES = (CSRC / "stream3d.cu", CSRC / "wavefront3d.cu", CSRC / "legs3d.cu")
+SOURCES = (CSRC / "stream3d.cu", CSRC / "wavefront3d.cu", CSRC / "legs3d.cu",
+           CSRC / "cluster_legs3d.cu")
 HEADERS = (CSRC / "star3d.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "exastencils_tpu_torch"
 # --fmad=false: no mul+add contraction, so the RBGS and residual
@@ -72,7 +75,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-# K6-K8's (y, x) output tile edge (kWaveTile in wavefront3d.cu) and the
+# K6's (y, x) output tile edge (kWaveTile in wavefront3d.cu) and the
 # dynamic shared memory one block may use on Hopper (227 KB)
 WAVE_TILE = 32
 SMEM_LIMIT = 232448
@@ -82,6 +85,17 @@ SMEM_LIMIT = 232448
 # kMaxLegK)
 LEG_SMOOTH, LEG_PROLONG, LEG_RESTRICT = 0, 1, 2
 LEG_TILE, LEG_CHUNK, LEG_AHEAD, MAX_LEG_K = 32, 128, 2, 3
+# K7/K8 (cluster_legs3d.cu): one block's (y, x) output tile edge, the planes
+# in flight, the iterations one launch holds, the most blocks a cluster
+# has in x, and a block's threads, at most (kTile, kAhead, kMaxK,
+# kMaxClusterX, kMaxThreads)
+CLUSTER_TILE, CLUSTER_AHEAD, MAX_CLUSTER_K, MAX_CLUSTER_X, CLUSTER_THREADS = 32, 2, 3, 2, 1024
+# The cluster shapes, (y, x) blocks, that chip_smoke.py times, and the one
+# each leg launches on: the fastest at 513^3 f32, K=3, on an H100 (PERF.md
+# §6): K7 shares its x-halo in pairs of blocks; for K8 the cluster barrier
+# and the reads across the edge cost more than the halo they save.
+CLUSTER_SHAPES = ((2, 2), (4, 2), (1, 2), (2, 1), (1, 1))
+CLUSTER = {LEG_RESTRICT: (1, 2), LEG_PROLONG: (1, 1)}
 
 
 def _star_coefs(offsets, coefs, ndim: int):
@@ -188,13 +202,16 @@ def load_library() -> ctypes.CDLL:
     lib.exa_residual_restrict.argtypes = [p, p, p, i, i, i, i, i, i, pd, pd, pi, pi, pi, i, p]
     lib.exa_prolong_correct.argtypes = [p, p, i, i, i, i, i, i, pd, pi, pi, pi, i, p]
     lib.exa_rbgs_wavefront.argtypes = [p, p, p, i, i, i, pd, d, i, pi, i, p]
-    lib.exa_smooth_res_restrict_wavefront.argtypes = [
-        p, p, p, p, i, i, i, i, i, i, pd, d, i, i, pd, pi, pi, i, p]
-    lib.exa_prolong_correct_smooth_wavefront.argtypes = [
-        p, p, p, p, i, i, i, i, i, i, pd, d, i, pd, pi, pi, i, p]
+    lib.exa_cluster_constant.argtypes, lib.exa_cluster_constant.restype = [i], i
+    lib.exa_cluster_smem.argtypes = [i, i, i, i, i, i]
+    lib.exa_cluster_smem.restype = ctypes.c_longlong
+    lib.exa_cluster_threads.argtypes, lib.exa_cluster_threads.restype = [i, i, i, i, i], i
+    lib.exa_cluster_occupancy.argtypes, lib.exa_cluster_occupancy.restype = [i] * 7, i
+    lib.exa_cluster_grid.argtypes, lib.exa_cluster_grid.restype = [i] * 10 + [pi], None
+    lib.exa_cluster_leg.argtypes = [p, p, p, p, p, i, i, i, i, i, i, pd, d, i, i, i, i, pd, pi, pi,
+                                    i, i, i, p]
     for fn in (lib.exa_rbgs_half_sweep, lib.exa_residual_restrict, lib.exa_prolong_correct,
-               lib.exa_rbgs_wavefront, lib.exa_smooth_res_restrict_wavefront,
-               lib.exa_prolong_correct_smooth_wavefront, lib.exa_leg):
+               lib.exa_rbgs_wavefront, lib.exa_leg, lib.exa_cluster_leg):
         fn.restype = i
     if lib.exa_max_taps() != MAX_TAPS:
         raise RuntimeError(f"{so}: kMaxTaps {lib.exa_max_taps()} != {MAX_TAPS}")
@@ -207,6 +224,16 @@ def load_library() -> ctypes.CDLL:
                                   range(1, MAX_LEG_K + 1), (0, 1), (4, 8)):
         if lib.exa_leg_smem(*args) != _leg_smem(*args):
             raise RuntimeError(f"{so}: legs3d.cu's leg_smem{args} differs from the wrapper's")
+    const = tuple(lib.exa_cluster_constant(k) for k in range(5))
+    if const != (CLUSTER_TILE, CLUSTER_AHEAD, MAX_CLUSTER_K, MAX_CLUSTER_X, CLUSTER_THREADS):
+        raise RuntimeError(f"{so}: cluster_legs3d.cu's constants {const} differ from the wrapper's")
+    for mode, k, reach, cluster in itertools.product(
+            (LEG_PROLONG, LEG_RESTRICT), range(1, MAX_CLUSTER_K + 1), (0, 1), CLUSTER_SHAPES):
+        if (lib.exa_cluster_smem(mode, k, reach, *cluster, 4) != _cluster_smem(mode, k, reach, 4, cluster)
+                or lib.exa_cluster_threads(mode, k, reach, *cluster)
+                != _cluster_threads(mode, k, reach, cluster)):
+            raise RuntimeError(f"{so}: cluster_legs3d.cu's launch shape of {(mode, k, reach, cluster)}"
+                               " differs from the wrapper's")
     return lib
 
 
@@ -606,36 +633,71 @@ prolong_correct.launches = 0
 
 
 # ----------------------------------------------------------------------
-# K6-K8: the single-plane wavefronts (v1 schedule)
+# K6-K8: the v1 schedule (K6 a single-plane wavefront, K7/K8 cluster legs)
 # ----------------------------------------------------------------------
 
-
-def _wave_smem(kernel: int, K: int, reach: int, itemsize: int) -> int:
-    """Dynamic shared memory of one K6/K7/K8 block (wavefront_smem in
-    wavefront3d.cu): a ring of 2K+2 windows (K7: 2K+3, and 4 residual
-    boxes of (WAVE_TILE + 2 reach)^2) of (WAVE_TILE + 2 halo)^2 nodes,
-    halo 2K (K7: 2K+1+reach)."""
-    halo = 2 * K + 1 + reach if kernel == 7 else 2 * K
-    slots = 2 * K + 3 if kernel == 7 else 2 * K + 2
-    rres = 4 * (WAVE_TILE + 2 * reach) ** 2 if kernel == 7 else 0
-    return (slots * (WAVE_TILE + 2 * halo) ** 2 + rres) * itemsize
+# K6's iterations per launch: 5 in float32, 3 in float64, as since it was
+# ported (its window then shared the shared-memory budget of the old K7's)
+WAVE_MAX_K = {torch.float32: 5, torch.float64: 3}
 
 
-def max_wavefront_k(dtype: torch.dtype, reach: int = 1) -> int:
-    """The deepest K that one launch of each of K6, K7 and K8 holds in
-    shared memory: 5 for float32 and 3 for float64 with the node
-    restriction (`reach` 1, see _restrict_reach; the cell restriction's is
-    0).  K7's window is the largest of the three, so it sets the bound."""
+def max_wavefront_k(dtype: torch.dtype) -> int:
+    """The deepest K that one K6 launch takes (WAVE_MAX_K)."""
+    return WAVE_MAX_K[dtype]
+
+
+def _cluster_window(mode: int, K: int, reach: int, cluster) -> Tuple[int, int]:
+    """(rows, row length) of the largest window of a K7/K8 block in a
+    cluster of (cy, cx) blocks (cluster_legs3d.cu geom_for): the tile plus
+    the halo (leg_halo; x rounded up to even) on the cluster's outer sides
+    only."""
+    cy, cx = cluster
+    hy = leg_halo(mode, K, reach)
+    hx = hy + hy % 2
+    return (CLUSTER_TILE + hy * (2 if cy == 1 else 1),
+            CLUSTER_TILE + hx * (2 if cx == 1 else 1))
+
+
+def _cluster_smem(mode: int, K: int, reach: int, itemsize: int, cluster) -> int:
+    """Dynamic shared memory of one K7/K8 block (cluster_smem): rings of
+    2K+2+CLUSTER_AHEAD window planes (K7: one more) of sol and of rhs, then
+    K8's 4 coarse boxes and 2 boxes of their z-sums, or K7's 4 boxes of
+    z-sums (the tile plus `reach`)."""
+    rows, rx = _cluster_window(mode, K, reach, cluster)
+    down = mode == LEG_RESTRICT
+    slots = 2 * (2 * K + 2 + down + CLUSTER_AHEAD)
+    extra = (4 * (CLUSTER_TILE + 2 * reach) ** 2 if down
+             else 6 * ((max(rows, rx) + MAX_TAPS) // 2 + 1) ** 2)
+    return (slots * rows * rx + extra) * itemsize
+
+
+def _cluster_threads(mode: int, K: int, reach: int, cluster) -> int:
+    """One thread per pair of window columns, two where that would exceed
+    CLUSTER_THREADS, in whole warps (cluster_threads)."""
+    rows, rx = _cluster_window(mode, K, reach, cluster)
+    pairs = rows * rx // 2
+    threads = -(-pairs // (2 if pairs > CLUSTER_THREADS else 1))
+    return -(-threads // 32) * 32
+
+
+def max_cluster_k(dtype: torch.dtype, mode: int, reach: int = 1, cluster=None) -> int:
+    """The deepest K that one K7 (LEG_RESTRICT) or K8 (LEG_PROLONG) launch
+    on clusters of `cluster` blocks (default CLUSTER[mode]) holds: at most
+    MAX_CLUSTER_K, its shared memory within one block's 227 KB.  With the
+    node restriction, for every shape of CLUSTER_SHAPES: 3 in float32; in
+    float64 K8 2 and K7 1."""
+    cluster = CLUSTER[mode] if cluster is None else cluster
     itemsize = torch.empty((), dtype=dtype).element_size()
+    reach = reach if mode == LEG_RESTRICT else 0
     k = 0
-    while _wave_smem(7, k + 1, reach, itemsize) <= SMEM_LIMIT:
+    while k < MAX_CLUSTER_K and _cluster_smem(mode, k + 1, reach, itemsize, cluster) <= SMEM_LIMIT:
         k += 1
     return k
 
 
 def _restrict_reach(r_kernels, r_lo) -> int:
-    """How far K7's y/x restriction taps reach outside the fine tile that
-    a coarse tile covers (1 for the node restriction, 0 for the cell one)."""
+    """How far the y/x restriction taps reach outside the fine tile that a
+    coarse tile covers (1 for the node restriction, 0 for the cell one)."""
     return max(max(0, -int(r_lo[d]), int(r_lo[d]) + len(r_kernels[d]) - 2) for d in (1, 2))
 
 
@@ -689,16 +751,44 @@ def _rbgs_wavefront_launch(sol, rhs, A, omega, K, excl):
     return out
 
 
+def _cluster_leg_launch(mode, sol, rhs, A, omega, K, kernels, lo, cluster, sol_c=None,
+                        coarse_shape=None):
+    """One cluster_legs3d.cu launch on CUDA tensors, out of place: returns
+    the new sol and K7's coarse rhs (None for K8)."""
+    lib = load_library()
+    c0, coefs = _star_array(A)
+    taps, ntaps, tlo = _taps_arrays(kernels, lo)
+    reach = _restrict_reach(kernels, lo) if mode == LEG_RESTRICT else 0
+    nz, ny, nx = sol.shape
+    nzc, nyc, nxc = sol_c.shape if sol_c is not None else coarse_shape
+    out = torch.empty_like(sol)
+    out_c = (torch.empty((nzc, nyc, nxc), dtype=sol.dtype, device=sol.device)
+             if mode == LEG_RESTRICT else None)
+    with torch.cuda.device(sol.device):
+        chunk = leg_chunk(sol.shape, _sm_count(sol.device.index))
+        err = lib.exa_cluster_leg(
+            out.data_ptr(), (out_c if out_c is not None else out).data_ptr(), sol.data_ptr(),
+            (sol_c if sol_c is not None else sol).data_ptr(), rhs.data_ptr(), nz, ny, nx,
+            nzc, nyc, nxc, coefs, omega / c0, K, reach, mode, chunk, taps, ntaps, tlo,
+            int(cluster[0]), int(cluster[1]), _is_double(sol), _stream())
+        _check(lib, err, "cluster_leg")
+    return out, out_c
+
+
 def smooth_res_restrict_wavefront(sol, rhs, A: BoundStencil, omega: float, K: int,
-                                  r_kernels, r_lo, coarse_shape: Tuple[int, int, int]):
+                                  r_kernels, r_lo, coarse_shape: Tuple[int, int, int],
+                                  cluster=None):
     """K7 (TPU: exastencils_tpu/ops/pallas/stream3d.py:_smooth_down_kernel),
-    the whole down leg in one launch: K RBGS iterations, then the residual
-    (zero on the boundary) restricted to `coarse_shape`.  No excl planes,
-    as the TPU kernel.  A K deeper than max_wavefront_k first runs the
-    excess as K6.  Not in place: returns (new sol, coarse rhs)."""
+    the whole down leg in one launch of cluster_legs3d.cu on clusters of
+    `cluster` (y, x) blocks (default CLUSTER[LEG_RESTRICT]): K RBGS
+    iterations, then the residual (zero on
+    the boundary) restricted to `coarse_shape`.  No excl planes, as the
+    TPU kernel.  A K deeper than max_cluster_k first runs the excess as K6.
+    Not in place: returns (new sol, coarse rhs)."""
     cuda = _on_cuda(sol, rhs)
     reach = _restrict_reach(r_kernels, r_lo)
-    kmax = max_wavefront_k(sol.dtype, reach)
+    cluster = CLUSTER[LEG_RESTRICT] if cluster is None else cluster
+    kmax = max_cluster_k(sol.dtype, LEG_RESTRICT, reach, cluster)
     if kmax < 1:
         raise ValueError(f"restriction reach {reach} leaves no room for K7's window")
     if K > kmax:
@@ -708,38 +798,31 @@ def smooth_res_restrict_wavefront(sol, rhs, A: BoundStencil, omega: float, K: in
         return smooth_res_restrict_wavefront_plain(sol, rhs, A, omega, K, r_kernels, r_lo,
                                                    coarse_shape)
     _check_shapes(sol, rhs, coarse_shape)
-    lib = load_library()
-    c0, coefs = _star_array(A)
-    taps, ntaps, lo = _taps_arrays(r_kernels, r_lo)
-    nz, ny, nx = sol.shape
-    nzc, nyc, nxc = (int(n) for n in coarse_shape)
-    out = torch.empty_like(sol)
-    out_c = torch.empty((nzc, nyc, nxc), dtype=sol.dtype, device=sol.device)
-    with torch.cuda.device(sol.device):
-        err = lib.exa_smooth_res_restrict_wavefront(
-            out.data_ptr(), out_c.data_ptr(), sol.data_ptr(), rhs.data_ptr(), nz, ny, nx,
-            nzc, nyc, nxc, coefs, omega / c0, K, reach, taps, ntaps, lo,
-            _is_double(sol), _stream())
-        _check(lib, err, "smooth_res_restrict_wavefront")
-        smooth_res_restrict_wavefront.launches += 1
-    return out, out_c
+    out = _cluster_leg_launch(LEG_RESTRICT, sol, rhs, A, omega, K, r_kernels, r_lo, cluster,
+                              coarse_shape=tuple(int(n) for n in coarse_shape))
+    smooth_res_restrict_wavefront.launches += 1
+    return out
 
 
 smooth_res_restrict_wavefront.launches = 0
 
 
 def prolong_correct_smooth_wavefront(sol, sol_c, rhs, A: BoundStencil, omega: float,
-                                     K: int, p_kernels, p_lo):
+                                     K: int, p_kernels, p_lo, cluster=None):
     """K8 (TPU: exastencils_tpu/ops/pallas/stream3d.py:_up_smooth_kernel),
-    the whole up leg in one launch: sol + P sol_c on inner nodes (bc not
-    reapplied), then K RBGS iterations.  No excl planes, as the TPU
-    kernel.  A K deeper than max_wavefront_k runs the excess afterwards
-    as K6.  Not in place: returns the new sol."""
+    the whole up leg in one launch of cluster_legs3d.cu on clusters of
+    `cluster` (y, x) blocks (default CLUSTER[LEG_PROLONG]): sol + P sol_c
+    on inner nodes (bc not
+    reapplied), then K RBGS iterations.  No excl planes, as the TPU kernel.
+    A K deeper than max_cluster_k runs the excess afterwards as K6.  Not in
+    place: returns the new sol."""
     cuda = _on_cuda(sol, rhs, sol_c)
-    k = min(K, max_wavefront_k(sol.dtype))
+    cluster = CLUSTER[LEG_PROLONG] if cluster is None else cluster
+    k = min(K, max_cluster_k(sol.dtype, LEG_PROLONG, 0, cluster))
     if cuda:
-        sol = _prolong_correct_smooth_wavefront_launch(sol, sol_c, rhs, A, omega, k,
-                                                       p_kernels, p_lo)
+        sol, _ = _cluster_leg_launch(LEG_PROLONG, sol, rhs, A, omega, k, p_kernels, p_lo,
+                                     cluster, sol_c=sol_c)
+        prolong_correct_smooth_wavefront.launches += 1
     else:
         sol = prolong_correct_smooth_wavefront_plain(sol, sol_c, rhs, A, omega, k,
                                                      p_kernels, p_lo)
@@ -749,22 +832,6 @@ def prolong_correct_smooth_wavefront(sol, sol_c, rhs, A: BoundStencil, omega: fl
 
 
 prolong_correct_smooth_wavefront.launches = 0
-
-
-def _prolong_correct_smooth_wavefront_launch(sol, sol_c, rhs, A, omega, K, p_kernels, p_lo):
-    lib = load_library()
-    c0, coefs = _star_array(A)
-    taps, ntaps, lo = _taps_arrays(p_kernels, p_lo)
-    nz, ny, nx = sol.shape
-    nzc, nyc, nxc = sol_c.shape
-    out = torch.empty_like(sol)
-    with torch.cuda.device(sol.device):
-        err = lib.exa_prolong_correct_smooth_wavefront(
-            out.data_ptr(), sol.data_ptr(), sol_c.data_ptr(), rhs.data_ptr(), nz, ny, nx,
-            nzc, nyc, nxc, coefs, omega / c0, K, taps, ntaps, lo, _is_double(sol), _stream())
-        _check(lib, err, "prolong_correct_smooth_wavefront")
-        prolong_correct_smooth_wavefront.launches += 1
-    return out
 
 
 # ----------------------------------------------------------------------

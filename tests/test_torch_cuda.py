@@ -128,7 +128,9 @@ def test_wavefronts_match_plain(cuda, level, K, dtype):
     s7, rc7 = s3.smooth_res_restrict_wavefront(sol, rhs, A, OMEGA, K, rk, R.lo, (nc,) * 3)
     s8 = s3.prolong_correct_smooth_wavefront(sol, sol_c, rhs, A, OMEGA, K, pk, P.lo)
     torch.cuda.synchronize()
-    assert [fn.launches - k for fn, k in zip(counters, n0)] == [2, 1, 1]
+    # K7/K8 run the iterations one launch does not hold as one K6 launch
+    k6 = 2 + sum(K > s3.max_cluster_k(dtype, m) for m in (s3.LEG_RESTRICT, s3.LEG_PROLONG))
+    assert [fn.launches - k for fn, k in zip(counters, n0)] == [k6, 1, 1]
     assert torch.equal(sol, before)
     assert torch.equal(s6, s3.rbgs_wavefront_plain(sol, rhs, A, OMEGA, K))
     assert torch.equal(e6, s3.rbgs_wavefront_plain(sol, rhs, A, OMEGA, K, excl))
@@ -182,6 +184,111 @@ def test_legs_tile_edges(cuda, level):
             assert torch.equal(s_got, s_ref)
             assert torch.equal(rc_got, rc_ref)
             assert torch.equal(u_got, u_ref)
+
+
+# K7/K8 (cluster_legs3d.cu) against K1/K2 (legs3d.cu): odd shapes, one with
+# a last node past a tile (33), two z-chunks, the smallest level
+CLUSTER_CASES = (((5, 5, 5), (3, 3, 3)), ((17, 33, 9), (9, 17, 5)), ((65, 65, 65), (33, 33, 33)),
+                 ((139, 9, 17), (70, 5, 9)))
+
+
+def star_fields(shape, cshape, dtype, device, seed):
+    """Random fields and a 7-point star with distinct coefficients."""
+    from exastencils_tpu_torch.core.stencil import BoundStencil
+
+    rng = np.random.default_rng(seed)
+    offs = ((0, 0, 0), (-1, 0, 0), (1, 0, 0), (0, -1, 0), (0, 1, 0), (0, 0, -1), (0, 0, 1))
+    A = BoundStencil("A", offs, (6.5, -0.9, -1.1, -0.7, -1.3, -0.95, -1.05))
+    return (A, *(torch.from_numpy(rng.standard_normal(sh)).to(device, dtype)
+                 for sh in (shape, shape, cshape)))
+
+
+@pytest.mark.parametrize("cluster", s3.CLUSTER_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_cluster_legs_equal_k1_k2(cuda, dtype, cluster):
+    """K7 bitwise K1 in both outputs and K8 bitwise K2, for every cluster
+    shape, K = 1..4; the inputs left as they were."""
+    R, P = node_restriction(3), node_prolongation(3)
+    rk, pk = separable_kernels(R), separable_kernels(P)
+    for shape, cshape in CLUSTER_CASES:
+        for K in (1, 2, 3, 4):
+            A, sol, rhs, sol_c = star_fields(shape, cshape, dtype, cuda, K)
+            before = sol.clone()
+            s7, c7 = s3.smooth_res_restrict_wavefront(sol, rhs, A, OMEGA, K, rk, R.lo, cshape,
+                                                      cluster=cluster)
+            s8 = s3.prolong_correct_smooth_wavefront(sol, sol_c, rhs, A, OMEGA, K, pk, P.lo,
+                                                     cluster=cluster)
+            s1, c1 = s3.smooth_res_restrict(sol.clone(), rhs, A, OMEGA, K, rk, R.lo, cshape)
+            s2 = s3.prolong_correct_smooth(sol.clone(), sol_c, rhs, A, OMEGA, K, pk, P.lo)
+            assert torch.equal(sol, before)
+            assert torch.equal(s7, s1) and torch.equal(c7, c1), (shape, K, cluster)
+            assert torch.equal(s8, s2), (shape, K, cluster)
+
+
+@pytest.mark.parametrize("level", [7, 9])
+def test_cluster_legs_tile_edges(cuda, level):
+    """K7/K8's clusters run concurrently and their blocks read each other's
+    shared memory; a read before the neighbour's write, or a missed halo,
+    edge or z-chunk node, would differ at tile, cluster or chunk edges, and
+    only sometimes.  Several seeds, each run three times, all bitwise K1/K2."""
+    n, nc = 2 ** level + 1, 2 ** (level - 1) + 1
+    A = laplacian(level, torch.float32, cuda)
+    R, P = node_restriction(3), node_prolongation(3)
+    rk, pk = separable_kernels(R), separable_kernels(P)
+    for seed in range(3):
+        rng = np.random.default_rng(seed)
+        sol, rhs = (torch.from_numpy(rng.standard_normal((n,) * 3)).to(cuda, torch.float32)
+                    for _ in range(2))
+        sol_c = torch.from_numpy(rng.standard_normal((nc,) * 3)).to(cuda, torch.float32)
+        s1, c1 = s3.smooth_res_restrict(sol.clone(), rhs, A, OMEGA, 3, rk, R.lo, (nc,) * 3)
+        s2 = s3.prolong_correct_smooth(sol.clone(), sol_c, rhs, A, OMEGA, 3, pk, P.lo)
+        for _ in range(3):
+            s7, c7 = s3.smooth_res_restrict_wavefront(sol, rhs, A, OMEGA, 3, rk, R.lo, (nc,) * 3)
+            assert torch.equal(s7, s1) and torch.equal(c7, c1)
+            assert torch.equal(s3.prolong_correct_smooth_wavefront(sol, sol_c, rhs, A, OMEGA, 3,
+                                                                   pk, P.lo), s2)
+
+
+@pytest.mark.parametrize("dtype,K", [(torch.float32, 3), (torch.float32, 5), (torch.float64, 3)])
+def test_cluster_leg_launches(cuda, dtype, K):
+    """One K7/K8 launch per call, K6 launches for the iterations it does not
+    hold (K6 before K7, after K8): f32 K=3 none, f32 K=5 one each, f64
+    K=3 one each (K7 holds 1, K8 2)."""
+    n, nc = 17, 9
+    A = laplacian(4, dtype, cuda)
+    R, P = node_restriction(3), node_prolongation(3)
+    rk, pk = separable_kernels(R), separable_kernels(P)
+    sol, rhs = (torch.ones((n,) * 3, dtype=dtype, device=cuda) for _ in range(2))
+    sol_c = torch.ones((nc,) * 3, dtype=dtype, device=cuda)
+    counters = (s3.rbgs_wavefront, s3.smooth_res_restrict_wavefront,
+                s3.prolong_correct_smooth_wavefront)
+    for fn, call, mode in (
+            (s3.smooth_res_restrict_wavefront,
+             lambda: s3.smooth_res_restrict_wavefront(sol, rhs, A, OMEGA, K, rk, R.lo, (nc,) * 3),
+             s3.LEG_RESTRICT),
+            (s3.prolong_correct_smooth_wavefront,
+             lambda: s3.prolong_correct_smooth_wavefront(sol, sol_c, rhs, A, OMEGA, K, pk, P.lo),
+             s3.LEG_PROLONG)):
+        n0 = [c.launches for c in counters]
+        call()
+        torch.cuda.synchronize()
+        moved = dict(zip(("K6", "K7", "K8"), (c.launches - k for c, k in zip(counters, n0))))
+        k6 = int(K > s3.max_cluster_k(dtype, mode))
+        assert moved == {"K6": k6, "K7": int(mode == s3.LEG_RESTRICT),
+                         "K8": int(mode == s3.LEG_PROLONG)}
+
+
+def test_refused_cluster_launch_raises(cuda):
+    """A cluster shape the kernel does not take is refused by the C entry
+    and raises; nothing runs on the CPU instead."""
+    A = laplacian(3, torch.float32, cuda)
+    R = node_restriction(3)
+    t = torch.zeros((9, 9, 9), dtype=torch.float32, device=cuda)
+    n0 = s3.smooth_res_restrict_wavefront.launches
+    with pytest.raises(RuntimeError, match="cluster_leg: CUDA error"):
+        s3.smooth_res_restrict_wavefront(t, t, A, OMEGA, 1, separable_kernels(R), R.lo, (5, 5, 5),
+                                         cluster=(1, 4))
+    assert s3.smooth_res_restrict_wavefront.launches == n0
 
 
 def test_wrapper_rejects_non_contiguous(cuda):
@@ -280,7 +387,8 @@ def test_dsl_cycle_launches_the_leg_kernels(cuda, monkeypatch, v1):
     """One MGCycle@finest at maxLevel 6: levels 5 and 6 (>= 33 nodes) run
     the whole-leg kernels, K1/K2 leg_launches per level and leg (f64, K=3:
     two, as one launch holds K2 2 and K1 1 iterations in f64), or with
-    EXA_STREAM_V1=1 K7/K8 one launch per level and leg."""
+    EXA_STREAM_V1=1 K7/K8 one launch per level and leg, and a K6 launch
+    each for the iterations they do not hold in f64."""
     if v1:
         monkeypatch.setenv("EXA_STREAM_V1", "1")
     kernels = (s3.smooth_res_restrict, s3.prolong_correct_smooth, s3.rbgs_fused,
@@ -294,7 +402,9 @@ def test_dsl_cycle_launches_the_leg_kernels(cuda, monkeypatch, v1):
     torch.cuda.synchronize()
     moved = [fn.launches - k for fn, k in zip(kernels, n0)]
     k1, k2 = (2 * leg_launches(m, 3, torch.float64) for m in (s3.LEG_RESTRICT, s3.LEG_PROLONG))
-    assert moved == ([0, 0, 0, 2, 2, 0] if v1 else [k1, k2, 0, 0, 0, 0])
+    # v1 in float64: K7 holds 1 iteration and K8 2, K6 runs the rest
+    k6 = 2 * sum(3 > s3.max_cluster_k(torch.float64, m) for m in (s3.LEG_RESTRICT, s3.LEG_PROLONG))
+    assert moved == ([0, 0, 0, 2, 2, k6] if v1 else [k1, k2, 0, 0, 0, 0])
 
 
 def test_dsl_profile_reports_every_level(cuda):

@@ -33,7 +33,7 @@ from exastencils_tpu_torch.ops.cuda import stream3d as s3
 
 torch.set_num_threads(1)
 OMEGA = 0.8
-F64_DEPTH = 3  # max_wavefront_k(torch.float64)
+F64_DEPTH = 3  # max_wavefront_k(torch.float64): K6's iterations per launch
 
 
 @pytest.fixture
@@ -42,13 +42,23 @@ def v1(monkeypatch):
 
 
 def test_wavefront_depths():
-    """K <= 3 is one launch in float32 and float64; K7's window, the
-    largest, fits the shared memory of one block."""
+    """K6 holds 5 iterations a launch in float32 and 3 in float64, its
+    window within one block's shared memory.  K7/K8 (cluster_legs3d.cu)
+    hold 3 in float32, so each leg of a V(3,3) cycle is one launch; in
+    float64 K8 2 and K7 1 (with the node and the cell restriction), each
+    within the shared memory of one block, one more iteration not."""
     assert (s3.max_wavefront_k(torch.float32), s3.max_wavefront_k(torch.float64)) == (5, F64_DEPTH)
     for dtype, itemsize in ((torch.float32, 4), (torch.float64, 8)):
-        k = s3.max_wavefront_k(dtype)
-        assert s3._wave_smem(7, k, 1, itemsize) <= s3.SMEM_LIMIT < s3._wave_smem(7, k + 1, 1, itemsize)
-        assert max(s3._wave_smem(kern, k, 1, itemsize) for kern in (6, 7, 8)) == s3._wave_smem(7, k, 1, itemsize)
+        k6 = s3.max_wavefront_k(dtype)  # a ring of 2K+2 windows (wavefront3d.cu)
+        assert (2 * k6 + 2) * (s3.WAVE_TILE + 4 * k6) ** 2 * itemsize <= s3.SMEM_LIMIT
+        for mode, reach, want in ((s3.LEG_PROLONG, 0, (3, 2)), (s3.LEG_RESTRICT, 1, (3, 1)),
+                                  (s3.LEG_RESTRICT, 0, (3, 1))):
+            k = s3.max_cluster_k(dtype, mode, reach)
+            assert k == want[itemsize // 8]
+            cluster = s3.CLUSTER[mode]
+            assert s3._cluster_smem(mode, k, reach, itemsize, cluster) <= s3.SMEM_LIMIT
+            assert (k == s3.MAX_CLUSTER_K
+                    or s3._cluster_smem(mode, k + 1, reach, itemsize, cluster) > s3.SMEM_LIMIT)
 
 
 def _count_calls(monkeypatch, name):
@@ -147,7 +157,9 @@ def test_smooth_res_restrict_wavefront_matches_pallas_v1(v1, monkeypatch, name):
     np.testing.assert_array_equal(sol_t.numpy(), sol)
     close(got_s, want_s)
     close(got_rc, want_rc)
-    assert prelude == ([K - F64_DEPTH] if K > F64_DEPTH else [])
+    kmax = s3.max_cluster_k(torch.float64, s3.LEG_RESTRICT,
+                            s3._restrict_reach(separable_kernels(R), R.lo))
+    assert prelude == ([K - kmax] if K > kmax else [])
 
 
 @pytest.mark.parametrize("name", sorted(LEGS))
@@ -165,7 +177,8 @@ def test_prolong_correct_smooth_wavefront_matches_pallas_v1(v1, monkeypatch, nam
                                               OMEGA, K, separable_kernels(P), P.lo)
     np.testing.assert_array_equal(sol_t.numpy(), sol)
     close(got, want)
-    assert tail == ([K - F64_DEPTH] if K > F64_DEPTH else [])
+    kmax = s3.max_cluster_k(torch.float64, s3.LEG_PROLONG)
+    assert tail == ([K - kmax] if K > kmax else [])
 
 
 def test_wavefront_wrappers_reject_other_devices():
@@ -226,6 +239,8 @@ def test_schedule_switch_selects_the_kernels(monkeypatch, env, kind):
     if kind == "rbgs":
         legs = ("K7", "K8") if env == "1" else ("K1", "K2")
         want = {legs[0]: sizes, legs[1]: sizes[::-1]}
+        if env == "1":  # float64 V(3,3): K7 holds 1 iteration, K8 2; K6 runs the rest
+            want["K6"] = sizes + sizes[::-1]
     else:  # pre- and post-smoothing per level
         want = {"K6" if env == "1" else "K3": [17, 9, 5, 5, 9, 17]}
     assert {kk: v for kk, v in calls.items() if v} == want
