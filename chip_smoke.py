@@ -6,16 +6,19 @@
 Builds the CUDA kernels K1-K8 from csrc/, holds each against its plain
 PyTorch version on the card (K1/K2 also at odd shapes, excl planes and
 K = 1..4, and bitwise against the K3/K4/K5 compositions they replace;
-K7/K8 bitwise against K1/K2 at odd shapes and K = 1..4), prints K7/K8's
-launch shape on the card, times their cluster shapes (v1_launch_shape,
-cluster_variants), drives five Poisson3D V(3,3)-cycle paths at
+K3/K6 also at odd shapes and levels 7 and 9 with excl planes on tile,
+cluster and z-chunk edges, K = 1..5; K7/K8 bitwise against K1/K2 at odd
+shapes and K = 1..4), prints K7/K8's launch shape on the card, times
+their cluster shapes (v1_launch_shape, cluster_variants), K6's cluster
+shapes and K3's z-chunks (smoother_variants) and K3/K6 on every level
+(smoother_level_times), drives five Poisson3D V(3,3)-cycle paths at
 513^3 float32 (the size `python bench.py` times), each with kernels and
 plain:
   main_path    RBGS, the whole-leg kernels K1/K2;
   jacobi_path  damped Jacobi, the fused transfers K4/K5;
   fas_path     RBGS under FAS, the fused smoother K3;
   v1_path      RBGS with EXA_STREAM_V1=1, the whole-leg cluster kernels K7/K8;
-  v1_fas_path  RBGS under FAS with EXA_STREAM_V1=1, the wavefront K6;
+  v1_fas_path  RBGS under FAS with EXA_STREAM_V1=1, the cluster smoother K6;
 solves small float64 problems (RBGS, Jacobi, FAS, RBGS V(0,2), and
 RBGS and FAS under EXA_STREAM_V1=1) on the GPU and on the CPU, which must
 print the same lines, and drives the DSL entry points on
@@ -62,9 +65,8 @@ KERNELS = {
     "K7": ("smooth_res_restrict_wavefront", "exastencils_tpu/ops/pallas/stream3d.py:475"),
     "K8": ("prolong_correct_smooth_wavefront", "exastencils_tpu/ops/pallas/stream3d.py:629"),
 }
-SOURCES = {kk: "exastencils_tpu_torch/csrc/" + ("legs3d.cu" if kk in ("K1", "K2") else
-                                                "cluster_legs3d.cu" if kk in ("K7", "K8") else
-                                                "wavefront3d.cu" if kk == "K6"
+SOURCES = {kk: "exastencils_tpu_torch/csrc/" + ("legs3d.cu" if kk in ("K1", "K2", "K3") else
+                                                "cluster_legs3d.cu" if kk in ("K6", "K7", "K8")
                                                 else "stream3d.cu") for kk in KERNELS}
 # Published H100 SXM peaks (NVIDIA's data sheet, at 700 W): HBM bytes/s, and
 # FLOP/s outside the tensor cores (the kernels use none: TF32 would break
@@ -245,6 +247,15 @@ LEG_CASES = (
     (((139, 9, 17), (70, 5, 9)), None),
     (((139, 9, 17), (70, 5, 9)), (127, 129, -1, -1, 8, -1)),
 )
+# K3/K6: LEG_CASES and excl planes on both sides of tile edges (31 | 32, the
+# inner edge of 1 x 2, 2 x 1 and 2 x 2 clusters; 63 | 64 an outer one) and
+# of z-chunk edges (the wrapper's chunk: 4 planes at 65^3, 8 at 129^3, 128
+# at 513^3), at levels 6, 7 and 9
+SMOOTHER_CASES = LEG_CASES + (
+    (((65, 65, 65), (33, 33, 33)), (3, 4, 31, 32, 32, 63)),
+    (((129, 129, 129), (65, 65, 65)), (63, 64, 63, 96, 64, 127)),
+    (((513, 513, 513), (257, 257, 257)), (127, 128, 31, 32, 63, 511)),
+)
 
 
 def bound(kk, n, nc, K, dtype):
@@ -269,19 +280,33 @@ def bound(kk, n, nc, K, dtype):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def compare_fused(level, K, dtype, excl=None, timed=False):
+def k6_launches(K, dtype, cluster=None):
+    """cluster_legs3d.cu launches of one K6 call of K iterations."""
+    from exastencils_tpu_torch.ops.cuda import stream3d as s3
+
+    return -(-K // s3.max_wavefront_k(dtype, cluster))
+
+
+def compare_fused(level, K, dtype, excl=None, timed=False, shape=None):
     """K3, K4 and K5 against their plain versions on the same inputs; K3
-    bitwise (--fmad=false)."""
+    bitwise (--fmad=false), one launch per max_leg_k iterations.  `shape`
+    = (fine, coarse) for an odd shape with a star of distinct
+    coefficients, else the level's Laplacian."""
     from exastencils_tpu_torch.core.stencil import node_prolongation, node_restriction
     from exastencils_tpu_torch.ops.cuda import stream3d as s3
     from exastencils_tpu_torch.ops.transfer import separable_kernels
 
-    A, sol, rhs, sol_c, cshape = leg_inputs(level, dtype, seed=level * 10 + K + 1)
+    seed = (level or 0) * 10 + K + 1
+    A, sol, rhs, sol_c, cshape = (leg_inputs(level, dtype, seed) if shape is None
+                                  else star_inputs(*shape, dtype, seed))
     R, P = node_restriction(3), node_prolongation(3)
     rk, pk = separable_kernels(R), separable_kernels(P)
     excl = s3.NO_EXCL if excl is None else excl
     s_ref = s3.rbgs_fused_plain(sol, rhs, A, OMEGA, K, excl)
+    n0 = launch_counts()
     s_got = s3.rbgs_fused(sol.clone(), rhs, A, OMEGA, K, excl)
+    torch.cuda.synchronize()
+    launches = launch_counts()["K3"] - n0["K3"]
     rc_ref = s3.res_restrict_plain(sol, rhs, A, rk, R.lo, cshape)
     rc_got = s3.res_restrict(sol, rhs, A, rk, R.lo, cshape)
     u_ref = s3.prolong_correct_plain(sol, sol_c, pk, P.lo)
@@ -290,15 +315,19 @@ def compare_fused(level, K, dtype, excl=None, timed=False):
     errs = {"K3": rel_err(s_got, s_ref), "K4": rel_err(rc_got, rc_ref), "K5": rel_err(u_got, u_ref)}
     tol = TOL[dtype]
     bitwise = bool(torch.equal(s_got, s_ref))
-    phase("compare_fused", level=level, K=K, dtype=str(dtype).split(".")[1], excl=excl,
+    want = len(s3.leg_chain(s3.LEG_SMOOTH, K, dtype))
+    phase("compare_fused", level=level, shape=tuple(sol.shape), K=K,
+          dtype=str(dtype).split(".")[1], excl=excl,
           **{f"{kk.lower()}_rel": f"{e[1]:.3e}" for kk, e in errs.items()}, tol=tol,
-          k3_bitwise=bitwise)
+          k3_bitwise=bitwise, k3_launches=launches)
     if not (bitwise and errs["K4"][1] <= tol and errs["K5"][1] <= tol):
-        raise AssertionError(f"kernel/plain mismatch at level {level} K {K} {dtype} excl {excl}")
+        raise AssertionError(f"kernel/plain mismatch at {tuple(sol.shape)} K {K} {dtype} excl {excl}")
+    if launches != want:
+        raise AssertionError(f"K3 took {launches} launches, not {want}")
     out = {kk: {"max_abs_err": e[0]} for kk, e in errs.items()}
     if timed:
         s = sol.clone()
-        out["K3"]["ms"] = cuda_ms(lambda: s3.rbgs_fused(s, rhs, A, OMEGA, K), 5)
+        out["K3"]["ms"] = cuda_ms(lambda: s3.rbgs_fused(s, rhs, A, OMEGA, K), 10)
         out["K3"]["plain_ms"] = cuda_ms(lambda: s3.rbgs_fused_plain(s, rhs, A, OMEGA, K), 3)
         out["K4"]["ms"] = cuda_ms(lambda: s3.res_restrict(s, rhs, A, rk, R.lo, cshape), 10)
         out["K4"]["plain_ms"] = cuda_ms(lambda: s3.res_restrict_plain(s, rhs, A, rk, R.lo, cshape), 5)
@@ -309,15 +338,19 @@ def compare_fused(level, K, dtype, excl=None, timed=False):
     return out
 
 
-def compare_wavefronts(level, K, dtype, excl=None, timed=False):
-    """K6, K7 and K8 against their plain versions on the same inputs, one
-    launch each (and a K6 launch for the iterations K7 or K8 does not hold,
-    in float64 at K=3); K6 and K7's sol bitwise (--fmad=false)."""
+def compare_wavefronts(level, K, dtype, excl=None, timed=False, shape=None):
+    """K6, K7 and K8 against their plain versions on the same inputs: K7/K8
+    one launch each, K6 one per max_wavefront_k iterations (and K6 launches
+    for the iterations K7 or K8 does not hold); K6 and K7's sol bitwise
+    (--fmad=false); with excl planes K6 also bitwise on every cluster shape
+    (not counted).  `shape` as compare_fused's."""
     from exastencils_tpu_torch.core.stencil import node_prolongation, node_restriction
     from exastencils_tpu_torch.ops.cuda import stream3d as s3
     from exastencils_tpu_torch.ops.transfer import separable_kernels
 
-    A, sol, rhs, sol_c, cshape = leg_inputs(level, dtype, seed=level * 10 + K + 2)
+    seed = (level or 0) * 10 + K + 2
+    A, sol, rhs, sol_c, cshape = (leg_inputs(level, dtype, seed) if shape is None
+                                  else star_inputs(*shape, dtype, seed))
     R, P = node_restriction(3), node_prolongation(3)
     rk, pk = separable_kernels(R), separable_kernels(P)
     excl = s3.NO_EXCL if excl is None else excl
@@ -335,18 +368,24 @@ def compare_wavefronts(level, K, dtype, excl=None, timed=False):
             "K8": rel_err(s8, r8)}
     tol = TOL[dtype]
     bitwise = bool(torch.equal(s6, r6) and torch.equal(s7, r7))
-    phase("compare_wavefronts", level=level, K=K, dtype=str(dtype).split(".")[1], excl=excl,
+    shapes_bitwise = True
+    if excl != s3.NO_EXCL:
+        shapes_bitwise = all(torch.equal(s3.rbgs_wavefront(sol, rhs, A, OMEGA, K, excl, cluster=c), r6)
+                             for c in s3.CLUSTER_SHAPES)
+    phase("compare_wavefronts", level=level, shape=tuple(sol.shape), K=K,
+          dtype=str(dtype).split(".")[1], excl=excl,
           **{f"{kk.lower()}_rel": f"{e[1]:.3e}" for kk, e in errs.items()}, tol=tol,
-          k6_k7_sol_bitwise=bitwise, launches=launches)
-    if not (bitwise and errs["K7"][1] <= tol and errs["K8"][1] <= tol):
-        raise AssertionError(f"wavefront/plain mismatch at level {level} K {K} {dtype} excl {excl}")
-    want = {"K6": 1 + sum(K > s3.max_cluster_k(dtype, m) for m in (s3.LEG_RESTRICT, s3.LEG_PROLONG)),
-            "K7": 1, "K8": 1}
+          k6_k7_sol_bitwise=bitwise, k6_every_cluster_bitwise=shapes_bitwise, launches=launches)
+    if not (bitwise and shapes_bitwise and errs["K7"][1] <= tol and errs["K8"][1] <= tol):
+        raise AssertionError(f"wavefront/plain mismatch at {tuple(sol.shape)} K {K} {dtype} excl {excl}")
+    excess = sum(k6_launches(max(K - s3.max_cluster_k(dtype, m), 0), dtype)
+                 for m in (s3.LEG_RESTRICT, s3.LEG_PROLONG))
+    want = {"K6": k6_launches(K, dtype) + excess, "K7": 1, "K8": 1}
     if launches != want:
         raise AssertionError(f"wavefronts took {launches} launches, not {want}")
     out = {kk: {"max_abs_err": e[0]} for kk, e in errs.items()}
     if timed:
-        out["K6"]["ms"] = cuda_ms(lambda: s3.rbgs_wavefront(sol, rhs, A, OMEGA, K), 5)
+        out["K6"]["ms"] = cuda_ms(lambda: s3.rbgs_wavefront(sol, rhs, A, OMEGA, K), 10)
         out["K6"]["plain_ms"] = cuda_ms(lambda: s3.rbgs_wavefront_plain(sol, rhs, A, OMEGA, K), 3)
         out["K7"]["ms"] = cuda_ms(lambda: s3.smooth_res_restrict_wavefront(
             sol, rhs, A, OMEGA, K, rk, R.lo, cshape), 5)
@@ -359,6 +398,50 @@ def compare_wavefronts(level, K, dtype, excl=None, timed=False):
         phase("wavefront_times", level=level, K=K, **{f"{k}_{f}": f"{v[f]:.4f}" for k, v in out.items()
                                                       for f in ("ms", "plain_ms")})
     return out
+
+
+def smoother_variants(level, K):
+    """K6 on every cluster shape and K3 at several z-chunks, float32, on one
+    level's Laplacian in one process: each bitwise the plain version,
+    device ms of one call.  K3's copy-back (a copy of sol's size) is timed
+    apart."""
+    from exastencils_tpu_torch.ops.cuda import stream3d as s3
+
+    A, sol, rhs, _, _ = leg_inputs(level, torch.float32, seed=level + 11)
+    ref = s3.rbgs_fused_plain(sol, rhs, A, OMEGA, K)
+    k6 = {}
+    for cluster in s3.CLUSTER_SHAPES:
+        if not torch.equal(s3.rbgs_wavefront(sol, rhs, A, OMEGA, K, cluster=cluster), ref):
+            raise AssertionError(f"K6 on {cluster} clusters differs from the plain version")
+        k6[cluster] = cuda_ms(lambda: s3.rbgs_wavefront(sol, rhs, A, OMEGA, K, cluster=cluster), 10)
+    k3, s, spare = {}, sol.clone(), torch.empty_like(sol)
+    default_chunk = s3.leg_chunk(sol.shape, _sm_count())
+    for chunk in sorted({32, 64, 128, 256, default_chunk}):
+        if not torch.equal(s3.rbgs_fused(sol.clone(), rhs, A, OMEGA, K, chunk=chunk), ref):
+            raise AssertionError(f"K3 at z-chunk {chunk} differs from the plain version")
+        k3[chunk] = cuda_ms(lambda: s3.rbgs_fused(s, rhs, A, OMEGA, K, chunk=chunk), 10)
+    copy_ms = cuda_ms(lambda: spare.copy_(s), 10)
+    phase("smoother_variants", kernel="K6", level=level, K=K, dtype="float32",
+          default=s3.CLUSTER[s3.LEG_SMOOTH], bitwise=True,
+          **{f"ms_{cy}x{cx}": f"{ms:.4f}" for (cy, cx), ms in k6.items()})
+    phase("smoother_variants", kernel="K3", level=level, K=K, dtype="float32",
+          default_chunk=default_chunk, bitwise=True,
+          **{f"ms_chunk{c}": f"{ms:.4f}" for c, ms in k3.items()}, copy_back_ms=f"{copy_ms:.4f}",
+          kernel_ms_default_chunk=f"{k3[default_chunk] - copy_ms:.4f}")
+    return k6, k3, copy_ms
+
+
+def smoother_level_times(level, K):
+    """K3 and K6 (default z-chunk and cluster), float32, on one level's
+    Laplacian: device ms of one call each (the FAS paths call them on
+    every level 2..9)."""
+    from exastencils_tpu_torch.ops.cuda import stream3d as s3
+
+    A, sol, rhs, _, _ = leg_inputs(level, torch.float32, seed=level + 13)
+    s = sol.clone()
+    phase("smoother_level_times", level=level, K=K, chunk=s3.leg_chunk(sol.shape, _sm_count()),
+          K3_ms=f"{cuda_ms(lambda: s3.rbgs_fused(s, rhs, A, OMEGA, K), 10):.4f}",
+          K6_ms=f"{cuda_ms(lambda: s3.rbgs_wavefront(sol, rhs, A, OMEGA, K), 10):.4f}")
 
 
 def compare_v1_legs(level, K, dtype, shape=None):
@@ -384,8 +467,8 @@ def compare_v1_legs(level, K, dtype, shape=None):
     torch.cuda.synchronize()
     n1 = launch_counts()
     launches = {kk: n1[kk] - n0[kk] for kk in ("K6", "K7", "K8")}
-    want = {"K6": sum(K > s3.max_cluster_k(dtype, m) for m in (s3.LEG_RESTRICT, s3.LEG_PROLONG)),
-            "K7": 1, "K8": 1}
+    want = {"K6": sum(k6_launches(max(K - s3.max_cluster_k(dtype, m), 0), dtype)
+                      for m in (s3.LEG_RESTRICT, s3.LEG_PROLONG)), "K7": 1, "K8": 1}
     s1, c1 = s3.smooth_res_restrict(sol.clone(), rhs, A, OMEGA, K, rk, R.lo, cshape)
     s2 = s3.prolong_correct_smooth(sol.clone(), sol_c, rhs, A, OMEGA, K, pk, P.lo)
     bitwise = {"k7_sol": bool(torch.equal(s7, s1)), "k7_coarse": bool(torch.equal(c7, c1)),
@@ -722,14 +805,15 @@ def main():
         for K in (1, 3):
             for dtype in (torch.float64, torch.float32):
                 compare_fused(level, K, dtype)
-    for dtype in (torch.float64, torch.float32):
-        compare_fused(5, 3, dtype, excl=(2, 30, -1, 5, 1, -1))
-    for level in (4, 5):
-        for K in (1, 3):
-            for dtype in (torch.float64, torch.float32):
                 compare_wavefronts(level, K, dtype)
     for dtype in (torch.float64, torch.float32):
+        compare_fused(5, 3, dtype, excl=(2, 30, -1, 5, 1, -1))
         compare_wavefronts(5, 3, dtype, excl=(2, 30, -1, 5, 1, -1))
+    for shape, excl in SMOOTHER_CASES:
+        for K in (1, 2, 3, 4, 5):
+            for dtype in (torch.float64, torch.float32):
+                compare_fused(None, K, dtype, excl=excl, shape=shape)
+                compare_wavefronts(None, K, dtype, excl=excl, shape=shape)
     for K in (1, 2, 3, 4):
         for dtype in (torch.float64, torch.float32):
             for level in (4, 5):
@@ -744,6 +828,16 @@ def main():
     full.update(compare_wavefronts(MAIN_LEVEL, K_MAIN, torch.float32, timed=True))
     v1_launch_shape(MAIN_LEVEL, K_MAIN)
     cluster_variants(MAIN_LEVEL, K_MAIN)
+    _, _, copy_ms = smoother_variants(MAIN_LEVEL, K_MAIN)
+    n, nc = 2 ** MAIN_LEVEL + 1, 2 ** (MAIN_LEVEL - 1) + 1
+    for kk in ("K3", "K6", "K1", "K2", "K7", "K8"):
+        b_ms = bound(kk, n, nc, K_MAIN, torch.float32)[0]
+        phase("smoother_times" if kk in ("K3", "K6") else "leg_times_same_call", kernel=kk,
+              level=MAIN_LEVEL, K=K_MAIN, ms=f"{full[kk]['ms']:.4f}", bound_ms=f"{b_ms:.4f}",
+              share_of_bound=f"{b_ms / full[kk]['ms']:.3f}",
+              **({"copy_back_ms": f"{copy_ms:.4f}"} if kk in ("K1", "K2", "K3") else {}))
+    for level in range(2, MAIN_LEVEL + 1):
+        smoother_level_times(level, K_MAIN)
 
     none = dict.fromkeys(KERNELS, 0)
     # legs3d.cu launches per leg and level: one (K=3 fits one launch in float32)
@@ -758,16 +852,19 @@ def main():
                                         0.4, model_kw={"smoother": "Jac"})
     launches.update(K4=jac["K4"], K5=jac["K5"])
     k3_calls = 2 * (MAIN_LEVEL - 1)  # pre- and post-smoothing on levels 2..9
-    fas, _ = path_with_and_without_kernels("fas_path", {**none, "K3": k3_calls * 2 * K_MAIN}, 0.1,
+    k3_per_call = len(s3.leg_chain(s3.LEG_SMOOTH, K_MAIN, torch.float32))  # one at K=3 in float32
+    fas, _ = path_with_and_without_kernels("fas_path", {**none, "K3": k3_calls * k3_per_call}, 0.1,
                                         solver_useFAS=True)
-    phase("fas_path_k3", calls_per_cycle=fas["K3"] // (2 * K_MAIN), half_sweeps=fas["K3"])
+    phase("fas_path_k3", calls_per_cycle=k3_calls, launches_per_call=k3_per_call,
+          launches=fas["K3"])
     launches.update(K3=fas["K3"])
     with v1_schedule():
         v1, v1_ms = path_with_and_without_kernels("v1_path",
                                                   {**none, "K7": transfers, "K8": transfers}, 0.1)
         launches.update(K7=v1["K7"], K8=v1["K8"])
-        v1_fas, _ = path_with_and_without_kernels("v1_fas_path", {**none, "K6": k3_calls}, 0.1,
-                                               solver_useFAS=True)
+        v1_fas, _ = path_with_and_without_kernels(
+            "v1_fas_path", {**none, "K6": k3_calls * k6_launches(K_MAIN, torch.float32)}, 0.1,
+            solver_useFAS=True)
         launches.update(K6=v1_fas["K6"])
 
     solve_both("rbgs")
@@ -797,7 +894,6 @@ def main():
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
 
-    n, nc = 2 ** MAIN_LEVEL + 1, 2 ** (MAIN_LEVEL - 1) + 1
     kernels = []
     for kk, (fn, rep) in KERNELS.items():
         b_ms, b_by = bound(kk, n, nc, K_MAIN, torch.float32)

@@ -1,20 +1,27 @@
-// The whole multigrid legs of the v1 schedule as one launch each, for 3D
-// radius-1 star stencils on Hopper (sm_90a), with the y/x halo shared
-// through thread-block clusters:
+// The v1 schedule's kernels as one launch each, for 3D radius-1 star
+// stencils on Hopper (sm_90a), with the y/x halo shared through
+// thread-block clusters:
+//   K6 = exastencils_tpu/ops/pallas/stream3d.py:84 _rbgs_kernel
+//        K damped RBGS iterations, the fused smoother, with excl planes
+//        (wrapper ops/cuda/stream3d.rbgs_wavefront)
 //   K7 = exastencils_tpu/ops/pallas/stream3d.py:475 _smooth_down_kernel
 //        K damped RBGS iterations + residual + 2:1 restriction, the down leg
 //        (wrapper ops/cuda/stream3d.smooth_res_restrict_wavefront)
 //   K8 = exastencils_tpu/ops/pallas/stream3d.py:629 _up_smooth_kernel
 //        sol += P sol_c on inner nodes + K damped RBGS iterations, the up leg
 //        (wrapper ops/cuda/stream3d.prolong_correct_smooth_wavefront)
-// Both are one kernel, cluster_leg, in two modes: kProlong (K8) and
-// kRestrict (K7).  A K deeper than one launch holds runs the rest as K6
-// (wavefront3d.cu), K7 before its launch and K8 after it.
+// All are one kernel, cluster_leg, in three modes: kSmooth (K6, no
+// transfer), kProlong (K8) and kRestrict (K7).  A K deeper than one launch
+// holds runs the rest as further K6 launches, K7 before its launch and K8
+// after it.
 //
 // What is computed is the plain PyTorch path's to the last bit in the
 // smoothing, and K1's/K2's (legs3d.cu) in both outputs: star3d.cuh's
 // arithmetic (the reference term order, global (z+y+x)%2 parity, red first,
-// built with --fmad=false), the Dirichlet ring never written; K7 restricts
+// built with --fmad=false), the Dirichlet ring and K6's excl planes never
+// written (the updatable test is on global indices, so an excl plane on a
+// tile, cluster or z-chunk edge is no special case; K7/K8 take no excl
+// planes, as their TPU kernels); K7 restricts
 // in residual_restrict's order (z innermost, then y, then x), K8 prolongs
 // in prolong_sum's (z-sums per plane step, then at most four adds a node).
 //
@@ -70,6 +77,14 @@
 //   early would leave its cluster waiting.  The kernel ends with a cluster
 //   barrier, so no block exits while another reads its memory.
 // - Out of place: the result goes to a second array (windows overlap).
+// - K6 is K8 without the coarse ring and the ingest: the sol and rhs rings
+//   only (2K+2+kAhead slots), the window of the tile plus 2K, up to kMaxK
+//   iterations a launch as shared memory allows (in float64 fewer).  On a
+//   cluster of one (its default, the fastest) it is compiled apart
+//   (ALONE): no reads across edges, no cluster barriers.  The
+//   first K6, a single-plane wavefront, ran 289 blocks of 519 plane steps
+//   with rhs read from L2 and 2K+1 block barriers a step (7.1 ms at 513^3
+//   f32, K=3, on an H100).
 
 #include <algorithm>
 
@@ -84,14 +99,16 @@ namespace cg = cooperative_groups;
 
 constexpr int kTile = 32;         // fine (y, x) output tile edge (even: K7's coarse tile is half)
 constexpr int kAhead = 2;         // planes in flight ahead of the one being swept
-constexpr int kMaxK = 3;          // iterations one launch holds (kernels instantiated 1..kMaxK)
+constexpr int kMaxK = 3;          // iterations one launch holds (kernels instantiated 1..kMaxK; K6
+                                  // at K=4 as one launch of two pairs of columns a thread was slower
+                                  // on an H100 than launches of 3 and 1: PERF.md §6)
 constexpr int kMaxThreads = 1024;
 constexpr int kMaxThreads2 = 768;  // with two pairs a thread (registers for both)
 constexpr int kMaxClusterX = 2;   // the window's row length is the same in every block up to 2
 constexpr int kCoarseSlots = 4;   // K8's ring of coarse planes
 constexpr int kResSlots = 4;      // K7's ring of boxes of z-sums
 
-enum Mode { kProlong = 1, kRestrict = 2 };  // legs3d.cu's values
+enum Mode { kSmooth = 0, kProlong = 1, kRestrict = 2 };  // legs3d.cu's values
 
 __device__ __host__ __forceinline__ int floor_half(int a) { return a >= 0 ? a / 2 : -((1 - a) / 2); }
 
@@ -231,16 +248,17 @@ __device__ __forceinline__ TapPair<T> tap_pair(int f, int nc, const T* w, int n,
 
 // One thread's pair of window columns (row ly, columns 2 jx and 2 jx + 1):
 // offsets, global position, half-sweeps before the shrinking outer edge
-// reaches each column (dist), inside the array (in), updatable (ok), and
-// which of its in-plane neighbours lie in another block (edge: 1 y-, 2 y+,
-// 4 x- of the even column, 8 x+ of the odd one).
+// reaches each column (dist), inside the array (in), updatable (ok: off the
+// Dirichlet ring and the y/x excl planes, by global index), and which of
+// its in-plane neighbours lie in another block (edge: 1 y-, 2 y+, 4 x- of
+// the even column, 8 x+ of the odd one).
 struct Pair {
   int e, ly, jx, gy, gx, dist0, dist1, edge;
   bool mine, in0, in1, ok0, ok1;
   int64_t g0, g1;
 };
 
-__device__ __forceinline__ Pair pair_at(int e, const Geom& g, int ny, int nx) {
+__device__ __forceinline__ Pair pair_at(int e, const Geom& g, int ny, int nx, const Excl& ex) {
   constexpr int kFar = 1 << 20;
   Pair c;
   c.e = e;
@@ -249,9 +267,10 @@ __device__ __forceinline__ Pair pair_at(int e, const Geom& g, int ny, int nx) {
   c.jx = e - c.ly * g.RXH;
   c.gy = g.wy0 + c.ly;
   c.gx = g.wx0 + 2 * c.jx;
-  const bool row_ok = c.mine && c.gy >= 1 && c.gy <= ny - 2;
-  c.ok0 = row_ok && c.gx >= 1 && c.gx <= nx - 2;
-  c.ok1 = row_ok && c.gx + 1 >= 1 && c.gx + 1 <= nx - 2;
+  const bool row_ok = c.mine && c.gy >= 1 && c.gy <= ny - 2 && c.gy != ex.p[2] && c.gy != ex.p[3];
+  auto col_ok = [&](int x) { return row_ok && x >= 1 && x <= nx - 2 && x != ex.p[4] && x != ex.p[5]; };
+  c.ok0 = col_ok(c.gx);
+  c.ok1 = col_ok(c.gx + 1);
   const int dy = min(g.ylo ? c.ly : kFar, g.yhi ? g.RY - 1 - c.ly : kFar);
   auto dx = [&](int lx) { return min(g.xlo ? lx : kFar, g.xhi ? g.RX - 1 - lx : kFar); };
   c.dist0 = min(dy, dx(2 * c.jx));
@@ -396,22 +415,26 @@ __device__ __host__ inline int pairs_per_thread(const Geom& g) {
   return g.rows * g.RXH > kMaxThreads ? 2 : 1;
 }
 
-template <typename T, int K, int MODE, int NP>
+// ALONE: compiled for clusters of one (K6's), where no node has a
+// neighbour in another block and block barriers suffice.
+template <typename T, int K, int MODE, int NP, bool ALONE>
 __global__ void __launch_bounds__(NP == 1 ? kMaxThreads : kMaxThreads2)
 cluster_leg(T* __restrict__ out, T* __restrict__ outc, const T* __restrict__ sol,
             const T* __restrict__ solc, const T* __restrict__ rhs, int nz, int ny, int nx,
             int nzc, int nyc, int nxc, Star<T> s, T scale, int reach, int chunk, Taps<T> t,
-            int ccy, int ccx) {
+            Excl ex, int ccy, int ccx) {
   constexpr int L = 2 * K;  // half-sweeps
-  constexpr bool up = MODE == kProlong, down = MODE == kRestrict;
+  constexpr bool up = MODE == kProlong, down = MODE == kRestrict, smooth = MODE == kSmooth;
   constexpr int S = L + 2 + down + kAhead;  // ring slots, of sol and of rhs
   extern __shared__ __align__(16) unsigned char smem[];
   const Span sp = span_for(blockIdx.z, chunk, nz, nzc, down, t);
   if (sp.zf0 > sp.zf1) return;  // the whole cluster (one z-chunk): nothing to compute
   cg::cluster_group cl = cg::this_cluster();
-  const bool alone = ccy * ccx == 1;  // a cluster of one: block barriers suffice
-  const int py = blockIdx.y % ccy, px = blockIdx.x % ccx;
-  const Geom g = geom_for(MODE, K, reach, ccy, ccx, py, px, blockIdx.y, blockIdx.x);
+  const bool alone = ALONE || ccy * ccx == 1;  // a cluster of one: block barriers suffice
+  // (ALONE: the window's shape is known to the compiler)
+  const int py = ALONE ? 0 : blockIdx.y % ccy, px = ALONE ? 0 : blockIdx.x % ccx;
+  const Geom g = geom_for(MODE, K, reach, ALONE ? 1 : ccy, ALONE ? 1 : ccx, py, px, blockIdx.y,
+                          blockIdx.x);
   T* ring = reinterpret_cast<T*>(smem);
   T* rring = ring + S * g.plane;
   T* extra = rring + S * g.plane;  // K8: coarse ring; K7: boxes of z-sums
@@ -419,10 +442,12 @@ cluster_leg(T* __restrict__ out, T* __restrict__ outc, const T* __restrict__ sol
   // the y- neighbour's rows.
   const int rank = static_cast<int>(cl.block_rank());
   const T* nb[4] = {ring, ring, ring, ring};
-  if (!g.ylo) nb[0] = cl.map_shared_rank(ring, rank - ccx);
-  if (!g.yhi) nb[1] = cl.map_shared_rank(ring, rank + ccx);
-  if (!g.xlo) nb[2] = cl.map_shared_rank(ring, rank - 1);
-  if (!g.xhi) nb[3] = cl.map_shared_rank(ring, rank + 1);
+  if (!ALONE) {
+    if (!g.ylo) nb[0] = cl.map_shared_rank(ring, rank - ccx);
+    if (!g.yhi) nb[1] = cl.map_shared_rank(ring, rank + ccx);
+    if (!g.xlo) nb[2] = cl.map_shared_rank(ring, rank - 1);
+    if (!g.xhi) nb[3] = cl.map_shared_rank(ring, rank + 1);
+  }
   const int nry = kTile + (py == 1 ? g.hy : 0);
   const Own oy = own_range(g.ty0, ny, nyc), ox = own_range(g.tx0, nx, nxc);
   const int pstart = sp.zf0 - L, pend = sp.zf1 + L + 3 * down;
@@ -431,7 +456,10 @@ cluster_leg(T* __restrict__ out, T* __restrict__ outc, const T* __restrict__ sol
   const int odd = g.odd;
   Pair pr[NP];
 #pragma unroll
-  for (int k = 0; k < NP; ++k) pr[k] = pair_at(threadIdx.x + k * blockDim.x, g, ny, nx);
+  for (int k = 0; k < NP; ++k) {
+    pr[k] = pair_at(threadIdx.x + k * blockDim.x, g, ny, nx, ex);
+    if constexpr (ALONE) pr[k].edge = 0;  // known to the compiler: no remote reads
+  }
 
   // K8's coarse boxes, and the y and x taps of the thread's columns.
   const int ce = coarse_edge(g), cbox = ce * ce;
@@ -547,7 +575,7 @@ cluster_leg(T* __restrict__ out, T* __restrict__ outc, const T* __restrict__ sol
   };
 
   // No block may read a neighbour's ring before the neighbour has started.
-  cluster_arrive();
+  if (!ALONE) cluster_arrive();
 #pragma unroll
   for (int j = 0; j < kAhead; ++j) issue(pstart + j, j);
   cp_async_wait<kAhead - 1>();
@@ -557,7 +585,7 @@ cluster_leg(T* __restrict__ out, T* __restrict__ outc, const T* __restrict__ sol
     __syncthreads();
     ingest(pstart, 0);
   }
-  cluster_wait();
+  if (!ALONE) cluster_wait();
   for (int p = pstart, s0 = 0; p <= pend; ++p, s0 = s0 + 1 < S ? s0 + 1 : 0) {
     issue(p + kAhead, s0 + kAhead < S ? s0 + kAhead : s0 + kAhead - S);
     T* bp = ring + s0 * g.plane;
@@ -599,7 +627,8 @@ cluster_leg(T* __restrict__ out, T* __restrict__ outc, const T* __restrict__ sol
         const int q = p - l, o = slot_back(s0, l) * g.plane;
         const T cen = ring[o + li];
         T v = cen;
-        if (oka && l <= dista && q >= max(zlo + l, 1) && q <= nz - 2) {
+        if (oka && l <= dista && q >= max(zlo + l, 1) && q <= nz - 2 &&
+            (!smooth || (q != ex.p[0] && q != ex.p[1]))) {
           Nbrs<T> n = local_nbrs(ring, g, c, a, o);
           if (ryo) (c.edge & 1 ? n.ym : n.yp) = ryv[l - 1];
           if (rxo) (a ? n.xp : n.xm) = rxv[l - 1];
@@ -730,13 +759,13 @@ Geom launch_geom(int mode, int K, int reach, int ccy, int ccx) {
 }
 
 // Dynamic shared memory of one block: the rings of sol and rhs, then K8's
-// coarse ring and two boxes of z-sums, or K7's boxes of z-sums.
+// coarse ring and two boxes of z-sums, or K7's boxes of z-sums (K6: none).
 size_t cluster_smem(int mode, int K, int reach, int ccy, int ccx, size_t itemsize) {
   const Geom g = launch_geom(mode, K, reach, ccy, ccx);
   const size_t slots = 2 * (2 * K + 2 + (mode == kRestrict) + kAhead);
-  const size_t extra = mode == kProlong
-                           ? (kCoarseSlots + 2) * coarse_edge(g) * coarse_edge(g)
-                           : kResSlots * (kTile + 2 * reach) * (kTile + 2 * reach);
+  const size_t extra = mode == kProlong    ? (kCoarseSlots + 2) * coarse_edge(g) * coarse_edge(g)
+                       : mode == kRestrict ? kResSlots * (kTile + 2 * reach) * (kTile + 2 * reach)
+                                           : 0;
   return (slots * g.plane + extra) * itemsize;
 }
 
@@ -753,24 +782,26 @@ int round_up(int n, int m) { return (n + m - 1) / m * m; }
 
 template <typename T>
 using LegFn = void (*)(T*, T*, const T*, const T*, const T*, int, int, int, int, int, int, Star<T>,
-                       T, int, int, Taps<T>, int, int);
+                       T, int, int, Taps<T>, Excl, int, int);
 
-template <typename T, int MODE, int NP>
+template <typename T, int MODE, int NP, bool ALONE = false>
 LegFn<T> kernel_for(int K) {
-  return K == 1 ? cluster_leg<T, 1, MODE, NP> : K == 2 ? cluster_leg<T, 2, MODE, NP>
-                                                       : cluster_leg<T, 3, MODE, NP>;
+  return K == 1 ? cluster_leg<T, 1, MODE, NP, ALONE>
+       : K == 2 ? cluster_leg<T, 2, MODE, NP, ALONE> : cluster_leg<T, 3, MODE, NP, ALONE>;
 }
 
 // Two pairs a thread only for K7 (K8's widest window, a cluster of one's at
-// K=3, is 968 pairs).
+// K=3, is 968 pairs; K6's the same).  K6 on a cluster of one: ALONE.
 template <typename T>
-LegFn<T> kernel_for(int mode, int K, int np) {
+LegFn<T> kernel_for(int mode, int K, int np, bool alone) {
+  if (mode == kSmooth)
+    return alone ? kernel_for<T, kSmooth, 1, true>(K) : kernel_for<T, kSmooth, 1>(K);
   return mode == kProlong ? kernel_for<T, kProlong, 1>(K)
        : np == 1 ? kernel_for<T, kRestrict, 1>(K) : kernel_for<T, kRestrict, 2>(K);
 }
 
 bool valid_launch(int mode, int K, int ccy, int ccx) {
-  return (mode == kProlong || mode == kRestrict) && K >= 1 && K <= kMaxK && ccy >= 1 &&
+  return mode >= kSmooth && mode <= kRestrict && K >= 1 && K <= kMaxK && ccy >= 1 &&
          ccx >= 1 && ccx <= kMaxClusterX && ccy * ccx <= 8;
 }
 
@@ -784,7 +815,7 @@ LegFn<T> prepared(int mode, int K, int reach, int ccy, int ccx, size_t* smem, in
   *threads = cluster_threads(mode, K, reach, ccy, ccx);
   const int np = pairs_per_thread(launch_geom(mode, K, reach, ccy, ccx));
   if (*threads > (np == 1 ? kMaxThreads : kMaxThreads2)) return nullptr;
-  LegFn<T> kernel = kernel_for<T>(mode, K, np);
+  LegFn<T> kernel = kernel_for<T>(mode, K, np, ccy * ccx == 1);
   *err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(*smem));
   return *err == cudaSuccess ? kernel : nullptr;
@@ -841,8 +872,13 @@ template <typename T>
 cudaError_t launch(void* out, void* outc, const void* sol, const void* solc, const void* rhs,
                    int nz, int ny, int nx, int nzc, int nyc, int nxc, const double* coefs,
                    double scale, int K, int reach, int mode, int chunk, const double* taps,
-                   const int* ntaps, const int* lo, int ccy, int ccx, cudaStream_t stream) {
+                   const int* ntaps, const int* lo, const int* excl, int ccy, int ccx,
+                   cudaStream_t stream) {
   if (chunk < 2 || chunk % 2) return cudaErrorInvalidValue;
+  const Excl ex = make_excl(excl);
+  if (mode != kSmooth)  // K7/K8 take no excl planes
+    for (int d = 0; d < 6; ++d)
+      if (ex.p[d] != -1) return cudaErrorInvalidValue;
   size_t smem;
   int threads;
   cudaError_t err;
@@ -855,7 +891,7 @@ cudaError_t launch(void* out, void* outc, const void* sol, const void* solc, con
                            static_cast<const T*>(sol), static_cast<const T*>(solc),
                            static_cast<const T*>(rhs), nz, ny, nx, nzc, nyc, nxc,
                            make_star<T>(coefs), static_cast<T>(scale), reach, chunk,
-                           make_taps<T>(taps, ntaps, lo), ccy, ccx);
+                           make_taps<T>(taps, ntaps, lo), ex, ccy, ccx);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
@@ -865,9 +901,11 @@ cudaError_t launch(void* out, void* outc, const void* sol, const void* solc, con
 // are new arrays, never aliases of the inputs; `solc` is read by kProlong
 // only, `outc` written by kRestrict only (pass any pointer otherwise).  The
 // taps are the prolongation's for kProlong, the restriction's for
-// kRestrict; `chunk` (even) is the fine z-planes of one block; (ccy, ccx)
-// the cluster's blocks in y and x.  Returns the CUDA error of the launch (a
-// cluster shape the card refuses is an error here, never a silent no-op).
+// kRestrict (unused by kSmooth); `excl` the six excl planes (kSmooth only:
+// all -1 otherwise); `chunk` (even) is the fine z-planes of one block;
+// (ccy, ccx) the cluster's blocks in y and x.  Returns the CUDA error of
+// the launch (a cluster shape the card refuses is an error here, never a
+// silent no-op).
 extern "C" {
 
 // The layout constants the wrapper mirrors (ops/cuda/stream3d.py), in order:
@@ -901,14 +939,14 @@ int exa_cluster_occupancy(int mode, int K, int reach, int ccy, int ccx, int is_d
 int exa_cluster_leg(void* out, void* outc, const void* sol, const void* solc, const void* rhs,
                     int nz, int ny, int nx, int nzc, int nyc, int nxc, const double* coefs,
                     double scale, int K, int reach, int mode, int chunk, const double* taps,
-                    const int* ntaps, const int* lo, int ccy, int ccx, int is_double,
-                    void* stream) {
+                    const int* ntaps, const int* lo, const int* excl, int ccy, int ccx,
+                    int is_double, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return static_cast<int>(
       is_double ? launch<double>(out, outc, sol, solc, rhs, nz, ny, nx, nzc, nyc, nxc, coefs,
-                                 scale, K, reach, mode, chunk, taps, ntaps, lo, ccy, ccx, st)
+                                 scale, K, reach, mode, chunk, taps, ntaps, lo, excl, ccy, ccx, st)
                 : launch<float>(out, outc, sol, solc, rhs, nz, ny, nx, nzc, nyc, nxc, coefs,
-                                scale, K, reach, mode, chunk, taps, ntaps, lo, ccy, ccx, st));
+                                scale, K, reach, mode, chunk, taps, ntaps, lo, excl, ccy, ccx, st));
 }
 
 }  // extern "C"

@@ -7,19 +7,23 @@
 //        sol += P sol_c on inner nodes + K damped RBGS iterations, the up leg
 //        (wrapper ops/cuda/stream3d.prolong_correct_smooth)
 // Both are one kernel, leg_kernel, in three modes: kProlong (K2), kRestrict
-// (K1) and kSmooth (no transfer: the extra launches of a K deeper than one
-// launch holds, up to kMaxLegK as shared memory and threads allow).
+// (K1) and kSmooth (no transfer), which is also
+//   K3 = exastencils_tpu/ops/pallas/stream3d_pair.py:94 _rbgs_kernel_p2
+//        K damped RBGS iterations, the fused smoother, with excl planes
+//        (wrapper ops/cuda/stream3d.rbgs_fused)
+// and smooths the extra iterations of a K1/K2 deeper than one launch holds:
+// up to kMaxLegK iterations a launch as shared memory and threads allow.
 //
 // What is computed is the TPU kernels' (and the plain PyTorch path's) to the
 // last bit in the smoothing: star3d.cuh's arithmetic (the reference term
 // order, global (z+y+x)%2 parity, red first, built with --fmad=false), the
 // Dirichlet ring and the excl planes never written.  K1 restricts in
 // residual_restrict's order (z innermost, then y, then x), so its coarse rhs
-// is bitwise that of 2K rbgs_half_sweeps + residual_restrict; K2 prolongs
+// is bitwise that of K3 + K4 (stream3d.cu residual_restrict); K2 prolongs
 // with prolong_correct's arithmetic (star3d.cuh prolong_sum: inner, non-excl
-// nodes only, bc not reapplied), so K2 is bitwise prolong_correct + 2K
-// rbgs_half_sweeps.  The transfer taps stay general (Taps<T>, up to kMaxTaps
-// per dim, any lo).
+// nodes only, bc not reapplied), so K2 is bitwise K5 (prolong_correct) +
+// K3.  The transfer taps stay general (Taps<T>, up to kMaxTaps per dim, any
+// lo).
 //
 // Bound: device-memory bytes.  A leg must read sol and rhs and write sol
 // once, and read or write the coarse array once: (3N + Nc) values, 1.69 GB
@@ -63,6 +67,9 @@
 //   load it: the result goes to a second array, which the wrapper copies
 //   back into sol (~0.36 ms at 513^3 f32, counted in the leg's time), or,
 //   for chained launches, uses as the next input.
+// - K3 is one kSmooth launch per call (chained beyond kMaxLegK).  It
+//   replaces 2K launches of a half-sweep kernel, each a pass over sol and
+//   rhs (4.77 ms at 513^3 f32, K=3, on an H100).
 
 #include <algorithm>
 
@@ -77,7 +84,9 @@ constexpr int kLegChunk = 128;   // fine z-planes per block, at most (the wrappe
                                  // levels too small to give each SM two blocks)
 constexpr int kLegAhead = 2;     // planes in flight ahead of the one being swept
 constexpr int kMaxLegK = 3;      // iterations one launch holds (kernels instantiated 1..kMaxLegK;
-                                 // K=4's window would not fit 1024 threads)
+                                 // K=4's window would not fit 1024 threads, and K3 at K=4 as one
+                                 // launch of two pairs of columns a thread was slower on an H100
+                                 // than launches of 3 and 1: PERF.md §6)
 constexpr int kMaxUpThreads = 1024;   // K2's and kSmooth's block, at most
 constexpr int kMaxDownThreads = 768;  // K1's (two pairs of columns a thread)
 constexpr int kCoarseSlots = 4;  // K2's ring of coarse planes (enough for kLegAhead <= 2)

@@ -1,5 +1,5 @@
 // Device helpers shared by the 3D radius-1 star-stencil kernels
-// (stream3d.cu, wavefront3d.cu, legs3d.cu, cluster_legs3d.cu):
+// (stream3d.cu, legs3d.cu, cluster_legs3d.cu):
 // launch-parameter structs, the updatable
 // test, the stencil application in the reference term order and the
 // prolongation tap sum.

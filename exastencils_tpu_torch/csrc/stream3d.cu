@@ -1,17 +1,6 @@
-// Multigrid streaming kernels for 3D radius-1 star stencils on Hopper (sm_90a).
-//
-// Three device kernels stand for five Pallas TPU kernels; each TPU kernel
-// has its own wrapper, launch count and plain version in
+// The fused transfers for 3D radius-1 star stencils on Hopper (sm_90a),
+// one launch each, with their wrappers, launch counts and plain versions in
 // ops/cuda/stream3d.py:
-//   K1 = exastencils_tpu/ops/pallas/stream3d_pair.py:_smooth_down_kernel_p2
-//        K RBGS iterations + residual + 2:1 restriction (the down leg):
-//        2K x rbgs_half_sweep, then residual_restrict (smooth_res_restrict)
-//   K2 = exastencils_tpu/ops/pallas/stream3d_pair.py:_up_smooth_kernel_p2
-//        prolongation + correction + K RBGS iterations (the up leg):
-//        prolong_correct, then 2K x rbgs_half_sweep (prolong_correct_smooth)
-//   K3 = exastencils_tpu/ops/pallas/stream3d_pair.py:_rbgs_kernel_p2
-//        K RBGS iterations (the fused smoother, FAS cycles and V(0,k)/V(k,0)):
-//        2K x rbgs_half_sweep (rbgs_fused)
 //   K4 = exastencils_tpu/ops/pallas/stream3d.py:_down_kernel
 //        residual + restriction (the down-leg tail where the legs decline,
 //        e.g. Jacobi): one residual_restrict with no excl planes
@@ -19,28 +8,19 @@
 //   K5 = exastencils_tpu/ops/pallas/stream3d.py:_up_kernel
 //        prolongation + correction (the up-leg head): one prolong_correct
 //        with no excl planes (prolong_correct)
-// What bounds each device kernel and what its design does about it is
-// noted above the kernel.
+// (K1-K3 are legs3d.cu's, K6-K8 cluster_legs3d.cu's.)  What bounds each
+// kernel and what its design does about it is noted above the kernel.
 //
-// What the TPU kernels compute is kept exactly: global (z+y+x)%2 colour
-// parity, red before black, the update sol += (omega/c0) * (rhs - A sol)
+// What the TPU kernels compute is kept exactly: the residual rhs - A sol
 // with A's terms summed in the order centre, z-, z+, y-, y+, x-, x+
-// (exastencils_tpu/ops/stencil_apply.apply_stencil), Dirichlet ring and the
-// excl planes never written, residual zero on boundary and excl planes,
+// (exastencils_tpu/ops/stencil_apply.apply_stencil), zero on boundary and
+// excl planes; the Dirichlet ring and the excl planes never written;
 // transfer taps outside the array dropped.  Built with --fmad=false, the
-// RBGS and residual arithmetic is bitwise that of the plain PyTorch path;
-// only the order of the transfer sums differs from its banded matmuls.
-//
-// What the TPU kernels' structure is NOT kept: K1-K3 stream z-planes
-// through a ring of 2K+3 or 2K+4 whole planes in ~100 MB of VMEM so that
-// K iterations (and a transfer) are one pass over device memory.  A 513^2
-// f32 plane is ~1 MB against 227 KB of shared memory per block, so that
-// window cannot be copied.  This version is one simple launch per
-// half-sweep / transfer; the single-pass z-streaming wavefront, tiled in
-// (y, x), is K6 in wavefront3d.cu (K7/K8: cluster_legs3d.cu).  K4/K5 were
-// already one pass each on the TPU, and are one launch each here; their
-// y/x transfer is a direct stride-2
-// stencil where the TPU kernels used banded matrix products.
+// residual arithmetic is bitwise that of the plain PyTorch path; only the
+// order of the transfer sums differs from its banded matmuls.  K4/K5 were
+// one pass each on the TPU, and are one launch each here; their y/x
+// transfer is a direct stride-2 stencil where the TPU kernels used banded
+// matrix products.
 
 #include "star3d.cuh"
 
@@ -49,31 +29,6 @@ namespace {
 using namespace exa;
 
 constexpr int kBlock = 128;
-
-// rbgs_half_sweep: one colour of one damped red-black Gauss-Seidel
-// iteration, in place.  Shared by K1, K2 and K3.
-// Bound: device-memory bytes.  Each launch reads sol (7 taps, reused
-// through L1/L2 so ~1 array) and rhs and writes half of sol: ~3 array
-// passes per half-sweep, 6K per leg, against 3 for the whole leg on the TPU
-// (0.80 ms = 2.0 TB/s at 513^3 f32 on an H100 whose triad reaches 3.0 TB/s).
-// Design: one thread per x-point, x fastest so warps read and write
-// coalesced rows; a colour reads only the other colour, so the in-place
-// update is race-free.  Half the threads of a row are idle (wrong colour).
-template <typename T>
-__global__ void rbgs_half_sweep(T* __restrict__ sol, const T* __restrict__ rhs,
-                                int nz, int ny, int nx, Star<T> s, T scale,
-                                int color, Excl e) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = blockIdx.y;
-  const int z = blockIdx.z;
-  if (x >= nx || ((z + y + x) & 1) != color || !updatable(z, y, x, nz, ny, nx, e))
-    return;
-  const int64_t sy = nx;
-  const int64_t sz = static_cast<int64_t>(ny) * nx;
-  const int64_t i = z * sz + y * sy + x;
-  const T corr = scale * (rhs[i] - star_apply(sol + i - sz, sol + i, sol + i + sz, sy, s));
-  sol[i] = sol[i] + corr;
-}
 
 template <typename T>
 __device__ __forceinline__ T residual_at(const T* __restrict__ sol,
@@ -87,7 +42,7 @@ __device__ __forceinline__ T residual_at(const T* __restrict__ sol,
   return rhs[i] - star_apply(sol + i - sz, sol + i, sol + i + sz, sy, s);
 }
 
-// residual_restrict: the tail of K1, and K4.  out[cz,cy,cx] = sum of
+// residual_restrict: K4.  out[cz,cy,cx] = sum of
 // wz*wy*wx * r(2c+lo+k) with r = rhs - A sol computed on the fly (zero on
 // boundary and excl planes); the residual is never stored.
 // Bound: meant to be device-memory bytes, reading sol and rhs once (~2
@@ -131,7 +86,7 @@ __global__ void residual_restrict(const T* __restrict__ sol,
   out[(static_cast<int64_t>(cz) * nyc + cy) * nxc + cx] = acc_x;
 }
 
-// prolong_correct: the head of K2, and K5.  sol += P sol_c on inner, non-excl
+// prolong_correct: K5.  sol += P sol_c on inner, non-excl
 // nodes; each fine node sums its parity-matching coarse nodes (at most
 // two per dim for windows of up to 3 taps).
 // Bound: meant to be device-memory bytes (read and write sol once, read
@@ -152,15 +107,6 @@ __global__ void prolong_correct(T* __restrict__ sol, const T* __restrict__ solc,
 
 dim3 grid_for(int nx, int ny, int nz) {
   return dim3((nx + kBlock - 1) / kBlock, ny, nz);
-}
-
-template <typename T>
-void launch_rbgs(void* sol, const void* rhs, int nz, int ny, int nx,
-                 const double* coefs, double scale, int color, const int* excl,
-                 cudaStream_t stream) {
-  rbgs_half_sweep<T><<<grid_for(nx, ny, nz), kBlock, 0, stream>>>(
-      static_cast<T*>(sol), static_cast<const T*>(rhs), nz, ny, nx,
-      make_star<T>(coefs), static_cast<T>(scale), color, make_excl(excl));
 }
 
 template <typename T>
@@ -197,17 +143,6 @@ int exa_max_taps() { return kMaxTaps; }
 
 const char* exa_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
-}
-
-int exa_rbgs_half_sweep(void* sol, const void* rhs, int nz, int ny, int nx,
-                        const double* coefs, double scale, int color,
-                        const int* excl, int is_double, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_double)
-    launch_rbgs<double>(sol, rhs, nz, ny, nx, coefs, scale, color, excl, s);
-  else
-    launch_rbgs<float>(sol, rhs, nz, ny, nx, coefs, scale, color, excl, s);
-  return static_cast<int>(cudaGetLastError());
 }
 
 int exa_residual_restrict(const void* sol, const void* rhs, void* out, int nz,

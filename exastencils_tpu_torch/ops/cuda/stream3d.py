@@ -13,7 +13,7 @@ the v1 kernels behind them) and exastencils_tpu/ops/pallas/stream3d_pair.py
     K3 rbgs_fused              K RBGS iterations
     K4 res_restrict            residual + restriction
     K5 prolong_correct         prolongation + correction
-    K6 rbgs_wavefront                    K3's maths, one z-streaming pass
+    K6 rbgs_wavefront                    K3's maths, one pass, cluster-shared halo
     K7 smooth_res_restrict_wavefront     K1's maths, one pass, cluster-shared halo
     K8 prolong_correct_smooth_wavefront  K2's maths, one pass, cluster-shared halo
 
@@ -23,17 +23,17 @@ K3/K1/K2 (the v2 schedule, the default) or, with EXA_STREAM_V1=1 in the
 environment when they are called, K6/K7/K8 (the v1 single-plane
 schedule).
 
-The kernels are CUDA C++ for sm_90a in ../../csrc/ (legs3d.cu: K1/K2,
-one launch per leg; stream3d.cu: K3-K5; wavefront3d.cu: K6;
-cluster_legs3d.cu: K7/K8, one launch per leg on thread-block clusters
-that share their y/x halo), compiled
+The kernels are CUDA C++ for sm_90a in ../../csrc/ (legs3d.cu: K1-K3,
+one z-chunked pass per call, K3 its transfer-free mode; stream3d.cu:
+K4/K5; cluster_legs3d.cu: K6-K8, the same one-pass design on thread-block
+clusters that share their y/x halo, K6 its transfer-free mode), compiled
 with nvcc on first use into build/exastencils_tpu_torch/ at the
 repository root and loaded with ctypes.  A wrapper given CUDA tensors
 launches the kernels (or raises); given CPU tensors it runs the plain
 version; any other device raises.  Each wrapper counts the kernel
 launches it makes in its own `.launches`.  K1-K3 and K5 update `sol` in
 place and return it, where the JAX version relied on the donated
-iterate: K1/K2's blocks run concurrently on overlapping windows, so their
+iterate: K1-K3's blocks run concurrently on overlapping windows, so their
 kernel writes a second tensor, which the wrapper copies back into `sol`.
 K6-K8 write a new tensor and return it.
 """
@@ -65,8 +65,7 @@ NO_EXCL = (-1,) * 6  # per-dim lo/hi planes excluded from updates; -1 = none
 MAX_TAPS = 3  # transfer taps per dim the kernels take (kMaxTaps)
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
-SOURCES = (CSRC / "stream3d.cu", CSRC / "wavefront3d.cu", CSRC / "legs3d.cu",
-           CSRC / "cluster_legs3d.cu")
+SOURCES = (CSRC / "stream3d.cu", CSRC / "legs3d.cu", CSRC / "cluster_legs3d.cu")
 HEADERS = (CSRC / "star3d.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "exastencils_tpu_torch"
 # --fmad=false: no mul+add contraction, so the RBGS and residual
@@ -75,27 +74,26 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-# K6's (y, x) output tile edge (kWaveTile in wavefront3d.cu) and the
-# dynamic shared memory one block may use on Hopper (227 KB)
-WAVE_TILE = 32
+# The dynamic shared memory one block may use on Hopper (227 KB)
 SMEM_LIMIT = 232448
-# K1/K2 (legs3d.cu): leg_kernel's modes; one block's (y, x) output tile
-# edge and largest z-chunk, the planes in flight ahead of the one swept,
-# and the iterations one launch holds (kLegTile, kLegChunk, kLegAhead,
-# kMaxLegK)
+# The kernels' modes (legs3d.cu, cluster_legs3d.cu): LEG_SMOOTH is K3/K6,
+# LEG_PROLONG K2/K8, LEG_RESTRICT K1/K7.
 LEG_SMOOTH, LEG_PROLONG, LEG_RESTRICT = 0, 1, 2
+# K1-K3 (legs3d.cu): one block's (y, x) output tile edge and largest
+# z-chunk, the planes in flight ahead of the one swept, and the iterations
+# one launch holds (kLegTile, kLegChunk, kLegAhead, kMaxLegK)
 LEG_TILE, LEG_CHUNK, LEG_AHEAD, MAX_LEG_K = 32, 128, 2, 3
-# K7/K8 (cluster_legs3d.cu): one block's (y, x) output tile edge, the planes
-# in flight, the iterations one launch holds, the most blocks a cluster
-# has in x, and a block's threads, at most (kTile, kAhead, kMaxK,
+# K6-K8 (cluster_legs3d.cu): one block's (y, x) output tile edge, the
+# planes in flight, the iterations one launch holds, the most blocks a
+# cluster has in x, and a block's threads, at most (kTile, kAhead, kMaxK,
 # kMaxClusterX, kMaxThreads)
 CLUSTER_TILE, CLUSTER_AHEAD, MAX_CLUSTER_K, MAX_CLUSTER_X, CLUSTER_THREADS = 32, 2, 3, 2, 1024
 # The cluster shapes, (y, x) blocks, that chip_smoke.py times, and the one
-# each leg launches on: the fastest at 513^3 f32, K=3, on an H100 (PERF.md
-# §6): K7 shares its x-halo in pairs of blocks; for K8 the cluster barrier
-# and the reads across the edge cost more than the halo they save.
+# each kernel launches on: the fastest at 513^3 f32, K=3, on an H100
+# (PERF.md §6): K7 shares its x-halo in pairs of blocks; for K8 the cluster
+# barrier and the reads across the edge cost more than the halo they save.
 CLUSTER_SHAPES = ((2, 2), (4, 2), (1, 2), (2, 1), (1, 1))
-CLUSTER = {LEG_RESTRICT: (1, 2), LEG_PROLONG: (1, 1)}
+CLUSTER = {LEG_SMOOTH: (1, 1), LEG_RESTRICT: (1, 2), LEG_PROLONG: (1, 1)}
 
 
 def _star_coefs(offsets, coefs, ndim: int):
@@ -192,16 +190,13 @@ def load_library() -> ctypes.CDLL:
     p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     pd, pi = ctypes.POINTER(ctypes.c_double), ctypes.POINTER(ctypes.c_int)
     lib.exa_max_taps.argtypes, lib.exa_max_taps.restype = [], i
-    lib.exa_wavefront_tile.argtypes, lib.exa_wavefront_tile.restype = [], i
     lib.exa_leg_constant.argtypes, lib.exa_leg_constant.restype = [i], i
     lib.exa_leg_occupancy.argtypes, lib.exa_leg_occupancy.restype = [i, i, i, i], i
     lib.exa_leg_smem.argtypes, lib.exa_leg_smem.restype = [i, i, i, i], ctypes.c_longlong
     lib.exa_leg.argtypes = [p, p, p, p, p, i, i, i, i, i, i, pd, d, i, i, i, i, pd, pi, pi, pi, i, p]
     lib.exa_error_string.argtypes, lib.exa_error_string.restype = [i], ctypes.c_char_p
-    lib.exa_rbgs_half_sweep.argtypes = [p, p, i, i, i, pd, d, i, pi, i, p]
     lib.exa_residual_restrict.argtypes = [p, p, p, i, i, i, i, i, i, pd, pd, pi, pi, pi, i, p]
     lib.exa_prolong_correct.argtypes = [p, p, i, i, i, i, i, i, pd, pi, pi, pi, i, p]
-    lib.exa_rbgs_wavefront.argtypes = [p, p, p, i, i, i, pd, d, i, pi, i, p]
     lib.exa_cluster_constant.argtypes, lib.exa_cluster_constant.restype = [i], i
     lib.exa_cluster_smem.argtypes = [i, i, i, i, i, i]
     lib.exa_cluster_smem.restype = ctypes.c_longlong
@@ -209,14 +204,12 @@ def load_library() -> ctypes.CDLL:
     lib.exa_cluster_occupancy.argtypes, lib.exa_cluster_occupancy.restype = [i] * 7, i
     lib.exa_cluster_grid.argtypes, lib.exa_cluster_grid.restype = [i] * 10 + [pi], None
     lib.exa_cluster_leg.argtypes = [p, p, p, p, p, i, i, i, i, i, i, pd, d, i, i, i, i, pd, pi, pi,
-                                    i, i, i, p]
-    for fn in (lib.exa_rbgs_half_sweep, lib.exa_residual_restrict, lib.exa_prolong_correct,
-               lib.exa_rbgs_wavefront, lib.exa_leg, lib.exa_cluster_leg):
+                                    pi, i, i, i, p]
+    for fn in (lib.exa_residual_restrict, lib.exa_prolong_correct, lib.exa_leg,
+               lib.exa_cluster_leg):
         fn.restype = i
     if lib.exa_max_taps() != MAX_TAPS:
         raise RuntimeError(f"{so}: kMaxTaps {lib.exa_max_taps()} != {MAX_TAPS}")
-    if lib.exa_wavefront_tile() != WAVE_TILE:
-        raise RuntimeError(f"{so}: kWaveTile {lib.exa_wavefront_tile()} != {WAVE_TILE}")
     leg = tuple(lib.exa_leg_constant(k) for k in range(4))
     if leg != (LEG_TILE, LEG_CHUNK, LEG_AHEAD, MAX_LEG_K):
         raise RuntimeError(f"{so}: legs3d.cu's layout constants {leg} differ from the wrapper's")
@@ -228,7 +221,8 @@ def load_library() -> ctypes.CDLL:
     if const != (CLUSTER_TILE, CLUSTER_AHEAD, MAX_CLUSTER_K, MAX_CLUSTER_X, CLUSTER_THREADS):
         raise RuntimeError(f"{so}: cluster_legs3d.cu's constants {const} differ from the wrapper's")
     for mode, k, reach, cluster in itertools.product(
-            (LEG_PROLONG, LEG_RESTRICT), range(1, MAX_CLUSTER_K + 1), (0, 1), CLUSTER_SHAPES):
+            (LEG_SMOOTH, LEG_PROLONG, LEG_RESTRICT), range(1, MAX_CLUSTER_K + 1), (0, 1),
+            CLUSTER_SHAPES):
         if (lib.exa_cluster_smem(mode, k, reach, *cluster, 4) != _cluster_smem(mode, k, reach, 4, cluster)
                 or lib.exa_cluster_threads(mode, k, reach, *cluster)
                 != _cluster_threads(mode, k, reach, cluster)):
@@ -309,19 +303,6 @@ def _is_double(t: torch.Tensor) -> int:
 
 def _stream():
     return torch.cuda.current_stream().cuda_stream
-
-
-def _half_sweeps(lib, sol, rhs, A, omega, K, excl_c, counted):
-    """2K rbgs_half_sweep launches, red first, in place on sol."""
-    c0, coefs = _star_array(A)
-    nz, ny, nx = sol.shape
-    for _ in range(K):
-        for color in (0, 1):
-            err = lib.exa_rbgs_half_sweep(
-                sol.data_ptr(), rhs.data_ptr(), nz, ny, nx, coefs, omega / c0,
-                color, excl_c, _is_double(sol), _stream())
-            _check(lib, err, "rbgs_half_sweep")
-            counted.launches += 1
 
 
 def _residual_restrict(lib, sol, rhs, A, r_kernels, r_lo, coarse_shape, excl_c):
@@ -457,10 +438,10 @@ def _leg_threads(mode: int, K: int, reach: int) -> int:
 
 
 def max_leg_k(dtype: torch.dtype, mode: int, reach: int = 1) -> int:
-    """The deepest K that one K1/K2 launch of `mode` holds: at most
+    """The deepest K that one K1-K3 launch of `mode` holds: at most
     MAX_LEG_K, its shared memory within one block's 227 KB and its threads
     within 1024 (K1: 768).  With the node restriction: 3 in float32; in
-    float64 K2 2 and K1 1."""
+    float64 K2 and K3 2, K1 1."""
     itemsize = torch.empty((), dtype=dtype).element_size()
     limit = 768 if mode == LEG_RESTRICT else 1024
     k = 0
@@ -489,35 +470,38 @@ def _sm_count(index: int) -> int:
 
 
 def leg_chain(mode: int, K: int, dtype: torch.dtype, reach: int = 1):
-    """The launches [(mode, k), ...] of one K1 (LEG_RESTRICT) or K2
-    (LEG_PROLONG) call of K iterations: one launch up to max_leg_k; a
-    deeper K2 smooths the rest in LEG_SMOOTH launches after its first, a
-    deeper K1 before its last."""
+    """The launches [(mode, k), ...] of one K1 (LEG_RESTRICT), K2
+    (LEG_PROLONG) or K3 (LEG_SMOOTH) call of K iterations: one launch up to
+    max_leg_k; a deeper K2 or K3 smooths the rest in LEG_SMOOTH launches
+    after its first, a deeper K1 before its last.  K3 with K = 0: none."""
     kmax, ksmooth = max_leg_k(dtype, mode, reach), max_leg_k(dtype, LEG_SMOOTH)
     if kmax < 1:
         raise ValueError(f"restriction reach {reach} leaves no room for K1's window")
+    if mode == LEG_SMOOTH and K < 1:
+        return []
     k = min(K, kmax)
     rest = []
     for _ in range(-(-(K - k) // ksmooth)):
         rest.append((LEG_SMOOTH, min(ksmooth, K - k - ksmooth * len(rest))))
-    return [(mode, k)] + rest if mode == LEG_PROLONG else rest + [(mode, k)]
+    return rest + [(mode, k)] if mode == LEG_RESTRICT else [(mode, k)] + rest
 
 
 _NO_TAPS = ((0.0,),) * 3, (0, 0, 0)
 
 
 def _leg_launches(sol, rhs, A, omega, K, mode, kernels, lo, excl, counted,
-                  sol_c=None, coarse_shape=None):
+                  sol_c=None, coarse_shape=(1, 1, 1), chunk=None):
     """The launches of leg_chain(mode, K) on CUDA tensors, each out of place
     into the other of (sol, a scratch tensor); the result ends in sol.
-    Returns K1's coarse rhs (None for K2)."""
+    `chunk`: the fine z-planes of a block (default leg_chunk).  Returns
+    K1's coarse rhs (None for K2, K3)."""
     lib, excl_c = load_library(), _excl_array(excl)
     c0, coefs = _star_array(A)
     reach = _restrict_reach(kernels, lo) if mode == LEG_RESTRICT else 0
     nz, ny, nx = sol.shape
     nzc, nyc, nxc = sol_c.shape if sol_c is not None else coarse_shape
     cur, spare, out_c = sol, torch.empty_like(sol), None
-    chunk = leg_chunk(sol.shape, _sm_count(sol.device.index))
+    chunk = leg_chunk(sol.shape, _sm_count(sol.device.index)) if chunk is None else chunk
     for m, k in leg_chain(mode, K, sol.dtype, reach):
         taps, ntaps, tlo = _taps_arrays(*((kernels, lo) if m != LEG_SMOOTH else _NO_TAPS))
         if m == LEG_RESTRICT:
@@ -577,18 +561,23 @@ def prolong_correct_smooth(sol, sol_c, rhs, A: BoundStencil, omega: float,
 prolong_correct_smooth.launches = 0
 
 
-def rbgs_fused(sol, rhs, A: BoundStencil, omega: float, K: int, excl=NO_EXCL):
+def rbgs_fused(sol, rhs, A: BoundStencil, omega: float, K: int, excl=NO_EXCL, chunk=None):
     """K3, the fused smoother: K damped RBGS iterations (global parity,
     red first; the ring and excl planes never written) in place on `sol`.
     Returns sol.  One call takes any K (the TPU dispatcher cut K into
-    chunks of at most 8 for its VMEM window); K = 0 changes nothing."""
+    chunks of at most 8 for its VMEM window); K = 0 changes nothing.  On
+    CUDA one legs3d.cu LEG_SMOOTH launch for K up to max_leg_k (leg_chain
+    beyond), out of place and copied back into `sol`; `chunk` is a block's
+    fine z-planes (default leg_chunk).  On the CPU the plain version, in
+    the launches' chunks of K."""
     if _device_type(sol, rhs) == "cpu":
-        return sol.copy_(rbgs_fused_plain(sol, rhs, A, omega, K, excl))
+        for _, k in leg_chain(LEG_SMOOTH, K, sol.dtype):
+            sol.copy_(rbgs_fused_plain(sol, rhs, A, omega, k, excl))
+        return sol
     _check_cuda_fields(sol, rhs)
     _check_shapes(sol, rhs)
-    lib, excl_c = load_library(), _excl_array(excl)
     with torch.cuda.device(sol.device):
-        _half_sweeps(lib, sol, rhs, A, omega, K, excl_c, rbgs_fused)
+        _leg_launches(sol, rhs, A, omega, K, LEG_SMOOTH, *_NO_TAPS, excl, rbgs_fused, chunk=chunk)
     return sol
 
 
@@ -633,17 +622,8 @@ prolong_correct.launches = 0
 
 
 # ----------------------------------------------------------------------
-# K6-K8: the v1 schedule (K6 a single-plane wavefront, K7/K8 cluster legs)
+# K6-K8: the v1 schedule, one-pass kernels on thread-block clusters
 # ----------------------------------------------------------------------
-
-# K6's iterations per launch: 5 in float32, 3 in float64, as since it was
-# ported (its window then shared the shared-memory budget of the old K7's)
-WAVE_MAX_K = {torch.float32: 5, torch.float64: 3}
-
-
-def max_wavefront_k(dtype: torch.dtype) -> int:
-    """The deepest K that one K6 launch takes (WAVE_MAX_K)."""
-    return WAVE_MAX_K[dtype]
 
 
 def _cluster_window(mode: int, K: int, reach: int, cluster) -> Tuple[int, int]:
@@ -659,15 +639,16 @@ def _cluster_window(mode: int, K: int, reach: int, cluster) -> Tuple[int, int]:
 
 
 def _cluster_smem(mode: int, K: int, reach: int, itemsize: int, cluster) -> int:
-    """Dynamic shared memory of one K7/K8 block (cluster_smem): rings of
+    """Dynamic shared memory of one K6-K8 block (cluster_smem): rings of
     2K+2+CLUSTER_AHEAD window planes (K7: one more) of sol and of rhs, then
     K8's 4 coarse boxes and 2 boxes of their z-sums, or K7's 4 boxes of
-    z-sums (the tile plus `reach`)."""
+    z-sums (the tile plus `reach`); K6 nothing more."""
     rows, rx = _cluster_window(mode, K, reach, cluster)
     down = mode == LEG_RESTRICT
     slots = 2 * (2 * K + 2 + down + CLUSTER_AHEAD)
     extra = (4 * (CLUSTER_TILE + 2 * reach) ** 2 if down
-             else 6 * ((max(rows, rx) + MAX_TAPS) // 2 + 1) ** 2)
+             else 6 * ((max(rows, rx) + MAX_TAPS) // 2 + 1) ** 2 if mode == LEG_PROLONG
+             else 0)
     return (slots * rows * rx + extra) * itemsize
 
 
@@ -681,11 +662,12 @@ def _cluster_threads(mode: int, K: int, reach: int, cluster) -> int:
 
 
 def max_cluster_k(dtype: torch.dtype, mode: int, reach: int = 1, cluster=None) -> int:
-    """The deepest K that one K7 (LEG_RESTRICT) or K8 (LEG_PROLONG) launch
-    on clusters of `cluster` blocks (default CLUSTER[mode]) holds: at most
-    MAX_CLUSTER_K, its shared memory within one block's 227 KB.  With the
-    node restriction, for every shape of CLUSTER_SHAPES: 3 in float32; in
-    float64 K8 2 and K7 1."""
+    """The deepest K that one K6 (LEG_SMOOTH), K7 (LEG_RESTRICT) or K8
+    (LEG_PROLONG) launch on clusters of `cluster` blocks (default
+    CLUSTER[mode]) holds: at most MAX_CLUSTER_K, its shared memory within
+    one block's 227 KB.  With the node restriction, for every shape of
+    CLUSTER_SHAPES: 3 in float32; in float64 K8 2 and K7 1, K6 2 (on 2 x 2
+    and 4 x 2 clusters 3)."""
     cluster = CLUSTER[mode] if cluster is None else cluster
     itemsize = torch.empty((), dtype=dtype).element_size()
     reach = reach if mode == LEG_RESTRICT else 0
@@ -693,6 +675,12 @@ def max_cluster_k(dtype: torch.dtype, mode: int, reach: int = 1, cluster=None) -
     while k < MAX_CLUSTER_K and _cluster_smem(mode, k + 1, reach, itemsize, cluster) <= SMEM_LIMIT:
         k += 1
     return k
+
+
+def max_wavefront_k(dtype: torch.dtype, cluster=None) -> int:
+    """The deepest K that one K6 launch on clusters of `cluster` blocks
+    (default CLUSTER[LEG_SMOOTH]) takes."""
+    return max_cluster_k(dtype, LEG_SMOOTH, 0, cluster)
 
 
 def _restrict_reach(r_kernels, r_lo) -> int:
@@ -717,19 +705,27 @@ def _on_cuda(sol, rhs, *others) -> bool:
     return True
 
 
-def rbgs_wavefront(sol, rhs, A: BoundStencil, omega: float, K: int, excl=NO_EXCL):
+def rbgs_wavefront(sol, rhs, A: BoundStencil, omega: float, K: int, excl=NO_EXCL,
+                   cluster=None):
     """K6 (TPU: exastencils_tpu/ops/pallas/stream3d.py:_rbgs_kernel): K
     damped RBGS iterations (global parity, red first; the ring and excl
-    planes never written) as single-pass z-streaming wavefronts, one
-    launch per chunk of at most max_wavefront_k iterations (the TPU
-    dispatcher chunked by its VMEM window).  Not in place: returns a new
-    tensor and leaves `sol` as it was (K = 0 returns `sol`)."""
+    planes never written), one cluster_legs3d.cu LEG_SMOOTH launch on
+    clusters of `cluster` (y, x) blocks (default CLUSTER[LEG_SMOOTH]) per
+    chunk of at most max_wavefront_k iterations (the TPU dispatcher chunked
+    by its VMEM window; on the CPU the plain version in the same chunks).
+    Not in place: returns a new tensor and leaves `sol` as it was (K = 0
+    returns `sol`)."""
     cuda = _on_cuda(sol, rhs)
-    kmax = max_wavefront_k(sol.dtype)
+    cluster = CLUSTER[LEG_SMOOTH] if cluster is None else cluster
+    kmax = max_wavefront_k(sol.dtype, cluster)
     while K > 0:
         k = min(K, kmax)
-        sol = (_rbgs_wavefront_launch(sol, rhs, A, omega, k, excl) if cuda
-               else rbgs_wavefront_plain(sol, rhs, A, omega, k, excl))
+        if cuda:
+            sol, _ = _cluster_leg_launch(LEG_SMOOTH, sol, rhs, A, omega, k, *_NO_TAPS, cluster,
+                                         excl=excl)
+            rbgs_wavefront.launches += 1
+        else:
+            sol = rbgs_wavefront_plain(sol, rhs, A, omega, k, excl)
         K -= k
     return sol
 
@@ -737,25 +733,12 @@ def rbgs_wavefront(sol, rhs, A: BoundStencil, omega: float, K: int, excl=NO_EXCL
 rbgs_wavefront.launches = 0
 
 
-def _rbgs_wavefront_launch(sol, rhs, A, omega, K, excl):
-    lib, excl_c = load_library(), _excl_array(excl)
-    c0, coefs = _star_array(A)
-    nz, ny, nx = sol.shape
-    out = torch.empty_like(sol)
-    with torch.cuda.device(sol.device):
-        err = lib.exa_rbgs_wavefront(
-            out.data_ptr(), sol.data_ptr(), rhs.data_ptr(), nz, ny, nx, coefs,
-            omega / c0, K, excl_c, _is_double(sol), _stream())
-        _check(lib, err, "rbgs_wavefront")
-        rbgs_wavefront.launches += 1
-    return out
-
-
 def _cluster_leg_launch(mode, sol, rhs, A, omega, K, kernels, lo, cluster, sol_c=None,
-                        coarse_shape=None):
+                        coarse_shape=(1, 1, 1), excl=NO_EXCL):
     """One cluster_legs3d.cu launch on CUDA tensors, out of place: returns
-    the new sol and K7's coarse rhs (None for K8)."""
-    lib = load_library()
+    the new sol and K7's coarse rhs (None for K6, K8).  Only K6 takes excl
+    planes."""
+    lib, excl_c = load_library(), _excl_array(excl)
     c0, coefs = _star_array(A)
     taps, ntaps, tlo = _taps_arrays(kernels, lo)
     reach = _restrict_reach(kernels, lo) if mode == LEG_RESTRICT else 0
@@ -769,7 +752,7 @@ def _cluster_leg_launch(mode, sol, rhs, A, omega, K, kernels, lo, cluster, sol_c
         err = lib.exa_cluster_leg(
             out.data_ptr(), (out_c if out_c is not None else out).data_ptr(), sol.data_ptr(),
             (sol_c if sol_c is not None else sol).data_ptr(), rhs.data_ptr(), nz, ny, nx,
-            nzc, nyc, nxc, coefs, omega / c0, K, reach, mode, chunk, taps, ntaps, tlo,
+            nzc, nyc, nxc, coefs, omega / c0, K, reach, mode, chunk, taps, ntaps, tlo, excl_c,
             int(cluster[0]), int(cluster[1]), _is_double(sol), _stream())
         _check(lib, err, "cluster_leg")
     return out, out_c

@@ -1,5 +1,6 @@
-"""The block decomposition of the v1 legs K7/K8 (csrc/cluster_legs3d.cu),
-emulated in plain PyTorch on the CPU.
+"""The block decomposition of the v1 kernels K6-K8 (csrc/cluster_legs3d.cu:
+the fused smoother K6, LEG_SMOOTH, and the legs K7/K8), emulated in plain
+PyTorch on the CPU.
 
 The CUDA kernel cannot run here, so this file replays what each block of
 each thread-block cluster computes: LEG_TILE^2 (y, x) tiles, where the
@@ -13,14 +14,16 @@ neighbouring block's window as it stands after the last half-sweep; K7's
 residual on each block's box (its tile, plus `reach` on outer sides), the
 coarse taps across an inner edge read from the neighbour's box, each
 coarse node written by one block; and the chained launches of a K deeper
-than one launch holds (K6 before K7, after K8).  Float64, held bitwise to
-the plain versions `smooth_res_restrict_plain` /
-`prolong_correct_smooth_plain` at odd shapes, with K = 1..4; a halo, an
-edge read, a box or a z-range one node short breaks the equality."""
+than one launch holds (K6 before K7, after K8; K6 chained on itself).
+Float64, held bitwise to the plain versions `smooth_res_restrict_plain` /
+`prolong_correct_smooth_plain` / `rbgs_fused_plain` at odd shapes, with
+K = 1..4 (K6: 1..5, with excl planes on tile, cluster and z-chunk edges);
+a halo, an edge read, a box, a z-range or an excl mask one node short
+breaks the equality."""
 
 import pytest
 import torch
-from test_torch_legs import CASES, H100_SMS, OMEGA, inputs, span, star, updatable
+from test_torch_legs import CASES, H100_SMS, NO_TAPS, OMEGA, SMOOTH_CASES, inputs, span, star, updatable
 
 from exastencils_tpu_torch.ops.cuda import stream3d as s3
 from exastencils_tpu_torch.ops.smoothers import jacobi_update
@@ -64,18 +67,21 @@ def tiles_for(n, nc, down):
 
 def emulate_cluster_launch(mode, sol, rhs, A, K, kern, lo, cluster, sol_c=None,
                            coarse_shape=None, chunk=None, halo_cut=0, z_cut=0,
-                           edge=1, stale_edges=False, own_box_only=False):
+                           edge=1, stale_edges=False, own_box_only=False, excl=s3.NO_EXCL,
+                           excl_shift=0):
     """One cluster_leg launch, cluster by cluster and block by block, out of
     place: returns (new sol, coarse rhs or None) and checks that every
-    output node is written by exactly one block.  Faults the tests must
-    catch: `halo_cut` shortens the outer halo, `z_cut` the half-sweeps'
-    z-ranges below the chunk, `edge` = 0 drops the read across an inner
-    edge, `stale_edges` reads the neighbour as it was before the launch,
-    `own_box_only` restricts from the block's own residual box only."""
+    output node is written by exactly one block.  `excl`: K6's excl planes.
+    Faults the tests must catch: `halo_cut` shortens the outer halo,
+    `z_cut` the half-sweeps' z-ranges below the chunk, `edge` = 0 drops the
+    read across an inner edge, `stale_edges` reads the neighbour as it was
+    before the launch, `own_box_only` restricts from the block's own
+    residual box only, `excl_shift` moves the excl planes of the updatable
+    mask."""
     down, up = mode == s3.LEG_RESTRICT, mode == s3.LEG_PROLONG
     shape = tuple(sol.shape)
     nz, ny, nx = shape
-    cshape = tuple(coarse_shape) if down else tuple(sol_c.shape)
+    cshape = tuple(coarse_shape) if down else tuple(sol_c.shape) if up else (0, 0, 0)
     nzc, nyc, nxc = cshape
     cy, cx = cluster
     CZ = s3.leg_chunk(shape, H100_SMS) if chunk is None else chunk
@@ -112,7 +118,7 @@ def emulate_cluster_launch(mode, sol, rhs, A, K, kern, lo, cluster, sol_c=None,
                 idx = (gz.clamp(0, nz - 1), gy.clamp(0, ny - 1), gx.clamp(0, nx - 1))
                 W = torch.where(inside, sol[idx], 0.0)
                 F = torch.where(inside, rhs[idx], 0.0)
-                upd = updatable(shape, s3.NO_EXCL, gz, gy, gx)
+                upd = updatable(shape, [p + excl_shift if p >= 0 else p for p in excl], gz, gy, gx)
                 if up:
                     W = torch.where(upd, W + pc[idx], W)
                 W0 = W.clone()
@@ -213,6 +219,17 @@ def emulate_cluster_launch(mode, sol, rhs, A, K, kern, lo, cluster, sol_c=None,
     return out, out_c
 
 
+def emulate_smoother(sol, rhs, A, K, excl, cluster, dtype=None):
+    """rbgs_wavefront's K6 launches: chunks of up to max_wavefront_k (for
+    `dtype`, default sol's) iterations, each out of place."""
+    kmax = s3.max_wavefront_k(dtype or sol.dtype, cluster)
+    while K > 0:
+        sol, _ = emulate_cluster_launch(s3.LEG_SMOOTH, sol, rhs, A, min(K, kmax), *NO_TAPS, cluster,
+                                        excl=excl)
+        K -= kmax
+    return sol
+
+
 def emulate_leg(mode, sol, rhs, A, K, kern, lo, cluster, sol_c=None, coarse_shape=None):
     """The wrapper's call: one launch of up to max_cluster_k iterations, the
     rest as K6 (the plain smoother here) before K7's launch or after K8's."""
@@ -278,9 +295,44 @@ def test_other_cluster_shapes(mode, cluster):
                                                                 P.lo))
 
 
+# K6's cases: K3's (excl planes on tile and z-chunk edges; a tile edge 31 |
+# 32 is the inner edge of the clusters 1 x 2 (x) and 2 x 2 (y and x))
+SMOOTHER_CASES = ("l6_65_excl_on_tile_edges", "odd_66x40x37_excl_on_edges",
+                  "l6_65_excl_at_chunk_edge", "two_chunks_139x9x17_excl", "odd_17x33x9_excl",
+                  "l2_5_excl")
+
+
+@pytest.mark.parametrize("cluster", [s3.CLUSTER[s3.LEG_SMOOTH], (1, 2), (2, 2)])
+@pytest.mark.parametrize("K", [1, 2, 3, 4, 5])
+@pytest.mark.parametrize("case", SMOOTHER_CASES)
+def test_smoother_cluster_decomposition_is_plain_k6(case, K, cluster):
+    """K6: rbgs_wavefront's launches (float64: 2 iterations a launch, 3 on
+    2 x 2 clusters), bitwise rbgs_fused_plain with its excl planes."""
+    shape, excl = SMOOTH_CASES[case]
+    sol, rhs, _ = inputs(shape, (1, 1, 1), 60 + K)
+    A = star(K)
+    got = emulate_smoother(sol, rhs, A, K, excl, cluster)
+    assert torch.equal(got, s3.rbgs_fused_plain(sol, rhs, A, OMEGA, K, excl))
+
+
+@pytest.mark.parametrize("cluster", [(1, 1), (2, 1), (4, 2)])
+def test_smoother_float32_depth(cluster):
+    """K6's float32 launches hold 3 iterations (a window of 2K = 6 nodes on
+    the cluster's outer sides): K = 5 is two, emulated in float64 over 65^3
+    with excl planes on tile edges."""
+    shape, excl = SMOOTH_CASES["l6_65_excl_on_tile_edges"]
+    sol, rhs, _ = inputs(shape, (1, 1, 1), 70)
+    A = star(5)
+    assert s3.max_wavefront_k(torch.float32, cluster) == 3
+    got = emulate_smoother(sol, rhs, A, 5, excl, cluster, dtype=torch.float32)
+    assert torch.equal(got, s3.rbgs_fused_plain(sol, rhs, A, OMEGA, 5, excl))
+
+
 FAULTS = {"outer_halo": ("K8", dict(halo_cut=1)), "z_range": ("K8", dict(z_cut=1)),
           "edge_read": ("K8", dict(edge=0)), "stale_edge": ("K8", dict(stale_edges=True)),
-          "k7_edge_read": ("K7", dict(edge=0)), "own_box_only": ("K7", dict(own_box_only=True))}
+          "k7_edge_read": ("K7", dict(edge=0)), "own_box_only": ("K7", dict(own_box_only=True)),
+          "k6_outer_halo": ("K6", dict(halo_cut=1)), "k6_edge_read": ("K6", dict(edge=0)),
+          "k6_excl_mask": ("K6", dict(excl_shift=1))}
 
 
 @pytest.mark.parametrize("fault", sorted(FAULTS))
@@ -292,7 +344,13 @@ def test_short_decomposition_breaks_the_equality(fault):
     name = "two_chunks_139x9x17_excl" if fault == "z_range" else "l6_65"
     shape, cshape, R, P, sol, rhs, sol_c = _case(name, 40)
     A = star(2)
-    if mode == "K7":
+    if mode == "K6":
+        excl = SMOOTH_CASES["l6_65_excl_on_tile_edges"][1]
+        want = s3.rbgs_fused_plain(sol, rhs, A, OMEGA, 2, excl)
+        got, _ = emulate_cluster_launch(s3.LEG_SMOOTH, sol, rhs, A, 2, *NO_TAPS, (2, 2), excl=excl,
+                                        **kw)
+        assert not torch.equal(got, want)
+    elif mode == "K7":
         rk = separable_kernels(R)
         want = s3.smooth_res_restrict_plain(sol, rhs, A, OMEGA, 2, rk, R.lo, cshape)
         got = emulate_cluster_launch(s3.LEG_RESTRICT, sol, rhs, A, 2, rk, R.lo, (2, 2),

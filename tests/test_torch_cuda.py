@@ -42,8 +42,21 @@ def laplacian(level, dtype, device):
 
 
 def leg_launches(mode, K, dtype):
-    """legs3d.cu launches of one K1/K2 call: one up to max_leg_k."""
+    """legs3d.cu launches of one K1/K2/K3 call: one up to max_leg_k."""
     return len(s3.leg_chain(mode, K, dtype, 1 if mode == s3.LEG_RESTRICT else 0))
+
+
+def k6_launches(K, dtype, cluster=None):
+    """cluster_legs3d.cu launches of one K6 call: one per max_wavefront_k
+    iterations."""
+    return -(-K // s3.max_wavefront_k(dtype, cluster))
+
+
+def k6_excess(K, dtype):
+    """K6 launches of one K7 and one K8 call for the iterations they do not
+    hold."""
+    return sum(k6_launches(max(K - s3.max_cluster_k(dtype, m), 0), dtype)
+               for m in (s3.LEG_RESTRICT, s3.LEG_PROLONG))
 
 
 @pytest.mark.parametrize("level,K", [(4, 1), (5, 3)])
@@ -80,8 +93,8 @@ def test_legs_match_plain(cuda, level, K, dtype):
 @pytest.mark.parametrize("level,K", [(4, 1), (5, 3)])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_fused_kernels_match_plain(cuda, level, K, dtype):
-    """K3 (bitwise, with and without excl planes), K4 and K5, one
-    rbgs_half_sweep launch per half-sweep and one launch per transfer."""
+    """K3 (bitwise, with and without excl planes), K4 and K5: one legs3d.cu
+    launch per K3 call up to max_leg_k, one launch per transfer."""
     rng = np.random.default_rng(level * 10 + K + 1)
     n, nc = 2 ** level + 1, 2 ** (level - 1) + 1
     sol, rhs = (torch.from_numpy(rng.standard_normal((n,) * 3)).to(cuda, dtype) for _ in range(2))
@@ -97,7 +110,7 @@ def test_fused_kernels_match_plain(cuda, level, K, dtype):
     u_got = s3.prolong_correct(sol.clone(), sol_c, pk, P.lo)
     torch.cuda.synchronize()
     assert (s3.rbgs_fused.launches - n0[0], s3.res_restrict.launches - n0[1],
-            s3.prolong_correct.launches - n0[2]) == (4 * K, 1, 1)
+            s3.prolong_correct.launches - n0[2]) == (2 * leg_launches(s3.LEG_SMOOTH, K, dtype), 1, 1)
     assert torch.equal(s_got, s3.rbgs_fused_plain(sol, rhs, A, OMEGA, K))
     assert torch.equal(e_got, s3.rbgs_fused_plain(sol, rhs, A, OMEGA, K, excl))
     rc_ref = s3.res_restrict_plain(sol, rhs, A, rk, R.lo, (nc,) * 3)
@@ -110,7 +123,8 @@ def test_fused_kernels_match_plain(cuda, level, K, dtype):
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_wavefronts_match_plain(cuda, level, K, dtype):
     """K6 (with and without excl planes) and K7's sol bitwise, K7's coarse
-    rhs and K8 within TOL; one launch per call; sol left as it was."""
+    rhs and K8 within TOL; K7/K8 one launch per call, K6 one per
+    max_wavefront_k iterations; sol left as it was."""
     rng = np.random.default_rng(level * 10 + K + 2)
     n, nc = 2 ** level + 1, 2 ** (level - 1) + 1
     sol, rhs = (torch.from_numpy(rng.standard_normal((n,) * 3)).to(cuda, dtype) for _ in range(2))
@@ -128,8 +142,8 @@ def test_wavefronts_match_plain(cuda, level, K, dtype):
     s7, rc7 = s3.smooth_res_restrict_wavefront(sol, rhs, A, OMEGA, K, rk, R.lo, (nc,) * 3)
     s8 = s3.prolong_correct_smooth_wavefront(sol, sol_c, rhs, A, OMEGA, K, pk, P.lo)
     torch.cuda.synchronize()
-    # K7/K8 run the iterations one launch does not hold as one K6 launch
-    k6 = 2 + sum(K > s3.max_cluster_k(dtype, m) for m in (s3.LEG_RESTRICT, s3.LEG_PROLONG))
+    # K7/K8 run the iterations one launch does not hold as K6 launches
+    k6 = 2 * k6_launches(K, dtype) + k6_excess(K, dtype)
     assert [fn.launches - k for fn, k in zip(counters, n0)] == [k6, 1, 1]
     assert torch.equal(sol, before)
     assert torch.equal(s6, s3.rbgs_wavefront_plain(sol, rhs, A, OMEGA, K))
@@ -155,6 +169,91 @@ def test_rbgs_wavefront_tile_edges(cuda, level):
         ref = s3.rbgs_wavefront_plain(sol, rhs, A, OMEGA, 3)
         for _ in range(3):
             assert torch.equal(s3.rbgs_wavefront(sol, rhs, A, OMEGA, 3), ref)
+
+
+# K3/K6 at odd shapes with excl planes on both sides of tile edges (31 | 32,
+# 63 | 64: the inner edges of 1 x 2, 2 x 1 and 2 x 2 clusters in x or y
+# and outer ones) and of z-chunk edges, one in the array's last tile (a
+# node past the tile at 65 and 129)
+SMOOTHER_CASES = (((5, 5, 5), (2, -1, -1, -1, 1, -1)),
+                  ((17, 33, 9), (2, 14, -1, 20, 1, -1)),
+                  ((65, 65, 65), (3, 4, 31, 32, 32, 63)),
+                  ((66, 40, 37), (7, 8, 32, -1, 31, 33)),
+                  ((139, 9, 17), (127, 128, -1, -1, 8, -1)),
+                  ((129, 129, 129), (63, 64, 63, 96, 64, 127)))
+
+
+def star_inputs(shape, dtype, device, seed):
+    """A 7-point star with distinct coefficients and random sol, rhs."""
+    A, sol, rhs, _ = star_fields(shape, (1, 1, 1), dtype, device, seed)
+    return A, sol, rhs
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_smoothers_match_plain_at_odd_shapes(cuda, dtype):
+    """K3 (legs3d.cu, in place) and K6 (cluster_legs3d.cu on every cluster
+    shape, a new tensor) bitwise rbgs_fused_plain with and without excl
+    planes on tile, cluster and z-chunk edges, K = 1..5: K3 one launch per
+    max_leg_k iterations, K6 one per max_wavefront_k; K6 leaves sol as it
+    was."""
+    for shape, excl in SMOOTHER_CASES:
+        for K in (1, 2, 3, 4, 5):
+            A, sol, rhs = star_inputs(shape, dtype, cuda, K)
+            before = sol.clone()
+            for ex in (s3.NO_EXCL, excl):
+                want = s3.rbgs_fused_plain(sol, rhs, A, OMEGA, K, ex)
+                n0 = s3.rbgs_fused.launches
+                s = sol.clone()
+                assert s3.rbgs_fused(s, rhs, A, OMEGA, K, ex) is s
+                torch.cuda.synchronize()
+                assert s3.rbgs_fused.launches - n0 == leg_launches(s3.LEG_SMOOTH, K, dtype)
+                assert torch.equal(s, want), (shape, K, ex)
+                for cluster in s3.CLUSTER_SHAPES:
+                    n0 = s3.rbgs_wavefront.launches
+                    got = s3.rbgs_wavefront(sol, rhs, A, OMEGA, K, ex, cluster=cluster)
+                    torch.cuda.synchronize()
+                    assert s3.rbgs_wavefront.launches - n0 == k6_launches(K, dtype, cluster)
+                    assert torch.equal(got, want), (shape, K, ex, cluster)
+            assert torch.equal(sol, before)
+
+
+def test_k3_chunks_and_launch_count(cuda):
+    """K3 on 129^3 float32, K=3, at block z-chunks of 4 to 256 planes: all
+    bitwise the plain version, one launch each; K = 0 launches nothing and
+    changes nothing."""
+    A, sol, rhs = star_inputs((129,) * 3, torch.float32, cuda, 5)
+    excl = SMOOTHER_CASES[-1][1]
+    want = s3.rbgs_fused_plain(sol, rhs, A, OMEGA, 3, excl)
+    for chunk in (4, 16, 64, 128, 256):
+        n0 = s3.rbgs_fused.launches
+        got = s3.rbgs_fused(sol.clone(), rhs, A, OMEGA, 3, excl, chunk=chunk)
+        torch.cuda.synchronize()
+        assert s3.rbgs_fused.launches - n0 == 1
+        assert torch.equal(got, want), chunk
+    n0, s = s3.rbgs_fused.launches, sol.clone()
+    assert torch.equal(s3.rbgs_fused(s, rhs, A, OMEGA, 0), sol)
+    assert s3.rbgs_fused.launches == n0
+
+
+@pytest.mark.parametrize("level", [7, 9])
+def test_smoothers_excl_on_edges(cuda, level):
+    """K3 and K6 (default cluster and 2 x 2) on a level's Laplacian, float32
+    K=3, excl planes on tile, cluster and z-chunk edges: several seeds,
+    each run twice, all bitwise the plain version."""
+    n = 2 ** level + 1
+    A = laplacian(level, torch.float32, cuda)
+    h = n // 2
+    excl = (h - 1, h, 31, h, 32, n - 2)  # z at a chunk edge at 513^3; n - 2: the last inner x
+    for seed in range(3):
+        rng = np.random.default_rng(seed)
+        sol, rhs = (torch.from_numpy(rng.standard_normal((n,) * 3)).to(cuda, torch.float32)
+                    for _ in range(2))
+        ref = s3.rbgs_fused_plain(sol, rhs, A, OMEGA, 3, excl)
+        for _ in range(2):
+            assert torch.equal(s3.rbgs_fused(sol.clone(), rhs, A, OMEGA, 3, excl), ref)
+            for cluster in (None, (2, 2)):
+                assert torch.equal(s3.rbgs_wavefront(sol, rhs, A, OMEGA, 3, excl, cluster=cluster),
+                                   ref)
 
 
 @pytest.mark.parametrize("level", [7, 9])
@@ -253,7 +352,7 @@ def test_cluster_legs_tile_edges(cuda, level):
 def test_cluster_leg_launches(cuda, dtype, K):
     """One K7/K8 launch per call, K6 launches for the iterations it does not
     hold (K6 before K7, after K8): f32 K=3 none, f32 K=5 one each, f64
-    K=3 one each (K7 holds 1, K8 2)."""
+    K=3 one each (K7 holds 1, K8 2; K6 2)."""
     n, nc = 17, 9
     A = laplacian(4, dtype, cuda)
     R, P = node_restriction(3), node_prolongation(3)
@@ -273,22 +372,29 @@ def test_cluster_leg_launches(cuda, dtype, K):
         call()
         torch.cuda.synchronize()
         moved = dict(zip(("K6", "K7", "K8"), (c.launches - k for c, k in zip(counters, n0))))
-        k6 = int(K > s3.max_cluster_k(dtype, mode))
+        k6 = k6_launches(max(K - s3.max_cluster_k(dtype, mode), 0), dtype)
+        assert k6 == int(K > s3.max_cluster_k(dtype, mode))
         assert moved == {"K6": k6, "K7": int(mode == s3.LEG_RESTRICT),
                          "K8": int(mode == s3.LEG_PROLONG)}
 
 
 def test_refused_cluster_launch_raises(cuda):
     """A cluster shape the kernel does not take is refused by the C entry
-    and raises; nothing runs on the CPU instead."""
+    and raises, for K7 and K6, and so are excl planes given to K7/K8;
+    nothing runs on the CPU instead."""
     A = laplacian(3, torch.float32, cuda)
     R = node_restriction(3)
     t = torch.zeros((9, 9, 9), dtype=torch.float32, device=cuda)
-    n0 = s3.smooth_res_restrict_wavefront.launches
+    n0 = (s3.smooth_res_restrict_wavefront.launches, s3.rbgs_wavefront.launches)
     with pytest.raises(RuntimeError, match="cluster_leg: CUDA error"):
         s3.smooth_res_restrict_wavefront(t, t, A, OMEGA, 1, separable_kernels(R), R.lo, (5, 5, 5),
                                          cluster=(1, 4))
-    assert s3.smooth_res_restrict_wavefront.launches == n0
+    with pytest.raises(RuntimeError, match="cluster_leg: CUDA error"):
+        s3.rbgs_wavefront(t, t, A, OMEGA, 1, cluster=(1, 4))
+    with pytest.raises(RuntimeError, match="cluster_leg: CUDA error"):
+        s3._cluster_leg_launch(s3.LEG_RESTRICT, t, t, A, OMEGA, 1, separable_kernels(R), R.lo,
+                               (1, 2), coarse_shape=(5, 5, 5), excl=(2, -1, -1, -1, -1, -1))
+    assert (s3.smooth_res_restrict_wavefront.launches, s3.rbgs_wavefront.launches) == n0
 
 
 def test_wrapper_rejects_non_contiguous(cuda):
@@ -403,7 +509,7 @@ def test_dsl_cycle_launches_the_leg_kernels(cuda, monkeypatch, v1):
     moved = [fn.launches - k for fn, k in zip(kernels, n0)]
     k1, k2 = (2 * leg_launches(m, 3, torch.float64) for m in (s3.LEG_RESTRICT, s3.LEG_PROLONG))
     # v1 in float64: K7 holds 1 iteration and K8 2, K6 runs the rest
-    k6 = 2 * sum(3 > s3.max_cluster_k(torch.float64, m) for m in (s3.LEG_RESTRICT, s3.LEG_PROLONG))
+    k6 = 2 * k6_excess(3, torch.float64)
     assert moved == ([0, 0, 0, 2, 2, k6] if v1 else [k1, k2, 0, 0, 0, 0])
 
 

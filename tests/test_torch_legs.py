@@ -1,5 +1,6 @@
-"""The block decomposition of the one-launch legs K1/K2 (csrc/legs3d.cu),
-emulated in plain PyTorch on the CPU.
+"""The block decomposition of the one-launch legs K1/K2 and of the fused
+smoother K3 (csrc/legs3d.cu, LEG_SMOOTH), emulated in plain PyTorch on the
+CPU.
 
 The CUDA kernel cannot run here, so this file replays what each of its
 blocks computes: a LEG_TILE^2 (y, x) tile of a z-chunk (the wrapper's
@@ -9,9 +10,10 @@ leg_chunk, or LEG_CHUNK planes), a window with a halo of 2K nodes (K1:
 nodes, the out-of-place write of the tile, K1's residual box and its
 coarse planes (each written by one block), and the chain of launches of a K deeper than one launch
 holds (leg_chain).  Float64, held bitwise to the plain versions
-`smooth_res_restrict_plain` / `prolong_correct_smooth_plain`, at odd
-shapes, the smallest level, with excl planes and K = 1..4; a halo or a
-z-range one node short breaks the equality."""
+`smooth_res_restrict_plain` / `prolong_correct_smooth_plain` /
+`rbgs_fused_plain`, at odd shapes, the smallest level, with excl planes
+(K3 also on tile and z-chunk edges) and K = 1..4 (K3 1..5); a halo, a
+z-range or an excl mask one node short breaks the equality."""
 
 import pytest
 import torch
@@ -79,13 +81,14 @@ def updatable(shape, excl, z, y, x):
 
 
 def emulate_launch(mode, sol, rhs, A, K, kern, lo, excl, sol_c=None, coarse_shape=None,
-                   halo_cut=0, z_cut=0, chunk=None):
+                   halo_cut=0, z_cut=0, chunk=None, excl_shift=0):
     """One leg_kernel launch, block by block, out of place: returns
     (new sol, coarse rhs or None) and checks that every output node is
     written by exactly one block.  `chunk`: the fine z-planes of a block
     (default: the wrapper's choice on an H100's 132 SMs).  `halo_cut`
-    shortens the halo and `z_cut` the half-sweeps' z-ranges below the
-    chunk (faults the tests must catch)."""
+    shortens the halo, `z_cut` the half-sweeps' z-ranges below the chunk
+    and `excl_shift` moves the excl planes of the updatable mask (faults
+    the tests must catch)."""
     down, up = mode == s3.LEG_RESTRICT, mode == s3.LEG_PROLONG
     shape = tuple(sol.shape)
     nz, ny, nx = shape
@@ -127,7 +130,7 @@ def emulate_launch(mode, sol, rhs, A, K, kern, lo, excl, sol_c=None, coarse_shap
                 idx = (gz.clamp(0, nz - 1), gy.clamp(0, ny - 1), gx.clamp(0, nx - 1))
                 W = torch.where(inside, sol[idx], 0.0)
                 F = torch.where(inside, rhs[idx], 0.0)
-                upd = updatable(shape, excl, gz, gy, gx)
+                upd = updatable(shape, [p + excl_shift if p >= 0 else p for p in excl], gz, gy, gx)
                 if up:
                     W = torch.where(upd, W + pc[idx], W)
                 ly, lx = gy - org[1], gx - org[2]
@@ -163,11 +166,12 @@ def emulate_launch(mode, sol, rhs, A, K, kern, lo, excl, sol_c=None, coarse_shap
 
 
 def emulate_leg(mode, sol, rhs, A, K, kern, lo, excl, sol_c=None, coarse_shape=None,
-                chunk=None):
-    """The wrapper's chain of launches (leg_chain), each out of place."""
+                chunk=None, dtype=None):
+    """The wrapper's chain of launches (leg_chain for `dtype`, default
+    sol's), each out of place."""
     reach = s3._restrict_reach(kern, lo) if mode == s3.LEG_RESTRICT else 0
     out_c = None
-    for m, k in s3.leg_chain(mode, K, sol.dtype, reach):
+    for m, k in s3.leg_chain(mode, K, dtype or sol.dtype, reach):
         sol, c = emulate_launch(m, sol, rhs, A, k, kern, lo, excl, sol_c, coarse_shape,
                                 chunk=chunk)
         out_c = c if c is not None else out_c
@@ -187,6 +191,15 @@ CASES = {
     "cell_36x18x20": ((36, 18, 20), (18, 9, 10), CELL, s3.NO_EXCL),
     "two_chunks_139x9x17_excl": ((139, 9, 17), (70, 5, 9), NODE, (127, 129, -1, -1, 8, -1)),
 }
+# K3's excl planes on block edges: y and x planes on both sides of a tile
+# edge (31 | 32) and z planes on both sides of a z-chunk edge (the wrapper
+# takes 4 planes a chunk at these sizes)
+SMOOTH_CASES = {
+    **{name: (shape, excl) for name, (shape, _, _, excl) in CASES.items()},
+    "l6_65_excl_on_tile_edges": ((65,) * 3, (3, 4, 31, 32, 32, 63)),
+    "odd_66x40x37_excl_on_edges": ((66, 40, 37), (7, 8, 32, -1, 31, 33)),
+}
+NO_TAPS = (((0.0,),) * 3, (0, 0, 0))
 
 
 def inputs(shape, coarse_shape, seed):
@@ -249,6 +262,47 @@ def test_chunk_choice():
         [128, 64, 8, 4, 4, 4]
 
 
+@pytest.mark.parametrize("K", [1, 2, 3, 4, 5])
+@pytest.mark.parametrize("case", sorted(SMOOTH_CASES))
+def test_smoother_decomposition_is_plain_k3(case, K):
+    """K3: the LEG_SMOOTH launches of one rbgs_fused call (float64: 2
+    iterations a launch, so K = 3..5 chain), bitwise rbgs_fused_plain."""
+    shape, excl = SMOOTH_CASES[case]
+    sol, rhs, _ = inputs(shape, (1, 1, 1), 30 + K)
+    A = star(K)
+    got, _ = emulate_leg(s3.LEG_SMOOTH, sol, rhs, A, K, *NO_TAPS, excl)
+    assert torch.equal(got, s3.rbgs_fused_plain(sol, rhs, A, OMEGA, K, excl))
+
+
+@pytest.mark.parametrize("chunk", [None, s3.LEG_CHUNK])
+@pytest.mark.parametrize("K", [3, 5])
+def test_smoother_float32_chain(K, chunk):
+    """K3's float32 launches (3 iterations a launch, a window of 2K = 6
+    nodes around the tile: K = 3 one launch, K = 5 two), emulated in
+    float64 on excl planes at tile and chunk edges, with the wrapper's
+    z-chunk and with LEG_CHUNK (two chunks of 139 planes)."""
+    shape, excl = ((139, 40, 37), (127, 128, 31, 32, 32, 33))
+    sol, rhs, _ = inputs(shape, (1, 1, 1), 40 + K)
+    A = star(K)
+    assert len(s3.leg_chain(s3.LEG_SMOOTH, K, torch.float32)) == (K + 2) // 3
+    got, _ = emulate_leg(s3.LEG_SMOOTH, sol, rhs, A, K, *NO_TAPS, excl, chunk=chunk,
+                         dtype=torch.float32)
+    assert torch.equal(got, s3.rbgs_fused_plain(sol, rhs, A, OMEGA, K, excl))
+
+
+@pytest.mark.parametrize("fault", ["halo", "z_range", "excl_mask"])
+def test_short_smoother_breaks_the_equality(fault):
+    """K3's check has teeth: a window one node short of 2K, half-sweeps one
+    plane short of the chunk's z-halo, or excl planes one node off in the
+    updatable mask differ from the plain version."""
+    shape, excl = SMOOTH_CASES["l6_65_excl_on_tile_edges"]
+    sol, rhs, _ = inputs(shape, (1, 1, 1), 50)
+    A = star(50)
+    kw = {"halo": dict(halo_cut=1), "z_range": dict(z_cut=1), "excl_mask": dict(excl_shift=1)}
+    got, _ = emulate_launch(s3.LEG_SMOOTH, sol, rhs, A, 2, *NO_TAPS, excl, **kw[fault])
+    assert not torch.equal(got, s3.rbgs_fused_plain(sol, rhs, A, OMEGA, 2, excl))
+
+
 @pytest.mark.parametrize("cut", ["halo", "z_range"])
 def test_short_window_breaks_the_equality(cut):
     """The check has teeth: a K2 window one node short of 2K in y/x, or
@@ -266,15 +320,17 @@ def test_short_window_breaks_the_equality(cut):
 
 
 def test_chain_and_depths():
-    """One launch up to max_leg_k (3 in float32; in float64 K2 2 and K1 1
-    with the node restriction), the smem of each within one block's 227 KB and its
-    threads within 1024; deeper K chains: K2 smooths after its first
-    launch, K1 before its last."""
+    """One launch up to max_leg_k (3 in float32; in float64 K2 and K3 2 and
+    K1 1 with the node restriction), the smem of each within one block's
+    227 KB and its threads within 1024 (K1: 768); deeper K chains: K2 and
+    K3 smooth after their first launch, K1 before its last; K3 with K = 0
+    launches nothing."""
     f32, f64 = torch.float32, torch.float64
-    assert [s3.max_leg_k(f32, m) for m in (s3.LEG_PROLONG, s3.LEG_RESTRICT)] == [3, 3]
-    assert [s3.max_leg_k(f64, m) for m in (s3.LEG_PROLONG, s3.LEG_RESTRICT)] == [2, 1]
+    modes = (s3.LEG_SMOOTH, s3.LEG_PROLONG, s3.LEG_RESTRICT)
+    assert [s3.max_leg_k(f32, m) for m in modes] == [3, 3, 3]
+    assert [s3.max_leg_k(f64, m) for m in modes] == [2, 2, 1]
     for dtype, size in ((f32, 4), (f64, 8)):
-        for mode in (s3.LEG_SMOOTH, s3.LEG_PROLONG, s3.LEG_RESTRICT):
+        for mode in modes:
             k = s3.max_leg_k(dtype, mode)
             assert s3._leg_smem(mode, k, 1, size) <= s3.SMEM_LIMIT
             assert s3._leg_threads(mode, k, 1) <= (768 if mode == s3.LEG_RESTRICT else 1024)
@@ -286,3 +342,6 @@ def test_chain_and_depths():
                                                      (s3.LEG_RESTRICT, 1)]
     assert s3.leg_chain(s3.LEG_PROLONG, 7, f32) == [(s3.LEG_PROLONG, 3), (s3.LEG_SMOOTH, 3),
                                                     (s3.LEG_SMOOTH, 1)]
+    assert s3.leg_chain(s3.LEG_SMOOTH, 3, f32) == [(s3.LEG_SMOOTH, 3)]
+    assert s3.leg_chain(s3.LEG_SMOOTH, 5, f64) == [(s3.LEG_SMOOTH, 2)] * 2 + [(s3.LEG_SMOOTH, 1)]
+    assert s3.leg_chain(s3.LEG_SMOOTH, 0, f32) == []

@@ -33,7 +33,7 @@ from exastencils_tpu_torch.ops.cuda import stream3d as s3
 
 torch.set_num_threads(1)
 OMEGA = 0.8
-F64_DEPTH = 3  # max_wavefront_k(torch.float64): K6's iterations per launch
+F64_DEPTH = 2  # max_wavefront_k(torch.float64): K6's iterations per launch
 
 
 @pytest.fixture
@@ -42,15 +42,23 @@ def v1(monkeypatch):
 
 
 def test_wavefront_depths():
-    """K6 holds 5 iterations a launch in float32 and 3 in float64, its
-    window within one block's shared memory.  K7/K8 (cluster_legs3d.cu)
-    hold 3 in float32, so each leg of a V(3,3) cycle is one launch; in
-    float64 K8 2 and K7 1 (with the node and the cell restriction), each
-    within the shared memory of one block, one more iteration not."""
-    assert (s3.max_wavefront_k(torch.float32), s3.max_wavefront_k(torch.float64)) == (5, F64_DEPTH)
+    """K6 (cluster_legs3d.cu's LEG_SMOOTH) on its default cluster holds 3
+    iterations a launch in float32 and 2 in float64, 3 on 2 x 2 clusters:
+    its rings of 2K+2+CLUSTER_AHEAD planes of sol and rhs within one
+    block's shared memory, one more iteration not (or MAX_CLUSTER_K).
+    K7/K8 hold 3 in float32, so each leg of a V(3,3) cycle is one launch;
+    in float64 K8 2 and K7 1 (with the node and the cell restriction),
+    each within the shared memory of one block, one more iteration not."""
+    assert (s3.max_wavefront_k(torch.float32), s3.max_wavefront_k(torch.float64)) == (3, F64_DEPTH)
+    assert s3.max_wavefront_k(torch.float64, (2, 2)) == 3
     for dtype, itemsize in ((torch.float32, 4), (torch.float64, 8)):
-        k6 = s3.max_wavefront_k(dtype)  # a ring of 2K+2 windows (wavefront3d.cu)
-        assert (2 * k6 + 2) * (s3.WAVE_TILE + 4 * k6) ** 2 * itemsize <= s3.SMEM_LIMIT
+        for cluster in s3.CLUSTER_SHAPES:
+            k6 = s3.max_wavefront_k(dtype, cluster)
+            rows, rx = s3._cluster_window(s3.LEG_SMOOTH, k6, 0, cluster)
+            assert s3._cluster_smem(s3.LEG_SMOOTH, k6, 0, itemsize, cluster) == \
+                2 * (2 * k6 + 2 + s3.CLUSTER_AHEAD) * rows * rx * itemsize <= s3.SMEM_LIMIT
+            assert (k6 == s3.MAX_CLUSTER_K or s3._cluster_smem(s3.LEG_SMOOTH, k6 + 1, 0, itemsize,
+                                                               cluster) > s3.SMEM_LIMIT)
         for mode, reach, want in ((s3.LEG_PROLONG, 0, (3, 2)), (s3.LEG_RESTRICT, 1, (3, 1)),
                                   (s3.LEG_RESTRICT, 0, (3, 1))):
             k = s3.max_cluster_k(dtype, mode, reach)
@@ -110,7 +118,7 @@ def test_rbgs_wavefront_excl_matches_pallas_v1(v1, excl):
 
 
 def test_rbgs_wavefront_chunks_deep_k(v1, monkeypatch):
-    """K = 7 in float64 runs as chunks of 3, 3 and 1; K = 0 is sol."""
+    """K = 7 in float64 runs as chunks of 2, 2, 2 and 1; K = 0 is sol."""
     shape = (9, 9, 9)
     sol, rhs = fields(8, shape, shape)
     A = star3d()
@@ -119,7 +127,7 @@ def test_rbgs_wavefront_chunks_deep_k(v1, monkeypatch):
     chunks = _count_calls(monkeypatch, "rbgs_wavefront_plain")
     sol_t, rhs_t, At = torch.from_numpy(sol), torch.from_numpy(rhs), stencil_from_jax(A)
     close(s3.rbgs_wavefront(sol_t, rhs_t, At, OMEGA, 7), want)
-    assert chunks == [F64_DEPTH, F64_DEPTH, 1]
+    assert chunks == [F64_DEPTH] * 3 + [1]
     assert s3.rbgs_wavefront(sol_t, rhs_t, At, OMEGA, 0) is sol_t
 
 
