@@ -11,7 +11,12 @@ cluster and z-chunk edges, K = 1..5; K7/K8 bitwise against K1/K2 at odd
 shapes and K = 1..4), prints K7/K8's launch shape on the card, times
 their cluster shapes (v1_launch_shape, cluster_variants), K6's cluster
 shapes and K3's z-chunks (smoother_variants) and K3/K6 on every level
-(smoother_level_times), drives five Poisson3D V(3,3)-cycle paths at
+(smoother_level_times), holds K4/K5 against their plain versions at odd
+shapes, 129^3 and 513^3 with node and cell taps (compare_transfers), times
+their z-chunks (transfer_variants), their library yardsticks
+(library_transfers: F.conv3d, F.interpolate), both beside their bound
+(transfer_times) and on every level (transfer_level_times), drives five
+Poisson3D V(3,3)-cycle paths at
 513^3 float32 (the size `python bench.py` times), each with kernels and
 plain:
   main_path    RBGS, the whole-leg kernels K1/K2;
@@ -257,6 +262,154 @@ SMOOTHER_CASES = LEG_CASES + (
     (((513, 513, 513), (257, 257, 257)), (127, 128, 31, 32, 63, 511)),
 )
 
+# K4/K5 at the odd shapes of LEG_CASES, a last tile of one more node
+# (65, 129: 33 and 65 coarse nodes) and the main level, with node and cell
+# transfers: fine shapes, and the float64 ones
+TRANSFER_SHAPES = tuple(dict.fromkeys(shape for (shape, _), _ in LEG_CASES)) + (
+    (66, 40, 37), (129, 129, 129), (513, 513, 513))
+TRANSFER_F64 = TRANSFER_SHAPES[:-1]
+
+
+def transfer_ops(cell):
+    """(restriction, prolongation) of the node (3 taps, lo -1) or cell (2
+    taps, lo 0) transfers, with their per-dim taps."""
+    from exastencils_tpu_torch.core import stencil as st
+    from exastencils_tpu_torch.ops.transfer import separable_kernels
+
+    R, P = ((st.cell_restriction(3), st.cell_prolongation(3)) if cell
+            else (st.node_restriction(3), st.node_prolongation(3)))
+    return R, P, separable_kernels(R), separable_kernels(P)
+
+
+def coarse_of(shape, cell):
+    return tuple(m // 2 if cell else (m - 1) // 2 + 1 for m in shape)
+
+
+def compare_transfers(shape, dtype, cell, seed):
+    """K4 and K5 (stream3d.cu) on an odd shape with a star of distinct
+    coefficients: within TOL of their plain versions, one launch per call;
+    three runs bitwise alike (a race between blocks would show)."""
+    from exastencils_tpu_torch.ops.cuda import stream3d as s3
+
+    cshape = coarse_of(shape, cell)
+    A, sol, rhs, sol_c, _ = star_inputs(shape, cshape, dtype, seed)
+    R, P, rk, pk = transfer_ops(cell)
+    n0 = launch_counts()
+    rc = s3.res_restrict(sol, rhs, A, rk, R.lo, cshape)
+    u = s3.prolong_correct(sol.clone(), sol_c, pk, P.lo)
+    torch.cuda.synchronize()
+    n1 = launch_counts()
+    launches = (n1["K4"] - n0["K4"], n1["K5"] - n0["K5"])
+    e4 = rel_err(rc, s3.res_restrict_plain(sol, rhs, A, rk, R.lo, cshape))
+    e5 = rel_err(u, s3.prolong_correct_plain(sol, sol_c, pk, P.lo))
+    bitwise = all(torch.equal(s3.res_restrict(sol, rhs, A, rk, R.lo, cshape), rc) and
+                  torch.equal(s3.prolong_correct(sol.clone(), sol_c, pk, P.lo), u) for _ in range(2))
+    tol = TOL[dtype]
+    phase("compare_transfers", shape=shape, coarse=cshape, taps="cell" if cell else "node",
+          dtype=str(dtype).split(".")[1], k4_rel=f"{e4[1]:.3e}", k5_rel=f"{e5[1]:.3e}", tol=tol,
+          runs_bitwise=bitwise, launches=launches)
+    if not (e4[1] <= tol and e5[1] <= tol and bitwise):
+        raise AssertionError(f"K4/K5 mismatch at {shape} {dtype} cell={cell}")
+    if launches != (1, 1):
+        raise AssertionError(f"K4/K5 took {launches} launches, not (1, 1)")
+
+
+def library_transfers(level):
+    """The library yardsticks of K4 and K5 (node transfers, float32, TF32
+    off), which the port never calls: K4 as F.conv3d of the 7-point star
+    (the residual on inner nodes) then F.conv3d with the outer product of
+    [1/4, 1/2, 1/4] at stride 2; K5 as F.interpolate (trilinear,
+    align_corners: fine node o is coarse o / 2) added to sol's inner nodes.
+    Each within 1e-5 of the plain version.  Returns {kernel: ms}."""
+    import torch.nn.functional as F
+
+    from exastencils_tpu_torch.ops.cuda import stream3d as s3
+
+    A, sol, rhs, sol_c, cshape = leg_inputs(level, torch.float32, seed=level + 17)
+    R, P, rk, pk = transfer_ops(False)
+    c = s3._star_coefs(A.offsets, A.coefs, 3)
+    star = torch.zeros((1, 1, 3, 3, 3), dtype=sol.dtype, device=sol.device)
+    star[0, 0, 1, 1, 1] = c[0]
+    for d, (lo_c, hi_c) in enumerate(c[1]):
+        for k, v in ((0, lo_c), (2, hi_c)):
+            idx = [1, 1, 1]
+            idx[d] = k
+            star[(0, 0, *idx)] = v
+    w1 = torch.tensor(rk[0], dtype=sol.dtype, device=sol.device)
+    w27 = (w1[:, None, None] * w1[None, :, None] * w1[None, None, :])[None, None]
+    inner = (slice(1, -1),) * 3
+
+    def k4():
+        r = torch.zeros_like(sol)
+        r[inner] = rhs[inner] - F.conv3d(sol[None, None], star)[0, 0]
+        return F.conv3d(r[None, None], w27, stride=2, padding=1)[0, 0]
+
+    def k5(s):
+        s[inner] += F.interpolate(sol_c[None, None], size=tuple(s.shape), mode="trilinear",
+                                  align_corners=True)[0, 0][inner]
+        return s
+
+    e4 = rel_err(k4(), s3.res_restrict_plain(sol, rhs, A, rk, R.lo, cshape))[1]
+    e5 = rel_err(k5(sol.clone()), s3.prolong_correct_plain(sol, sol_c, pk, P.lo))[1]
+    s = sol.clone()
+    out = {"K4": cuda_ms(k4, 10), "K5": cuda_ms(lambda: k5(s), 10)}
+    phase("library_transfers", level=level, k4_rel=f"{e4:.3e}", k5_rel=f"{e5:.3e}", tol=1e-5,
+          K4_library_ms=f"{out['K4']:.4f}", K5_library_ms=f"{out['K5']:.4f}")
+    if not (e4 <= 1e-5 and e5 <= 1e-5):
+        raise AssertionError("a library yardstick of K4/K5 computes another function")
+    return out
+
+
+def transfer_variants(level):
+    """K4 and K5 at one level, float32, in one process: the kernels at
+    several z-chunks, each bitwise the default launch; device ms of one
+    call.  Returns {kernel: {variant: ms}}."""
+    from exastencils_tpu_torch.ops.cuda import stream3d as s3
+
+    A, sol, rhs, sol_c, cshape = leg_inputs(level, torch.float32, seed=level + 19)
+    R, P, rk, pk = transfer_ops(False)
+    rc = s3.res_restrict(sol, rhs, A, rk, R.lo, cshape)
+    u = s3.prolong_correct(sol.clone(), sol_c, pk, P.lo)
+    out = {"K4": {}, "K5": {}}
+    s = sol.clone()
+
+    def check(kk, got, want):
+        if not torch.equal(got, want):
+            raise AssertionError(f"{kk} variant differs from the default launch at level {level}")
+
+    for chunk in (8, 16, 32, 64):
+        check("K4", s3.res_restrict(sol, rhs, A, rk, R.lo, cshape, chunk=chunk), rc)
+        check("K5", s3.prolong_correct(sol.clone(), sol_c, pk, P.lo, chunk=chunk), u)
+        out["K4"][f"chunk{chunk}"] = cuda_ms(lambda: s3.res_restrict(sol, rhs, A, rk, R.lo, cshape,
+                                                                   chunk=chunk), 10)
+        out["K5"][f"chunk{chunk}"] = cuda_ms(lambda: s3.prolong_correct(s, sol_c, pk, P.lo,
+                                                                      chunk=chunk), 10)
+    for kk in ("K4", "K5"):
+        phase("transfer_variants", kernel=kk, level=level, dtype="float32",
+              default_chunk=s3.transfer_chunk(s3.LEG_RESTRICT if kk == "K4" else s3.LEG_PROLONG,
+                                              sol.shape, cshape, _sm_count()),
+              bitwise=True, **{f"ms_{v}": f"{ms:.4f}" for v, ms in out[kk].items()})
+    return out
+
+
+def transfer_level_times(level):
+    """K4 and K5 (default z-chunk), float32, on one level's Laplacian:
+    device ms of one call each beside the bound (the Jacobi path calls them
+    on every level 2..9)."""
+    from exastencils_tpu_torch.ops.cuda import stream3d as s3
+
+    A, sol, rhs, sol_c, cshape = leg_inputs(level, torch.float32, seed=level + 23)
+    R, P, rk, pk = transfer_ops(False)
+    s, n = sol.clone(), 2 ** level + 1
+    k4 = cuda_ms(lambda: s3.res_restrict(sol, rhs, A, rk, R.lo, cshape), 10)
+    k5 = cuda_ms(lambda: s3.prolong_correct(s, sol_c, pk, P.lo), 10)
+    b = bound("K4", n, cshape[0], K_MAIN, torch.float32)[0]
+    phase("transfer_level_times", level=level,
+          chunk_k4=s3.transfer_chunk(s3.LEG_RESTRICT, sol.shape, cshape, _sm_count()),
+          chunk_k5=s3.transfer_chunk(s3.LEG_PROLONG, sol.shape, cshape, _sm_count()),
+          K4_ms=f"{k4:.4f}", K5_ms=f"{k5:.4f}", bound_ms=f"{b:.5f}",
+          K4_share=f"{b / k4:.3f}", K5_share=f"{b / k5:.3f}")
+
 
 def bound(kk, n, nc, K, dtype):
     """(bound_ms, bound_by) of kernel kk on a 3D grid of n^3 fine and nc^3
@@ -287,11 +440,12 @@ def k6_launches(K, dtype, cluster=None):
     return -(-K // s3.max_wavefront_k(dtype, cluster))
 
 
-def compare_fused(level, K, dtype, excl=None, timed=False, shape=None):
+def compare_fused(level, K, dtype, excl=None, timed=False, shape=None, transfers=True):
     """K3, K4 and K5 against their plain versions on the same inputs; K3
     bitwise (--fmad=false), one launch per max_leg_k iterations.  `shape`
     = (fine, coarse) for an odd shape with a star of distinct
-    coefficients, else the level's Laplacian."""
+    coefficients, else the level's Laplacian.  `transfers=False`: K3 only
+    (K4/K5 do not depend on K; compare_transfers covers those shapes)."""
     from exastencils_tpu_torch.core.stencil import node_prolongation, node_restriction
     from exastencils_tpu_torch.ops.cuda import stream3d as s3
     from exastencils_tpu_torch.ops.transfer import separable_kernels
@@ -307,12 +461,12 @@ def compare_fused(level, K, dtype, excl=None, timed=False, shape=None):
     s_got = s3.rbgs_fused(sol.clone(), rhs, A, OMEGA, K, excl)
     torch.cuda.synchronize()
     launches = launch_counts()["K3"] - n0["K3"]
-    rc_ref = s3.res_restrict_plain(sol, rhs, A, rk, R.lo, cshape)
-    rc_got = s3.res_restrict(sol, rhs, A, rk, R.lo, cshape)
-    u_ref = s3.prolong_correct_plain(sol, sol_c, pk, P.lo)
-    u_got = s3.prolong_correct(sol.clone(), sol_c, pk, P.lo)
-    torch.cuda.synchronize()
-    errs = {"K3": rel_err(s_got, s_ref), "K4": rel_err(rc_got, rc_ref), "K5": rel_err(u_got, u_ref)}
+    errs = {"K3": rel_err(s_got, s_ref)}
+    if transfers:
+        rc_got = s3.res_restrict(sol, rhs, A, rk, R.lo, cshape)
+        u_got = s3.prolong_correct(sol.clone(), sol_c, pk, P.lo)
+        errs["K4"] = rel_err(rc_got, s3.res_restrict_plain(sol, rhs, A, rk, R.lo, cshape))
+        errs["K5"] = rel_err(u_got, s3.prolong_correct_plain(sol, sol_c, pk, P.lo))
     tol = TOL[dtype]
     bitwise = bool(torch.equal(s_got, s_ref))
     want = len(s3.leg_chain(s3.LEG_SMOOTH, K, dtype))
@@ -320,7 +474,7 @@ def compare_fused(level, K, dtype, excl=None, timed=False, shape=None):
           dtype=str(dtype).split(".")[1], excl=excl,
           **{f"{kk.lower()}_rel": f"{e[1]:.3e}" for kk, e in errs.items()}, tol=tol,
           k3_bitwise=bitwise, k3_launches=launches)
-    if not (bitwise and errs["K4"][1] <= tol and errs["K5"][1] <= tol):
+    if not (bitwise and all(e[1] <= tol for e in errs.values())):
         raise AssertionError(f"kernel/plain mismatch at {tuple(sol.shape)} K {K} {dtype} excl {excl}")
     if launches != want:
         raise AssertionError(f"K3 took {launches} launches, not {want}")
@@ -812,24 +966,40 @@ def main():
     for shape, excl in SMOOTHER_CASES:
         for K in (1, 2, 3, 4, 5):
             for dtype in (torch.float64, torch.float32):
-                compare_fused(None, K, dtype, excl=excl, shape=shape)
+                compare_fused(None, K, dtype, excl=excl, shape=shape, transfers=False)
                 compare_wavefronts(None, K, dtype, excl=excl, shape=shape)
+    for i, shape in enumerate(TRANSFER_SHAPES):
+        for cell in (False, True):
+            for dtype in (torch.float64, torch.float32):
+                if dtype == torch.float32 or shape in TRANSFER_F64:
+                    compare_transfers(shape, dtype, cell, seed=i)
     for K in (1, 2, 3, 4):
         for dtype in (torch.float64, torch.float32):
             for level in (4, 5):
                 compare_v1_legs(level, K, dtype)
             for shape in dict.fromkeys(shape for shape, _ in LEG_CASES):  # K7/K8: no excl
                 compare_v1_legs(None, K, dtype, shape=shape)
+    n, nc = 2 ** MAIN_LEVEL + 1, 2 ** (MAIN_LEVEL - 1) + 1
     full = compare_legs(MAIN_LEVEL, K_MAIN, torch.float32, timed=True)
     leg_launch_shape(MAIN_LEVEL, K_MAIN)
     for level in range(2, MAIN_LEVEL):
         leg_level_times(level, K_MAIN)
     full.update(compare_fused(MAIN_LEVEL, K_MAIN, torch.float32, timed=True))
+    variants = transfer_variants(MAIN_LEVEL)
+    library = library_transfers(MAIN_LEVEL)
+    for kk in ("K4", "K5"):
+        b_ms = bound(kk, n, nc, K_MAIN, torch.float32)[0]
+        full[kk]["library_ms"] = library[kk]
+        phase("transfer_times", kernel=kk, level=MAIN_LEVEL, ms=f"{full[kk]['ms']:.4f}",
+              bound_ms=f"{b_ms:.4f}", share_of_bound=f"{b_ms / full[kk]['ms']:.3f}",
+              library_ms=f"{library[kk]:.4f}",
+              **{f"ms_{v}": f"{ms:.4f}" for v, ms in variants[kk].items()})
+    for level in range(2, MAIN_LEVEL + 1):
+        transfer_level_times(level)
     full.update(compare_wavefronts(MAIN_LEVEL, K_MAIN, torch.float32, timed=True))
     v1_launch_shape(MAIN_LEVEL, K_MAIN)
     cluster_variants(MAIN_LEVEL, K_MAIN)
     _, _, copy_ms = smoother_variants(MAIN_LEVEL, K_MAIN)
-    n, nc = 2 ** MAIN_LEVEL + 1, 2 ** (MAIN_LEVEL - 1) + 1
     for kk in ("K3", "K6", "K1", "K2", "K7", "K8"):
         b_ms = bound(kk, n, nc, K_MAIN, torch.float32)[0]
         phase("smoother_times" if kk in ("K3", "K6") else "leg_times_same_call", kernel=kk,
@@ -901,7 +1071,9 @@ def main():
                         "replaces": rep, "launches": launches[kk],
                         "max_abs_err": full[kk]["max_abs_err"], "ms": full[kk]["ms"],
                         "plain_ms": full[kk]["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
-                        "library_ms": None})  # no single PyTorch call computes any of them
+                        # K4/K5: compositions of library calls (library_transfers); no
+                        # PyTorch call computes any of the others
+                        "library_ms": full[kk].get("library_ms")})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

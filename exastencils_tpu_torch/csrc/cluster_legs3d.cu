@@ -22,8 +22,8 @@
 // written (the updatable test is on global indices, so an excl plane on a
 // tile, cluster or z-chunk edge is no special case; K7/K8 take no excl
 // planes, as their TPU kernels); K7 restricts
-// in residual_restrict's order (z innermost, then y, then x), K8 prolongs
-// in prolong_sum's (z-sums per plane step, then at most four adds a node).
+// in K4's order (z innermost, then y, then x), K8 prolongs in K5's
+// (z-sums per plane step, then at most four adds a node).
 //
 // Bound: device-memory bytes, as K1/K2: (3N + Nc) values, 1.69 GB at 513^3
 // f32, 0.50 ms at 3.35 TB/s.  The first v1 wavefronts ran 289 chains of 519
@@ -110,8 +110,6 @@ constexpr int kResSlots = 4;      // K7's ring of boxes of z-sums
 
 enum Mode { kSmooth = 0, kProlong = 1, kRestrict = 2 };  // legs3d.cu's values
 
-__device__ __host__ __forceinline__ int floor_half(int a) { return a >= 0 ? a / 2 : -((1 - a) / 2); }
-
 __device__ __host__ inline int outer_halo(int mode, int K, int reach) {
   return mode == kRestrict ? 2 * K + 1 + reach : 2 * K;
 }
@@ -152,20 +150,6 @@ __device__ __host__ inline Geom geom_for(int mode, int K, int reach, int cy, int
 // window's fine nodes prolong from.
 __device__ __host__ inline int coarse_edge(const Geom& g) {
   return ((g.rows > g.RX ? g.rows : g.RX) + kMaxTaps) / 2 + 1;
-}
-
-template <typename T>
-__device__ __forceinline__ void cp_async(T* dst, const T* src, bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d), "l"(src),
-               "n"(sizeof(T)), "r"(valid ? static_cast<int>(sizeof(T)) : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // The cluster barrier, split: writes before arrive are seen by every block
@@ -223,27 +207,6 @@ __device__ Span span_for(int bz, int chunk, int nz, int nzc, bool down, const Ta
   sp.zf0 = max(sp.zf0, 0);
   sp.zf1 = min(sp.zf1, nz - 1);
   return sp;
-}
-
-// The (at most two) coarse nodes that fine index f prolongs from along one
-// dim, in increasing tap order (legs3d.cu's tap_pair).
-template <typename T>
-struct TapPair {
-  int c0;
-  bool v0, v1;
-  T w0, w1;
-};
-
-template <typename T>
-__device__ __forceinline__ TapPair<T> tap_pair(int f, int nc, const T* w, int n, int lo) {
-  TapPair<T> p;
-  const int k0 = (f - lo) & 1;
-  p.c0 = (f - lo - k0) >> 1;
-  p.v0 = k0 < n && p.c0 >= 0 && p.c0 < nc;
-  p.v1 = k0 == 0 && n > 2 && p.c0 >= 1 && p.c0 - 1 < nc;
-  p.w0 = k0 ? w[1] : w[0];
-  p.w1 = w[2];
-  return p;
 }
 
 // One thread's pair of window columns (row ly, columns 2 jx and 2 jx + 1):
@@ -374,7 +337,7 @@ int tiles_for(int n, int nc, bool down) {
 
 // K7: coarse plane cz of the block's coarse tile from the boxes of z-sums
 // (for each fine (y, x) of a tile plus `reach`, the residual summed over
-// cz's z taps), summed as residual_restrict sums: z innermost, then y, then
+// cz's z taps), summed as K4 sums: z innermost, then y, then
 // x.  A tap across an inner edge of the cluster reads the box of the block
 // that owns that fine node (every block's box sits at the same offset).
 template <typename T>
@@ -525,7 +488,7 @@ cluster_leg(T* __restrict__ out, T* __restrict__ outc, const T* __restrict__ sol
     cp_async_commit();
   };
   auto slot_back = [](int slot, int n) { return slot - n < 0 ? slot - n + S : slot - n; };
-  // K8: the z-sums of the coarse box for fine plane q (prolong_sum's
+  // K8: the z-sums of the coarse box for fine plane q (K5's
   // innermost sums, in its order), by all threads, into slot
   // (q - pstart) % 2 of two.
   T* zsum = extra + kCoarseSlots * cbox;
@@ -543,7 +506,7 @@ cluster_leg(T* __restrict__ out, T* __restrict__ outc, const T* __restrict__ sol
   };
 
   // K8's ingest: plane q (in ring slot `slot`) += P sol_c on the thread's
-  // inner nodes, summed as prolong_sum sums (q's z-sums, then y, then x);
+  // inner nodes, summed as K5 sums (q's z-sums, then y, then x);
   // then the z-sums of plane q + 1, whose coarse planes came with plane q's
   // copy group.
   auto ingest = [&](int q, int slot) {

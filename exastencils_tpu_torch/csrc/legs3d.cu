@@ -17,12 +17,11 @@
 // What is computed is the TPU kernels' (and the plain PyTorch path's) to the
 // last bit in the smoothing: star3d.cuh's arithmetic (the reference term
 // order, global (z+y+x)%2 parity, red first, built with --fmad=false), the
-// Dirichlet ring and the excl planes never written.  K1 restricts in
-// residual_restrict's order (z innermost, then y, then x), so its coarse rhs
-// is bitwise that of K3 + K4 (stream3d.cu residual_restrict); K2 prolongs
-// with prolong_correct's arithmetic (star3d.cuh prolong_sum: inner, non-excl
-// nodes only, bc not reapplied), so K2 is bitwise K5 (prolong_correct) +
-// K3.  The transfer taps stay general (Taps<T>, up to kMaxTaps per dim, any
+// Dirichlet ring and the excl planes never written.  K1 restricts in K4's
+// order (z innermost, then y, then x), so its coarse rhs is bitwise that of
+// K3 + K4 (stream3d.cu restrict_kernel); K2 prolongs with K5's arithmetic
+// (stream3d.cu prolong_kernel: inner, non-excl nodes only, bc not
+// reapplied), so K2 is bitwise K5 + K3.  The transfer taps stay general (Taps<T>, up to kMaxTaps per dim, any
 // lo).
 //
 // Bound: device-memory bytes.  A leg must read sol and rhs and write sol
@@ -98,8 +97,6 @@ enum Mode { kSmooth = 0, kProlong = 1, kRestrict = 2 };
 // has threads: each of its threads takes two.
 __device__ __host__ constexpr int leg_pairs_per_thread(int mode) { return mode == kRestrict ? 2 : 1; }
 
-__device__ __host__ __forceinline__ int floor_half(int a) { return a >= 0 ? a / 2 : -((1 - a) / 2); }
-
 // The block's window: the tile plus `halo` nodes per side, global origin
 // (wy0, wx0).  A plane is stored colour-split, (x parity, row, x / 2): the
 // pair (row ly, columns 2 jx and 2 jx + 1) is thread ly * RH + jx's, at
@@ -126,24 +123,9 @@ __device__ __host__ inline Geom geom_for(int mode, int K, int reach, int by, int
 // window's fine nodes prolong from.
 __device__ __host__ inline int coarse_edge(int R) { return (R + kMaxTaps) / 2 + 1; }
 
-template <typename T>
-__device__ __forceinline__ void cp_async(T* dst, const T* src, bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d), "l"(src),
-               "n"(sizeof(T)), "r"(valid ? static_cast<int>(sizeof(T)) : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-// Wait until at most N of this thread's copy groups are still in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // K1: coarse plane cz of the block's coarse tile from its box of z-sums
 // (zbox: for each fine (y, x) of the tile plus `reach`, the residual summed
-// over cz's z taps), summed as residual_restrict sums: the z sums are its
+// over cz's z taps), summed as K4 sums: the z sums are its
 // innermost ones, then y, then x.
 template <typename T>
 __device__ void restrict_yx(T* __restrict__ outc, const T* zbox, int cz, int ny, int nx,
@@ -203,30 +185,6 @@ __device__ Span span_for(int bz, int chunk, int nz, int nzc, bool down, const Ta
   sp.zf0 = max(sp.zf0, 0);
   sp.zf1 = min(sp.zf1, nz - 1);
   return sp;
-}
-
-// The (at most two, for kMaxTaps = 3) coarse nodes that fine index f
-// prolongs from along one dim: taps k0 and k0 + 2 with k0 = (f - lo) % 2,
-// in increasing tap order, as prolong_sum visits them (c0: tap k0's coarse
-// index; tap k0 + 2's is c0 - 1).  Weights are picked by select, never by
-// a runtime index into Taps (see star3d.cuh).
-template <typename T>
-struct TapPair {
-  int c0;
-  bool v0, v1;
-  T w0, w1;
-};
-
-template <typename T>
-__device__ __forceinline__ TapPair<T> tap_pair(int f, int nc, const T* w, int n, int lo) {
-  TapPair<T> p;
-  const int k0 = (f - lo) & 1;
-  p.c0 = (f - lo - k0) >> 1;
-  p.v0 = k0 < n && p.c0 >= 0 && p.c0 < nc;
-  p.v1 = k0 == 0 && n > 2 && p.c0 >= 1 && p.c0 - 1 < nc;
-  p.w0 = k0 ? w[1] : w[0];
-  p.w1 = w[2];
-  return p;
 }
 
 // One thread's pair of window columns (row ly, columns 2 jx and 2 jx + 1):
@@ -355,7 +313,7 @@ leg_kernel(T* __restrict__ out, T* __restrict__ outc, const T* __restrict__ sol,
     cp_async_commit();
   };
   auto slot_back = [](int slot, int n) { return slot - n < 0 ? slot - n + S : slot - n; };
-  // K2: the z-sums of the coarse box for fine plane q (prolong_sum's
+  // K2: the z-sums of the coarse box for fine plane q (K5's
   // innermost sums, in its order), by all threads, into the slot
   // (q - pstart) % 2 of two; q's coarse planes must have arrived.
   T* zsum = extra + kCoarseSlots * cbox;
@@ -385,7 +343,7 @@ leg_kernel(T* __restrict__ out, T* __restrict__ outc, const T* __restrict__ sol,
     T* bp = ring + s0 * g.plane;
 
     // K2's ingest: plane p += P sol_c on the thread's inner, non-excl
-    // nodes, summed as prolong_sum sums (z innermost, from the z-sums of
+    // nodes, summed as K5 sums (z innermost, from the z-sums of
     // the last step; then y, then x, taps in increasing order).  Only this
     // thread reads its columns of plane p before the step's end.
     if (up && p >= lz0 && p <= lz1 && p >= 1 && p <= nz - 2 && p != ex.p[0] && p != ex.p[1]) {

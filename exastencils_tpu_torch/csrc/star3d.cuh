@@ -1,8 +1,7 @@
 // Device helpers shared by the 3D radius-1 star-stencil kernels
 // (stream3d.cu, legs3d.cu, cluster_legs3d.cu):
-// launch-parameter structs, the updatable
-// test, the stencil application in the reference term order and the
-// prolongation tap sum.
+// launch-parameter structs, the coarse taps of one fine index and the
+// asynchronous copies into shared memory.
 
 #pragma once
 
@@ -33,61 +32,47 @@ struct Taps {
   int lo[3];
 };
 
-__device__ __forceinline__ bool updatable(int z, int y, int x, int nz, int ny,
-                                          int nx, const Excl& e) {
-  return z >= 1 && z <= nz - 2 && y >= 1 && y <= ny - 2 && x >= 1 &&
-         x <= nx - 2 && z != e.p[0] && z != e.p[1] && y != e.p[2] &&
-         y != e.p[3] && x != e.p[4] && x != e.p[5];
+__device__ __host__ __forceinline__ int floor_half(int a) { return a >= 0 ? a / 2 : -((1 - a) / 2); }
+
+// One value from device memory into shared memory, asynchronously; an
+// invalid source fills the destination with zeros and reads nothing.
+template <typename T>
+__device__ __forceinline__ void cp_async(T* dst, const T* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d), "l"(src),
+               "n"(sizeof(T)), "r"(valid ? static_cast<int>(sizeof(T)) : 0));
 }
 
-// A*u at one inner node, one rounding per operation in the reference order
-// (exastencils_tpu/ops/stencil_apply.apply_stencil).  zm, b, zp point at
-// the node in planes z-1, z, z+1; sy is the row stride within a plane.
-template <typename T>
-__device__ __forceinline__ T star_apply(const T* zm, const T* b, const T* zp,
-                                        int64_t sy, const Star<T>& s) {
-  T out = s.c[0] * b[0];
-  out = out + s.c[1] * zm[0];
-  out = out + s.c[2] * zp[0];
-  out = out + s.c[3] * b[-sy];
-  out = out + s.c[4] * b[sy];
-  out = out + s.c[5] * b[-1];
-  out = out + s.c[6] * b[1];
-  return out;
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+// Wait until at most N of this thread's copy groups are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// (P sol_c) at fine node (z, y, x): each fine node sums its parity-matching
-// coarse nodes (at most two per dim for windows of up to 3 taps), z
-// innermost, then y, then x.
+// The (at most two, for kMaxTaps = 3) coarse nodes that fine index f
+// prolongs from along one dim: taps k0 and k0 + 2 with k0 = (f - lo) % 2,
+// in increasing tap order (c0: tap k0's coarse index; tap k0 + 2's is
+// c0 - 1).  Weights are picked by select, never by a runtime index into
+// Taps (see kMaxTaps).
 template <typename T>
-__device__ __forceinline__ T prolong_at(const T* __restrict__ solc, int z, int y,
-                                        int x, int nzc, int nyc, int nxc,
-                                        const Taps<T>& t) {
-  T acc_x = T(0);
-#pragma unroll
-  for (int kx = 0; kx < kMaxTaps; ++kx) {
-    const int numx = x - t.lo[2] - kx;
-    const int cx = numx / 2;
-    if (kx >= t.n[2] || numx % 2 != 0 || cx < 0 || cx >= nxc) continue;
-    T acc_y = T(0);
-#pragma unroll
-    for (int ky = 0; ky < kMaxTaps; ++ky) {
-      const int numy = y - t.lo[1] - ky;
-      const int cy = numy / 2;
-      if (ky >= t.n[1] || numy % 2 != 0 || cy < 0 || cy >= nyc) continue;
-      T acc_z = T(0);
-#pragma unroll
-      for (int kz = 0; kz < kMaxTaps; ++kz) {
-        const int numz = z - t.lo[0] - kz;
-        const int cz = numz / 2;
-        if (kz >= t.n[0] || numz % 2 != 0 || cz < 0 || cz >= nzc) continue;
-        acc_z = acc_z + t.w[0][kz] * solc[(static_cast<int64_t>(cz) * nyc + cy) * nxc + cx];
-      }
-      acc_y = acc_y + t.w[1][ky] * acc_z;
-    }
-    acc_x = acc_x + t.w[2][kx] * acc_y;
-  }
-  return acc_x;
+struct TapPair {
+  int c0;
+  bool v0, v1;
+  T w0, w1;
+};
+
+template <typename T>
+__device__ __forceinline__ TapPair<T> tap_pair(int f, int nc, const T* w, int n, int lo) {
+  TapPair<T> p;
+  const int k0 = (f - lo) & 1;
+  p.c0 = (f - lo - k0) >> 1;
+  p.v0 = k0 < n && p.c0 >= 0 && p.c0 < nc;
+  p.v1 = k0 == 0 && n > 2 && p.c0 >= 1 && p.c0 - 1 < nc;
+  p.w0 = k0 ? w[1] : w[0];
+  p.w1 = w[2];
+  return p;
 }
 
 template <typename T>

@@ -25,8 +25,9 @@ schedule).
 
 The kernels are CUDA C++ for sm_90a in ../../csrc/ (legs3d.cu: K1-K3,
 one z-chunked pass per call, K3 its transfer-free mode; stream3d.cu:
-K4/K5; cluster_legs3d.cu: K6-K8, the same one-pass design on thread-block
-clusters that share their y/x halo, K6 its transfer-free mode), compiled
+K4/K5, z-streamed tiles; cluster_legs3d.cu: K6-K8, the same one-pass
+design on thread-block clusters that share their y/x halo, K6 its
+transfer-free mode), compiled
 with nvcc on first use into build/exastencils_tpu_torch/ at the
 repository root and loaded with ctypes.  A wrapper given CUDA tensors
 launches the kernels (or raises); given CPU tensors it runs the plain
@@ -94,6 +95,13 @@ CLUSTER_TILE, CLUSTER_AHEAD, MAX_CLUSTER_K, MAX_CLUSTER_X, CLUSTER_THREADS = 32,
 # barrier and the reads across the edge cost more than the halo they save.
 CLUSTER_SHAPES = ((2, 2), (4, 2), (1, 2), (2, 1), (1, 1))
 CLUSTER = {LEG_SMOOTH: (1, 1), LEG_RESTRICT: (1, 2), LEG_PROLONG: (1, 1)}
+# K4/K5 (stream3d.cu): K5's (y, x) tile of inner fine nodes, K4's (y, x)
+# tile of coarse nodes (the last tile of a dim takes one node more), a
+# block's threads, its largest z-chunk of fine planes and K4's planes in
+# flight (kUpTileY/X, kDownTileY/X, kTransferThreads, kTransferChunk,
+# kDownAhead)
+UP_TILE, DOWN_TILE = (16, 64), (8, 32)
+TRANSFER_THREADS, TRANSFER_CHUNK, TRANSFER_AHEAD = 256, 32, 1
 
 
 def _star_coefs(offsets, coefs, ndim: int):
@@ -195,8 +203,9 @@ def load_library() -> ctypes.CDLL:
     lib.exa_leg_smem.argtypes, lib.exa_leg_smem.restype = [i, i, i, i], ctypes.c_longlong
     lib.exa_leg.argtypes = [p, p, p, p, p, i, i, i, i, i, i, pd, d, i, i, i, i, pd, pi, pi, pi, i, p]
     lib.exa_error_string.argtypes, lib.exa_error_string.restype = [i], ctypes.c_char_p
-    lib.exa_residual_restrict.argtypes = [p, p, p, i, i, i, i, i, i, pd, pd, pi, pi, pi, i, p]
-    lib.exa_prolong_correct.argtypes = [p, p, i, i, i, i, i, i, pd, pi, pi, pi, i, p]
+    lib.exa_transfer_constant.argtypes, lib.exa_transfer_constant.restype = [i], i
+    lib.exa_residual_restrict.argtypes = [p, p, p, i, i, i, i, i, i, pd, pd, pi, pi, i, i, p]
+    lib.exa_prolong_correct.argtypes = [p, p, i, i, i, i, i, i, pd, pi, pi, i, i, p]
     lib.exa_cluster_constant.argtypes, lib.exa_cluster_constant.restype = [i], i
     lib.exa_cluster_smem.argtypes = [i, i, i, i, i, i]
     lib.exa_cluster_smem.restype = ctypes.c_longlong
@@ -210,6 +219,9 @@ def load_library() -> ctypes.CDLL:
         fn.restype = i
     if lib.exa_max_taps() != MAX_TAPS:
         raise RuntimeError(f"{so}: kMaxTaps {lib.exa_max_taps()} != {MAX_TAPS}")
+    transfer = tuple(lib.exa_transfer_constant(k) for k in range(7))
+    if transfer != (*UP_TILE, *DOWN_TILE, TRANSFER_THREADS, TRANSFER_CHUNK, TRANSFER_AHEAD):
+        raise RuntimeError(f"{so}: stream3d.cu's layout constants {transfer} differ from the wrapper's")
     leg = tuple(lib.exa_leg_constant(k) for k in range(4))
     if leg != (LEG_TILE, LEG_CHUNK, LEG_AHEAD, MAX_LEG_K):
         raise RuntimeError(f"{so}: legs3d.cu's layout constants {leg} differ from the wrapper's")
@@ -305,8 +317,15 @@ def _stream():
     return torch.cuda.current_stream().cuda_stream
 
 
-def _residual_restrict(lib, sol, rhs, A, r_kernels, r_lo, coarse_shape, excl_c):
-    """One residual_restrict launch; returns the new coarse tensor."""
+def _check_plane(sol):
+    """K4/K5 index within a plane in 32 bits."""
+    if sol.shape[1] * sol.shape[2] >= 2 ** 31:
+        raise ValueError(f"shape {tuple(sol.shape)}: a plane must hold < 2^31 nodes")
+
+
+def _residual_restrict(lib, sol, rhs, A, r_kernels, r_lo, coarse_shape, chunk):
+    """One stream3d.cu restrict_kernel launch; returns the new coarse
+    tensor."""
     _, coefs = _star_array(A)
     taps, ntaps, lo = _taps_arrays(r_kernels, r_lo)
     nz, ny, nx = sol.shape
@@ -314,19 +333,19 @@ def _residual_restrict(lib, sol, rhs, A, r_kernels, r_lo, coarse_shape, excl_c):
     out = torch.empty((nzc, nyc, nxc), dtype=sol.dtype, device=sol.device)
     err = lib.exa_residual_restrict(
         sol.data_ptr(), rhs.data_ptr(), out.data_ptr(), nz, ny, nx,
-        nzc, nyc, nxc, coefs, taps, ntaps, lo, excl_c, _is_double(sol), _stream())
+        nzc, nyc, nxc, coefs, taps, ntaps, lo, chunk, _is_double(sol), _stream())
     _check(lib, err, "residual_restrict")
     return out
 
 
-def _prolong_correct(lib, sol, sol_c, p_kernels, p_lo, excl_c):
-    """One prolong_correct launch, in place on sol."""
+def _prolong_correct(lib, sol, sol_c, p_kernels, p_lo, chunk):
+    """One stream3d.cu prolong_kernel launch, in place on sol."""
     taps, ntaps, lo = _taps_arrays(p_kernels, p_lo)
     nz, ny, nx = sol.shape
     nzc, nyc, nxc = sol_c.shape
     err = lib.exa_prolong_correct(
         sol.data_ptr(), sol_c.data_ptr(), nz, ny, nx, nzc, nyc, nxc,
-        taps, ntaps, lo, excl_c, _is_double(sol), _stream())
+        taps, ntaps, lo, chunk, _is_double(sol), _stream())
     _check(lib, err, "prolong_correct")
 
 
@@ -584,19 +603,55 @@ def rbgs_fused(sol, rhs, A: BoundStencil, omega: float, K: int, excl=NO_EXCL, ch
 rbgs_fused.launches = 0
 
 
+def _inner_tiles(n: int, t: int) -> int:
+    """Tiles of `t` covering the n - 2 inner nodes of a dim (K5)."""
+    return -(-(n - 2) // t)
+
+
+def _own_tiles(n: int, t: int) -> int:
+    """Tiles of `t` covering all n nodes of a dim, the last taking a
+    remainder of one node (K4; stream3d.cu own_tiles)."""
+    return max(n - 2, 0) // t + 1
+
+
+def transfer_blocks(mode: int, shape, coarse_shape, chunk: int) -> int:
+    """The blocks of one K5 (LEG_PROLONG) or K4 (LEG_RESTRICT) launch at
+    z-chunks of `chunk` fine planes: K5 tiles the inner fine nodes, K4 the
+    coarse nodes (chunk / 2 coarse planes)."""
+    if mode == LEG_PROLONG:
+        nz, ny, nx = (int(n) for n in shape)
+        return _inner_tiles(nz, chunk) * _inner_tiles(ny, UP_TILE[0]) * _inner_tiles(nx, UP_TILE[1])
+    nzc, nyc, nxc = (int(n) for n in coarse_shape)
+    return _own_tiles(nzc, chunk // 2) * _own_tiles(nyc, DOWN_TILE[0]) * _own_tiles(nxc, DOWN_TILE[1])
+
+
+def transfer_chunk(mode: int, shape, coarse_shape, n_sm: int) -> int:
+    """Fine z-planes of one K4/K5 block: TRANSFER_CHUNK, halved (down to 2)
+    while the grid would give fewer than four blocks to each of the card's
+    `n_sm` SMs."""
+    chunk = TRANSFER_CHUNK
+    while chunk > 2 and transfer_blocks(mode, shape, coarse_shape, chunk) < 4 * n_sm:
+        chunk //= 2
+    return chunk
+
+
 def res_restrict(sol, rhs, A: BoundStencil, r_kernels, r_lo,
-                 coarse_shape: Tuple[int, int, int]):
+                 coarse_shape: Tuple[int, int, int], chunk=None):
     """K4, the down-leg tail: the residual rhs - A sol (zero on the
     boundary) restricted to `coarse_shape` in one pass.  Returns the
-    coarse rhs; sol and rhs are read only."""
+    coarse rhs; sol and rhs are read only.  On CUDA one stream3d.cu
+    launch; `chunk` (even) is a block's fine z-planes (default
+    transfer_chunk)."""
     if _device_type(sol, rhs) == "cpu":
         return res_restrict_plain(sol, rhs, A, r_kernels, r_lo, coarse_shape)
     _check_cuda_fields(sol, rhs)
     _check_shapes(sol, rhs, coarse_shape)
+    _check_plane(sol)
     lib = load_library()
     with torch.cuda.device(sol.device):
-        out = _residual_restrict(lib, sol, rhs, A, r_kernels, r_lo, coarse_shape,
-                                 _excl_array(NO_EXCL))
+        if chunk is None:
+            chunk = transfer_chunk(LEG_RESTRICT, sol.shape, coarse_shape, _sm_count(sol.device.index))
+        out = _residual_restrict(lib, sol, rhs, A, r_kernels, r_lo, coarse_shape, chunk)
         res_restrict.launches += 1
     return out
 
@@ -604,16 +659,21 @@ def res_restrict(sol, rhs, A: BoundStencil, r_kernels, r_lo,
 res_restrict.launches = 0
 
 
-def prolong_correct(sol, sol_c, p_kernels, p_lo):
+def prolong_correct(sol, sol_c, p_kernels, p_lo, chunk=None):
     """K5, the up-leg head: sol += P sol_c on inner nodes, in place, in
     one pass; the boundary is not written and bc is not reapplied (for
-    Dirichlet the same as bc_sol(sol + P sol_c)).  Returns sol."""
+    Dirichlet the same as bc_sol(sol + P sol_c)).  Returns sol.  On CUDA
+    one stream3d.cu launch; `chunk` is a block's fine z-planes (default
+    transfer_chunk)."""
     if _device_type(sol, sol_c) == "cpu":
         return sol.copy_(prolong_correct_plain(sol, sol_c, p_kernels, p_lo))
     _check_cuda_fields(sol, sol_c)
+    _check_plane(sol)
     lib = load_library()
     with torch.cuda.device(sol.device):
-        _prolong_correct(lib, sol, sol_c, p_kernels, p_lo, _excl_array(NO_EXCL))
+        if chunk is None:
+            chunk = transfer_chunk(LEG_PROLONG, sol.shape, sol_c.shape, _sm_count(sol.device.index))
+        _prolong_correct(lib, sol, sol_c, p_kernels, p_lo, chunk)
         prolong_correct.launches += 1
     return sol
 

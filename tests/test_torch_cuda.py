@@ -285,6 +285,70 @@ def test_legs_tile_edges(cuda, level):
             assert torch.equal(u_got, u_ref)
 
 
+# K4/K5 (stream3d.cu): odd and non-cubic shapes, ones that a tile or z-chunk
+# does not divide (K4's last tile one node more: 33 coarse nodes at 65, 65
+# at 129, 257 at 513), 129^3 and 513^3
+TRANSFER_CASES = ((5, 5, 5), (17, 33, 9), (66, 40, 37), (139, 9, 17), (65, 19, 131),
+                  (129, 129, 129), (513, 513, 513))
+
+
+def transfer_ops(cell):
+    from exastencils_tpu_torch.core.stencil import cell_prolongation, cell_restriction
+
+    R, P = ((cell_restriction(3), cell_prolongation(3)) if cell
+            else (node_restriction(3), node_prolongation(3)))
+    return R, P, separable_kernels(R), separable_kernels(P)
+
+
+@pytest.mark.parametrize("cell", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_transfers_match_plain(cuda, dtype, cell):
+    """K4 and K5 within TOL of their plain versions with node and cell taps,
+    one launch per call; several seeds, each run three times, all bitwise
+    the first run (a block that raced another, or read a halo node late,
+    would differ only sometimes); K4 leaves sol and rhs as they were."""
+    R, P, rk, pk = transfer_ops(cell)
+    for shape in TRANSFER_CASES:
+        cshape = tuple(m // 2 if cell else (m - 1) // 2 + 1 for m in shape)
+        for seed in range(3 if min(shape) >= 129 else 1):
+            A, sol, rhs, sol_c = star_fields(shape, cshape, dtype, cuda, seed)
+            before = (sol.clone(), rhs.clone())
+            n0 = (s3.res_restrict.launches, s3.prolong_correct.launches)
+            rc = s3.res_restrict(sol, rhs, A, rk, R.lo, cshape)
+            u = sol.clone()
+            assert s3.prolong_correct(u, sol_c, pk, P.lo) is u
+            torch.cuda.synchronize()
+            assert (s3.res_restrict.launches - n0[0], s3.prolong_correct.launches - n0[1]) == (1, 1)
+            assert torch.equal(sol, before[0]) and torch.equal(rhs, before[1])
+            rc_ref = s3.res_restrict_plain(sol, rhs, A, rk, R.lo, cshape)
+            u_ref = s3.prolong_correct_plain(sol, sol_c, pk, P.lo)
+            for got, ref in ((rc, rc_ref), (u, u_ref)):
+                assert (got - ref).abs().max().item() <= TOL[dtype] * ref.abs().max().item(), shape
+            assert torch.equal(u[0], sol[0]) and torch.equal(u[:, :, -1], sol[:, :, -1])
+            for _ in range(2):
+                assert torch.equal(s3.res_restrict(sol, rhs, A, rk, R.lo, cshape), rc), shape
+                assert torch.equal(s3.prolong_correct(sol.clone(), sol_c, pk, P.lo), u), shape
+
+
+def test_transfer_chunks_and_refusal(cuda):
+    """K4/K5 at 129^3 float32 at block z-chunks of 2 to 64 planes: bitwise
+    the default chunk's result, one launch each; an odd K4 chunk is refused
+    by the C entry and raises, and nothing runs instead."""
+    R, P, rk, pk = transfer_ops(False)
+    A, sol, rhs, sol_c = star_fields((129,) * 3, (65,) * 3, torch.float32, cuda, 7)
+    rc = s3.res_restrict(sol, rhs, A, rk, R.lo, (65,) * 3)
+    u = s3.prolong_correct(sol.clone(), sol_c, pk, P.lo)
+    for chunk in (2, 4, 8, 32, 64):
+        n0 = (s3.res_restrict.launches, s3.prolong_correct.launches)
+        assert torch.equal(s3.res_restrict(sol, rhs, A, rk, R.lo, (65,) * 3, chunk=chunk), rc)
+        assert torch.equal(s3.prolong_correct(sol.clone(), sol_c, pk, P.lo, chunk=chunk), u)
+        assert (s3.res_restrict.launches - n0[0], s3.prolong_correct.launches - n0[1]) == (1, 1)
+    n0 = s3.res_restrict.launches
+    with pytest.raises(RuntimeError, match="residual_restrict: CUDA error"):
+        s3.res_restrict(sol, rhs, A, rk, R.lo, (65,) * 3, chunk=3)
+    assert s3.res_restrict.launches == n0
+
+
 # K7/K8 (cluster_legs3d.cu) against K1/K2 (legs3d.cu): odd shapes, one with
 # a last node past a tile (33), two z-chunks, the smallest level
 CLUSTER_CASES = (((5, 5, 5), (3, 3, 3)), ((17, 33, 9), (9, 17, 5)), ((65, 65, 65), (33, 33, 33)),
