@@ -18,7 +18,8 @@ their z-chunks (transfer_variants), their library yardsticks
 (transfer_times) and on every level (transfer_level_times), drives five
 Poisson3D V(3,3)-cycle paths at
 513^3 float32 (the size `python bench.py` times), each with kernels and
-plain:
+plain, each cycle staged (captured as CUDA graphs and replayed, as
+DenseBackend.wrap stages it) and held bit for bit to the eager cycle:
   main_path    RBGS, the whole-leg kernels K1/K2;
   jacobi_path  damped Jacobi, the fused transfers K4/K5;
   fas_path     RBGS under FAS, the fused smoother K3;
@@ -26,17 +27,26 @@ plain:
   v1_fas_path  RBGS under FAS with EXA_STREAM_V1=1, the cluster smoother K6;
 solves small float64 problems (RBGS, Jacobi, FAS, RBGS V(0,2), and
 RBGS and FAS under EXA_STREAM_V1=1) on the GPU and on the CPU, which must
-print the same lines, and drives the DSL entry points on
-examples/poisson_3d_bench.exa4:
+print the same lines, solves main_path's problem to 1e-10 in float64
+host-driven and device-resident (main_path_fused: solve_fused's one
+recording must take the same cycles to the same residual and iterate),
+and drives the DSL entry points on examples/poisson_3d_bench.exa4 (the
+two DSL paths right after the build):
   dsl_path     the L4 executor at 513^3 float32, MGCycle@finest with the
-               fast path (K1/K2 on levels 5-9) and without it;
-  dsl_v1_path  the same with EXA_STREAM_V1=1 (K7/K8);
+               fast path (K1/K2 on levels 5-9) staged (the default: one
+               recording of CUDA graphs, its kernels named in a profiler
+               trace of a replay) and eager (dsl_path_eager, bit for bit the
+               same U@finest), and without the fast path (dsl_path_plain);
+  dsl_v1_path  the same with EXA_STREAM_V1=1 (K7/K8), staged and eager;
+  loop_chunk   the staged cycle with 1, 4 and 16 device-loop iterations
+               per host read;
   dsl_lines    maxLevel 6 float64 3D and the 2D example: GPU lines equal
                the CPU's;
   dsl_cli      `python -m exastencils_tpu_torch` in a subprocess on the GPU;
 and compares the two schedules in one process (ab_schedule: K7/K1, K8/K2,
-v1_path/main_path).  Every phase prints
-one line; any failure raises and exits non-zero.  The third-to-last line
+v1_path/main_path).  The `staging` line sums up the graphs, device loops,
+capture seconds and graph-pool bytes of every staged path.  Every phase
+prints one line; any failure raises and exits non-zero.  The third-to-last line
 is the kernel table as JSON, then the card's name and power limit, the
 last line `{"ok": true, "device": ...}`.  Exits non-zero without printing
 a result when no CUDA device is present.
@@ -78,6 +88,8 @@ SOURCES = {kk: "exastencils_tpu_torch/csrc/" + ("legs3d.cu" if kk in ("K1", "K2"
 # the bitwise RBGS)
 PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
+# per staged path: graphs, segments, device loops, capture seconds, pool bytes
+STAGING = {}
 
 
 def phase(tag, **fields):
@@ -709,6 +721,7 @@ def ab_schedule(full, main_ms, v1_ms):
     paths' own cycle times beside them."""
     from exastencils_tpu_torch import Knowledge
     from exastencils_tpu_torch.models.poisson import PoissonMGSolver
+    from exastencils_tpu_torch.runtime.staging import Staged
 
     k = Knowledge(dimensionality=3, minLevel=0, maxLevel=MAIN_LEVEL, useDblPrecision=False,
                   tpu_compute_dtype="float32").update()
@@ -716,13 +729,11 @@ def ab_schedule(full, main_ms, v1_ms):
     sol, rhs = solver.init_state()
 
     def cycle_ms(v1):
+        # the schedule is chosen when the cycle is captured: one staged
+        # cycle per schedule, captured under it
         with v1_schedule() if v1 else contextlib.nullcontext():
-            state = {"s": sol.clone()}
-
-            def step():
-                state["s"] = solver._cycle(state["s"], rhs)
-
-            return cuda_ms(step, 10)
+            staged, x = Staged(solver.mg.cycle, donate=(0,)), sol.clone()
+            return cuda_ms(lambda: staged(x, rhs), 10)
 
     ms = [cycle_ms(v1) for v1 in (False, True, True, False)]
     v2_ms, v1_cycle_ms = (ms[0] + ms[3]) / 2, (ms[1] + ms[2]) / 2
@@ -745,8 +756,11 @@ def launch_counts(reset=False):
 
 def drive_path(tag, use_kernels, drop_bound, model_kw=None, **knowledge_kw):
     """One PoissonMGSolver V(3,3) path at 513^3 float32 on the card, as
-    bench.py builds it: one checked cycle with the launch counters set to
-    0 just before it and read just after, then the timed cycles."""
+    bench.py builds it.  The solver's cycle is staged (DenseBackend.wrap):
+    its first call warms up and captures the CUDA graphs, then one checked
+    cycle replays them with the launch counters set to 0 just before it and
+    read just after; it must equal the eager cycle (`mg.cycle`) bit for
+    bit.  Then the staged and the eager cycles are timed."""
     from exastencils_tpu_torch import Knowledge
     from exastencils_tpu_torch.models.poisson import PoissonMGSolver
 
@@ -757,25 +771,49 @@ def drive_path(tag, use_kernels, drop_bound, model_kw=None, **knowledge_kw):
                              **(model_kw or {}))
     sol, rhs = solver.init_state()
     r0 = float(solver._res_norm(sol, rhs))
+    eager = solver.mg.cycle(sol.clone(), rhs)  # the cycle updates its iterate in place
+    staged, x = solver._cycle, sol.clone()
+    staged(x, rhs)  # warm-up and capture, bound to x
+    first_equal = torch.equal(x, eager)
+    x.copy_(sol)
+    reads0 = staged.stats.host_reads
     launch_counts(reset=True)
-    s1 = solver._cycle(sol.clone(), rhs)  # the cycle updates its iterate in place
+    s1 = staged(x, rhs)  # a replay
     torch.cuda.synchronize()
     launches = launch_counts()
+    reads = staged.stats.host_reads - reads0
+    if not (s1 is x and first_equal and torch.equal(s1, eager)):
+        raise AssertionError(f"{tag}: the staged cycle differs from the eager one")
     r1 = float(solver._res_norm(s1, rhs))
     if not (np.isfinite(r1) and tuple(s1.shape) == (2 ** MAIN_LEVEL + 1,) * 3):
         raise AssertionError(f"{tag}: bad cycle output: shape {tuple(s1.shape)}, residual {r1}")
     if not r1 < drop_bound * r0:
         raise AssertionError(f"{tag}: residual drop {r1 / r0} not below {drop_bound}")
+    reps = 10 if use_kernels else 3
+    ms = cuda_ms(lambda: staged(x, rhs), reps)
     state = {"s": sol.clone()}
 
     def step():
-        state["s"] = solver._cycle(state["s"], rhs)
+        state["s"] = solver.mg.cycle(state["s"], rhs)
 
-    ms = cuda_ms(step, 10 if use_kernels else 3)
+    eager_ms = cuda_ms(step, reps)
+    idle = {}
+    if use_kernels:  # device idle share in a profiler trace of two cycles
+        from exastencils_tpu_torch.runtime.dsl_profile import busy_ms
+
+        idle = {"idle_share": f"{busy_ms(lambda: staged(x, rhs), 2)[3]:.4f}",
+                "eager_idle_share": f"{busy_ms(step, 2)[3]:.4f}"}
     glups = (2 ** MAIN_LEVEL + 1) ** 3 / (ms * 1e-3) / 1e9
+    st = staged.stats
+    STAGING[tag if use_kernels else f"{tag}_plain"] = {
+        "graphs": st.graphs, "segments": st.segments, "loops": st.loops,
+        "capture_s": round(st.capture_s, 3), "pool_bytes": st.pool_bytes}
     phase(tag, kernels=use_kernels, residual_drop=f"{r1 / r0:.4e}", bound=drop_bound,
-          cycle_ms=f"{ms:.3f}", glups=f"{glups:.4f}", launches_per_cycle=launches)
-    return ms, launches, s1
+          cycle_ms=f"{ms:.3f}", eager_ms=f"{eager_ms:.3f}", glups=f"{glups:.4f}", **idle,
+          launches_per_cycle=launches, staged_equals_eager=True, host_reads_per_cycle=reads,
+          graphs=st.graphs, segments=st.segments, loops=st.loops,
+          capture_s=f"{st.capture_s:.3f}", pool_bytes=st.pool_bytes)
+    return ms, launches, eager
 
 
 def path_with_and_without_kernels(tag, expected, drop_bound, model_kw=None, **knowledge_kw):
@@ -820,9 +858,10 @@ EX2D_EXA4 = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples",
 
 
 def dsl_executable(path, device, fastpath=True, dims=3, min_level=1, max_level=None,
-                   f64=False, lines=None):
+                   f64=False, lines=None, jit_functions=None):
     """The port's L4Executable for an example program, as bench.py's
-    bench_dsl builds it (float32 unless f64)."""
+    bench_dsl builds it (float32 unless f64); staged by default on the
+    card, eager with jit_functions=False."""
     from exastencils_tpu_torch.dsl.parser import parse_l4
 
     from exastencils_tpu_torch import Knowledge
@@ -833,7 +872,8 @@ def dsl_executable(path, device, fastpath=True, dims=3, min_level=1, max_level=N
                   useDblPrecision=f64, tpu_compute_dtype="" if f64 else "float32",
                   tpu_shard_dsl=False, tpu_dsl_fastpath=fastpath).update()
     return L4Executable(parse_l4(path), k, device=device,
-                        out=(lambda s: None) if lines is None else lines.append)
+                        out=(lambda s: None) if lines is None else lines.append,
+                        jit_functions=jit_functions)
 
 
 DSL_DROP_BOUND = 0.2
@@ -842,14 +882,52 @@ DSL_DROP_BOUND = 0.2
 # and 7 on the CPU, 0.164 at 513^3 on the card), hence 0.2.
 
 
-def drive_dsl(tag, fastpath, expected):
-    """The DSL benchmark program at 513^3 float32 on the card: InitF, one
-    checked MGCycle@finest with the launch counters set to 0 just before
-    it and read just after (residual by CalcRes + ResNorm before and
-    after), then MGCycle@finest timed with CUDA events over chained calls,
-    as bench_dsl times it.  Returns the cycle ms, and U@finest and the
-    residual after the checked cycle."""
-    ex = dsl_executable(BENCH_EXA4, "cuda", fastpath)
+def kernel_of(name):
+    """K1-K8 by a device event's kernel name (template arguments <T, K,
+    MODE, ...>: MODE 0 smooth, 1 prolong, 2 restrict), else None."""
+    import re
+
+    from exastencils_tpu_torch.ops.cuda import stream3d as s3
+
+    if "restrict_kernel<" in name:
+        return "K4"
+    if "prolong_kernel<" in name:
+        return "K5"
+    m = re.search(r"(cluster_leg|leg_kernel)<\w+, \d+, (\d+)", name)
+    if m is None:
+        return None
+    mode = int(m.group(2))
+    order = {s3.LEG_RESTRICT: 0, s3.LEG_PROLONG: 1, s3.LEG_SMOOTH: 2}[mode]
+    return (("K7", "K8", "K6") if m.group(1) == "cluster_leg" else ("K1", "K2", "K3"))[order]
+
+
+def replay_kernels(fn):
+    """The kernels K1-K8 that a torch.profiler trace of one fn() shows on
+    the device, counted by name, the device events in all and the first
+    three event names (`dsl_profile.device_events`: the trace's own first
+    milliseconds, which can lose their events, hold another fn() and a
+    marker kernel)."""
+    from exastencils_tpu_torch.runtime.dsl_profile import device_events
+
+    seen, names = {}, []
+    for e in device_events(fn, 1):
+        names.append(e.name[:48])
+        kk = kernel_of(e.name)
+        if kk is not None:
+            seen[kk] = seen.get(kk, 0) + 1
+    return seen, len(names), names[:3]
+
+
+def drive_dsl(tag, fastpath, expected, jit_functions=None):
+    """The DSL benchmark program at 513^3 float32 on the card: InitF, the
+    residual (CalcRes + ResNorm), one MGCycle@finest (staged: its warm-up,
+    capture and first replay), the residual, then the checked cycle with
+    the launch counters set to 0 just before it and read just after (staged:
+    a replay; its kernels also counted by name in a torch.profiler trace of
+    the next replay), then MGCycle@finest timed with CUDA events over
+    chained calls, as bench_dsl times it.  Returns the cycle ms, U@finest
+    after cycles 1 and 2, and the residual after cycle 1."""
+    ex = dsl_executable(BENCH_EXA4, "cuda", fastpath, jit_functions=jit_functions)
     fin = ex.hi
     fn = {name: ex.functions[(name, fin)] for name in ("InitF", "CalcRes", "ResNorm", "MGCycle")}
 
@@ -857,32 +935,153 @@ def drive_dsl(tag, fastpath, expected):
         ex.call_function(fn["CalcRes"], fin, [])
         return float(ex.call_function(fn["ResNorm"], fin, []))
 
+    def cycle():
+        ex.call_function(fn["MGCycle"], fin, [])
+
     ex.call_function(fn["InitF"], fin, [])
     r0 = res_norm()
+    cycle()
+    u1 = ex.get_field("U", fin).clone()
+    r1 = res_norm()
+    reads0 = ex.stage_stats.host_reads
     launch_counts(reset=True)
-    ex.call_function(fn["MGCycle"], fin, [])
+    cycle()
     torch.cuda.synchronize()
     launches = launch_counts()
-    r1 = res_norm()
-    u = ex.get_field("U", fin)
-    if not (np.isfinite(r1) and tuple(u.shape) == (2 ** MAIN_LEVEL + 1,) * 3
-            and u.dtype == torch.float32):
-        raise AssertionError(f"{tag}: bad cycle output {tuple(u.shape)} {u.dtype}, residual {r1}")
+    reads = ex.stage_stats.host_reads - reads0
+    u2 = ex.get_field("U", fin).clone()
+    if not (np.isfinite(r1) and tuple(u1.shape) == (2 ** MAIN_LEVEL + 1,) * 3
+            and u1.dtype == torch.float32):
+        raise AssertionError(f"{tag}: bad cycle output {tuple(u1.shape)} {u1.dtype}, residual {r1}")
     if not r1 < DSL_DROP_BOUND * r0:
         raise AssertionError(f"{tag}: residual drop {r1 / r0} not below {DSL_DROP_BOUND}")
     if launches != expected:
         raise AssertionError(f"{tag}: launches per cycle {launches}, expected {expected}")
-    u = u.clone()  # the timed cycles below update U@finest
-    ms = cuda_ms(lambda: ex.call_function(fn["MGCycle"], fin, []), 10 if fastpath else 3)
+    extra = {}
+    if ex.jit_functions:
+        st = ex.staging_stats()
+        want_seen = {kk: n for kk, n in expected.items() if n}
+        seen, events, first = replay_kernels(cycle)
+        if st["unstaged"] or seen != want_seen:
+            raise AssertionError(f"{tag}: unstaged runs {st['unstaged_runs']}, kernels in a "
+                                 f"replay {seen}, expected {want_seen}, {events} device "
+                                 f"events, the first {first}")
+        STAGING[tag] = {kk: st[kk] for kk in ("graphs", "segments", "loops", "captures")}
+        STAGING[tag].update(capture_s=round(st["capture_s"], 3), pool_bytes=st["pool_bytes"])
+        extra = dict(unstaged=0, replay_kernels=seen, device_events=events,
+                     host_reads_per_cycle=reads, graphs=st["graphs"], segments=st["segments"],
+                     loops=st["loops"], capture_s=f"{st['capture_s']:.3f}",
+                     pool_bytes=st["pool_bytes"])
+    ms = cuda_ms(cycle, 10 if fastpath else 3)
     glups = (2 ** MAIN_LEVEL + 1) ** 3 / (ms * 1e-3) / 1e9
-    phase(tag, fastpath=fastpath, residual_drop=f"{r1 / r0:.4e}", bound=DSL_DROP_BOUND,
-          cycle_ms=f"{ms:.3f}", glups=f"{glups:.4f}", launches_per_cycle=launches)
-    return ms, u, r1
+    phase(tag, fastpath=fastpath, staged=ex.jit_functions, residual_drop=f"{r1 / r0:.4e}",
+          bound=DSL_DROP_BOUND, cycle_ms=f"{ms:.3f}", glups=f"{glups:.4f}",
+          launches_per_cycle=launches, **extra)
+    return ms, u1, r1, u2
+
+
+def dsl_staged_vs_eager(tag, staged, eager):
+    """U@finest after cycles 1 and 2, staged against eager: bit for bit."""
+    same = (torch.equal(staged[1], eager[1]), torch.equal(staged[3], eager[3]))
+    phase(f"{tag}_staged_vs_eager", u_cycle1_bitwise=same[0], u_cycle2_bitwise=same[1],
+          staged_ms=f"{staged[0]:.3f}", eager_ms=f"{eager[0]:.3f}",
+          speedup=f"{eager[0] / staged[0]:.2f}")
+    if not all(same):
+        raise AssertionError(f"{tag}: staged and eager U@finest differ {same}")
+
+
+def loop_chunk_times(chunks=(1, 4, 16)):
+    """The staged DSL cycle (513^3 float32) with each chunk of device-loop
+    iterations per host read (runtime/staging.LOOP_CHUNK): cycle ms and
+    host reads per cycle, U@finest bitwise alike for every chunk."""
+    from exastencils_tpu_torch.runtime import staging
+
+    out, ref, keep = {}, None, staging.LOOP_CHUNK
+    try:
+        for chunk in chunks:
+            staging.LOOP_CHUNK = chunk
+            ex = dsl_executable(BENCH_EXA4, "cuda")
+            fin = ex.hi
+            ex.call_function(ex.functions[("InitF", fin)], fin, [])
+
+            def cycle():
+                ex.call_function(ex.functions[("MGCycle", fin)], fin, [])
+
+            cycle()
+            u = ex.get_field("U", fin).clone()
+            if ref is not None and not torch.equal(u, ref):
+                raise AssertionError(f"loop_chunk: chunk {chunk} changes U@finest")
+            ref = u if ref is None else ref
+            r0 = ex.stage_stats.host_reads
+            ms = cuda_ms(cycle, 10)
+            out[chunk] = (ms, (ex.stage_stats.host_reads - r0) / 11)
+            del ex, u
+    finally:
+        staging.LOOP_CHUNK = keep
+    phase("loop_chunk", default=keep, **{f"chunk{c}_ms": f"{v[0]:.3f}" for c, v in out.items()},
+          **{f"chunk{c}_reads_per_cycle": v[1] for c, v in out.items()})
+
+
+def fused_path():
+    """main_path's solver to 1e-10 at 513^3, in float64 (float32 stalls far
+    above 1e-10): the host-driven solve replaying the staged cycle and
+    residual norm, the device-resident solve_fused (one recording, a device
+    loop over cycles with one host read of its done flag per cycle) and
+    the eager solve.  solve_fused must take the same cycles to the same
+    final residual and iterate, bit for bit; ms per cycle of each, the
+    recordings captured before the timed solves."""
+    from exastencils_tpu_torch import Knowledge
+    from exastencils_tpu_torch.models.poisson import PoissonMGSolver
+
+    def solver():
+        k = Knowledge(dimensionality=3, minLevel=0, maxLevel=MAIN_LEVEL).update()
+        return PoissonMGSolver(k, device="cuda", omega=OMEGA, n_pre=K_MAIN, n_post=K_MAIN)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    a = solver()
+    sol0, rhs = a.init_state()
+    x = sol0.clone()
+    a.solve(max_its=100, target_res_reduction=1e-10, print_error=False, state=(x, rhs))
+    x.copy_(sol0)
+    (_, _, init, cur, it), solve_s = timed(lambda: a.solve(
+        max_its=100, target_res_reduction=1e-10, print_error=False, state=(x, rhs)))
+    b = solver()
+    y = sol0.clone()
+    b.solve_fused(max_its=100, target_res_reduction=1e-10, state=(y, rhs))
+    fused = b.gen._fused[(1e-10, 100)]
+    y.copy_(sol0)
+    reads0 = fused.stats.host_reads
+    (f_sol, f_init, f_cur, f_it), fused_s = timed(lambda: b.solve_fused(
+        max_its=100, target_res_reduction=1e-10, state=(y, rhs)))
+    reads = fused.stats.host_reads - reads0
+    z = sol0.clone()
+    (_, _, _, e_it), eager_s = timed(lambda: a.mg.solve(z, rhs, 1e-10, 100, jit=False))
+    same = (int(f_it) == it == e_it, float(f_cur) == cur, float(f_init) == init,
+            f_sol is y and torch.equal(y, x))
+    if not (all(same) and cur <= 1e-10 * init):
+        raise AssertionError(f"main_path_fused: solve_fused against solve {same}, "
+                             f"{init} -> {cur} in {it}")
+    st = fused.stats
+    STAGING["main_path_fused"] = {"graphs": st.graphs, "segments": st.segments,
+                                  "loops": st.loops, "capture_s": round(st.capture_s, 3),
+                                  "pool_bytes": st.pool_bytes}
+    phase("main_path_fused", dtype="float64", cycles=it, residual=f"{cur:.6e}",
+          same_cycles_residual_iterate=True, fused_ms_per_cycle=f"{fused_s * 1e3 / it:.3f}",
+          solve_ms_per_cycle=f"{solve_s * 1e3 / it:.3f}",
+          eager_ms_per_cycle=f"{eager_s * 1e3 / it:.3f}", host_reads=reads,
+          host_reads_per_cycle=f"{reads / it:.2f}", graphs=st.graphs, loops=st.loops,
+          capture_s=f"{st.capture_s:.3f}", pool_bytes=st.pool_bytes)
 
 
 def dsl_fast_vs_plain(fast, plain):
-    """The checked cycle's U@finest and residual with the fast path against
-    the plain executor's, both from InitF: float32 tolerance."""
+    """U@finest and the residual after the first cycle with the fast path
+    against the plain executor's, both from InitF: float32 tolerance."""
     d = rel_err(fast[1], plain[1])
     dr = abs(fast[2] - plain[2]) / plain[2]
     tol = TOL[torch.float32]
@@ -948,6 +1147,27 @@ def main():
     regs = [ln.strip() for ln in log.read_text().splitlines() if "registers" in ln] if log.exists() else []
     phase("build", seconds=f"{time.perf_counter() - t0:.2f}", ptxas=regs)
 
+    none = dict.fromkeys(KERNELS, 0)
+    # legs3d.cu launches per leg and level: one (K=3 fits one launch in float32)
+    per_level = {kk: len(s3.leg_chain(m, K_MAIN, torch.float32, r))
+                 for kk, m, r in (("K1", s3.LEG_RESTRICT, 1), ("K2", s3.LEG_PROLONG, 0))}
+    dsl_levels = MAIN_LEVEL - 4  # levels 5..9: >= 33 nodes per dim (dsl/fastpath.py)
+    dsl_want = {**none, **{kk: dsl_levels * v for kk, v in per_level.items()}}
+    fast = drive_dsl("dsl_path", True, dsl_want)
+    fast_eager = drive_dsl("dsl_path_eager", True, dsl_want, jit_functions=False)
+    dsl_staged_vs_eager("dsl_path", fast, fast_eager)
+    plain = drive_dsl("dsl_path_plain", False, none, jit_functions=False)
+    dsl_fast_vs_plain(fast, plain)
+    dsl_ms, dsl_eager_ms, dsl_plain_ms = fast[0], fast_eager[0], plain[0]
+    del fast, fast_eager, plain
+    with v1_schedule():
+        v1_want = {**none, "K7": dsl_levels, "K8": dsl_levels}
+        v1_staged = drive_dsl("dsl_v1_path", True, v1_want)
+        v1_eager = drive_dsl("dsl_v1_path_eager", True, v1_want, jit_functions=False)
+        dsl_staged_vs_eager("dsl_v1_path", v1_staged, v1_eager)
+    dsl_v1_ms = v1_staged[0]
+    del v1_staged, v1_eager
+
     for level, K in ((4, 1), (5, 3)):
         for dtype in (torch.float64, torch.float32):
             compare_legs(level, K, dtype)
@@ -1009,10 +1229,6 @@ def main():
     for level in range(2, MAIN_LEVEL + 1):
         smoother_level_times(level, K_MAIN)
 
-    none = dict.fromkeys(KERNELS, 0)
-    # legs3d.cu launches per leg and level: one (K=3 fits one launch in float32)
-    per_level = {kk: len(s3.leg_chain(m, K_MAIN, torch.float32, r))
-                 for kk, m, r in (("K1", s3.LEG_RESTRICT, 1), ("K2", s3.LEG_PROLONG, 0))}
     launches = {}
     main, main_ms = path_with_and_without_kernels(
         "main_path", {**none, **{kk: (MAIN_LEVEL - 1) * v for kk, v in per_level.items()}}, 0.1)
@@ -1044,23 +1260,18 @@ def main():
     with v1_schedule():
         solve_both("rbgs_v1")
         solve_both("fas_v1", solver_useFAS=True)
-    dsl_levels = MAIN_LEVEL - 4  # levels 5..9: >= 33 nodes per dim (dsl/fastpath.py)
-    fast = drive_dsl("dsl_path", True, {**none, **{kk: dsl_levels * v for kk, v in per_level.items()}})
-    plain = drive_dsl("dsl_path", False, none)
-    dsl_fast_vs_plain(fast, plain)
-    dsl_ms, dsl_plain_ms = fast[0], plain[0]
-    del fast, plain
-    phase("dsl_path_summary", fastpath_ms=f"{dsl_ms:.3f}", plain_ms=f"{dsl_plain_ms:.3f}",
-          speedup=f"{dsl_plain_ms / dsl_ms:.2f}", main_path_ms=f"{main_ms:.3f}",
-          dsl_vs_main_path=f"{dsl_ms / main_ms:.3f}")
-    with v1_schedule():
-        dsl_v1_ms = drive_dsl("dsl_v1_path", True, {**none, "K7": dsl_levels, "K8": dsl_levels})[0]
+    fused_path()
+    phase("dsl_path_summary", staged_ms=f"{dsl_ms:.3f}", eager_ms=f"{dsl_eager_ms:.3f}",
+          plain_ms=f"{dsl_plain_ms:.3f}", speedup_over_eager=f"{dsl_eager_ms / dsl_ms:.2f}",
+          main_path_ms=f"{main_ms:.3f}", dsl_vs_main_path=f"{dsl_ms / main_ms:.3f}")
     phase("dsl_v1_path_summary", cycle_ms=f"{dsl_v1_ms:.3f}",
           dsl_v1_vs_v1_path=f"{dsl_v1_ms / v1_ms:.3f}")
+    loop_chunk_times()
     ab_schedule(full, main_ms, v1_ms)
     want = dsl_lines("dsl_lines_3d_l6_f64", BENCH_EXA4, 3, 1, 6)
     dsl_lines("dsl_lines_2d_l5_f64", EX2D_EXA4, 2, 0, 5)
     dsl_cli(want)
+    phase("staging", **{tag: v for tag, v in STAGING.items()})
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
 

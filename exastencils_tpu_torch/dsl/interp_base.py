@@ -29,13 +29,30 @@ _LOC_MAP = {
 }
 
 
+# A Python float that a staged run traces becomes a 0-d float64 tensor
+# marked with this attribute (dsl/interp_staging): `_apply_binop` gives it
+# the arithmetic of the Python float it stands for, and what it computes
+# with other Python numbers is marked in turn.
+_PY_FLOAT = "_exa_py_float"
+
+
+def py_float(t: torch.Tensor) -> torch.Tensor:
+    """Mark a 0-d float64 tensor as a traced Python float; returns it."""
+    setattr(t, _PY_FLOAT, True)
+    return t
+
+
+def is_py_float(v) -> bool:
+    return isinstance(v, torch.Tensor) and getattr(v, _PY_FLOAT, False)
+
+
 def _math_fn(torch_fn, np_fn):
     """A math builtin on tensors (torch) and on Python numbers (numpy,
     returned as a Python float or complex, so it stays weakly typed)."""
 
     def fn(v):
         if isinstance(v, torch.Tensor):
-            return torch_fn(v)
+            return py_float(torch_fn(v)) if is_py_float(v) else torch_fn(v)
         with np.errstate(all="ignore"):
             r = np_fn(v)
         return complex(r) if np.iscomplexobj(r) else float(r)
@@ -44,7 +61,9 @@ def _math_fn(torch_fn, np_fn):
 
 
 def _abs(v):
-    return torch.abs(v) if isinstance(v, torch.Tensor) else abs(v)
+    if isinstance(v, torch.Tensor):
+        return py_float(torch.abs(v)) if is_py_float(v) else torch.abs(v)
+    return abs(v)
 
 
 _MATH_FNS = {
@@ -273,11 +292,65 @@ def _logic(fn, a, b):
     return fn(a, b)
 
 
+def _int_scalar(v) -> bool:
+    """A 0-d integer tensor: an int variable traced by a staged run."""
+    return isinstance(v, torch.Tensor) and v.dim() == 0 and not (
+        v.dtype.is_floating_point or v.dtype.is_complex or v.dtype == torch.bool)
+
+
+_ARITH = ("+", "-", "*", "/", "%", "**")
+
+
 def _apply_binop(op, a, b):
     if is_mat(a) or is_mat(b):
         return MV.mat_binop(op, a, b)
     # elementwise-operator spellings degenerate to scalar ops off-matrix
     op = {".*": "*", "./": "/", ".^": "**", ".%": "**"}.get(op, op)
+    if (_int_scalar(a) or _int_scalar(b)) and op in _ARITH:
+        # a traced int keeps Python's arithmetic: with a Python float, or
+        # divided, it computes in float64 (torch would take float32)
+        if isinstance(a, float) or isinstance(b, float) or is_py_float(a) \
+                or is_py_float(b) or op == "/":
+            a = py_float(a.double()) if _int_scalar(a) else a
+            b = py_float(b.double()) if _int_scalar(b) else b
+    pa, pb = is_py_float(a), is_py_float(b)
+    if pa or pb:
+        return _py_float_binop(op, a, b, pa)
+    return _raw_binop(op, a, b)
+
+
+def _py_float_binop(op, a, b, pa: bool):
+    """`a op b` where a (pa) or b is a traced Python float: what PyTorch
+    gives for the Python float itself.  With another Python number it is
+    float64 arithmetic and a traced float again; against a tensor the
+    float takes the tensor's type first, a division by it is a product
+    with its reciprocal on CUDA (PyTorch's path for a Python-scalar
+    divisor there, measured on an H100 with torch 2.11) and a division of
+    it a product with the tensor's reciprocal (`Tensor.__rtruediv__`)."""
+    other = b if pa else a
+    if not isinstance(other, torch.Tensor) or is_py_float(other):
+        if not isinstance(other, torch.Tensor):  # a Python number: float64 too
+            f = a if pa else b
+            other = torch.full((), other, device=f.device, dtype=torch.complex128
+                               if isinstance(other, complex) else torch.float64)
+            a, b = (f, other) if pa else (other, f)
+        r = _raw_binop(op, a, b)
+        if op in _ARITH and isinstance(r, torch.Tensor) and r.dtype == torch.float64:
+            py_float(r)
+        return r
+    g = a if pa else b
+    f = g.to(other.dtype if other.dtype.is_floating_point or other.dtype.is_complex
+             else torch.get_default_dtype())
+    if op == "/":
+        if not pa:
+            # on CUDA, PyTorch divides by a Python scalar as a product with
+            # its reciprocal, taken in float64 and rounded to the type
+            return other * torch.reciprocal(g).to(f.dtype) if other.is_cuda else other / f
+        return other.reciprocal() * f
+    return _raw_binop(op, f, other) if pa else _raw_binop(op, other, f)
+
+
+def _raw_binop(op, a, b):
     if op == "+":
         return a + b
     if op == "-":
@@ -315,10 +388,15 @@ def _apply_binop(op, a, b):
 
 def _apply_assign(op, cur, val):
     if op == "=":
-        if not isinstance(cur, torch.Tensor):
+        if not isinstance(cur, torch.Tensor) or is_py_float(cur):
             return val
-        return torch.broadcast_to(
-            torch.as_tensor(val, dtype=cur.dtype, device=cur.device), cur.shape)
+        if not isinstance(val, torch.Tensor):
+            # a fill, not a copy from host memory (which a CUDA graph
+            # capture refuses)
+            return torch.full(cur.shape, val, dtype=cur.dtype, device=cur.device)
+        return torch.broadcast_to(val.to(dtype=cur.dtype, device=cur.device), cur.shape)
+    if is_py_float(cur) or is_py_float(val):
+        return _apply_binop(op[0], cur, val)
     if op == "+=":
         return cur + val
     if op == "-=":
@@ -372,15 +450,21 @@ def _fmt(v, precision: int = 6) -> str:
 
 def _minmax(name: str, vals):
     """Elementwise min/max over values of which at least one is a tensor
-    (jnp.minimum/maximum of the reference)."""
+    (jnp.minimum/maximum of the reference).  A Python number becomes a 0-d
+    tensor of its default type by a fill (no copy from host memory), a
+    traced Python float (`is_py_float`) the same way."""
     fn = torch.minimum if name == "min" else torch.maximum
     ref = next(v for v in vals if isinstance(v, torch.Tensor))
+
+    def weak(v):
+        if is_py_float(v):
+            return v.to(torch.get_default_dtype())
+        return v if isinstance(v, torch.Tensor) else torch.full((), v, device=ref.device)
+
     out = vals[0]
     for v in vals[1:]:
-        a = out if isinstance(out, torch.Tensor) else torch.as_tensor(out, device=ref.device)
-        b = v if isinstance(v, torch.Tensor) else torch.as_tensor(v, device=ref.device)
-        dt = torch.result_type(out, v)
-        out = fn(a.to(dt), b.to(dt))
+        dt = torch.result_type(1.0 if is_py_float(out) else out, 1.0 if is_py_float(v) else v)
+        out = fn(weak(out).to(dt), weak(v).to(dt))
     return out
 
 

@@ -7,19 +7,27 @@ become the banded inter-grid contractions of ops/transfer.  Fields live
 in `self.state` as tensors on the executable's `device` (cpu or cuda),
 in the Knowledge's real dtype.
 
+Staged execution (`jit_functions`, default `tpu_stage_functions` on a
+CUDA device): maximal stageable statement runs are captured once as CUDA
+graphs and replayed (dsl/interp_staging, runtime/staging), the
+counterpart of the reference's jitted runs; early-exit repeats become
+device loops.  On the CPU the default is eager, and `jit_functions=True`
+runs the same staging with a replay that re-runs the recorded statements
+on the static buffers (for tests); `jit_functions=False` is the eager
+executor on any device.
+
 Differences from the reference, by design:
-- Execution is eager, whatever `tpu_stage_functions` says: the
-  reference's staged runs (dsl/interp_staging) are not ported; their
-  counterpart would be CUDA-graph capture.
 - Dense single-device only: `communicate` is a no-op (as in the
   reference without a mesh), and a configuration the reference would
   shard over a device mesh raises NotImplementedError.
-- State is never updated in place by the interpreter itself: every store
-  replaces the tensor (slots by copy), as the reference's immutable
-  arrays do.  The only in-place writers are the fast path's kernels
-  (dsl/fastpath.py); `set_field` keeps every stored field's storage
-  unshared, and the fast path checks that before it hands a field to a
-  kernel.
+- State is never updated in place by the interpreter's own statements:
+  every store replaces the tensor (slots by copy), as the reference's
+  immutable arrays do.  The in-place writers are the fast path's kernels
+  (dsl/fastpath.py) and the replays of staged runs, which update their
+  static state buffers; `set_field` keeps every stored field's storage
+  unshared, the fast path checks that before it hands a field to a
+  kernel, and a replay first takes its buffers back from any variable.
+  A caller that keeps a field's tensor across a run clones it.
 """
 
 from __future__ import annotations
@@ -71,10 +79,14 @@ from exastencils_tpu_torch.dsl.interp_base import (
     _scale_stencil,
     _shift,
     is_mat,
+    is_py_float,
+    py_float,
 )
 from exastencils_tpu_torch.dsl.fastpath import FastPathPlanner, fastpath_enabled
 from exastencils_tpu_torch.dsl.interp_builtins import L4BuiltinsMixin
 from exastencils_tpu_torch.dsl.interp_localsolve import L4LocalSolveMixin
+from exastencils_tpu_torch.dsl.interp_staging import L4StagingMixin
+from exastencils_tpu_torch.runtime.staging import StageStats
 
 
 def _shards_requested(knowledge) -> bool:
@@ -116,7 +128,7 @@ def _is_int(v) -> bool:
     return isinstance(v, (int, np.integer)) and not isinstance(v, bool)
 
 
-class L4Executable(L4BuiltinsMixin, L4LocalSolveMixin):
+class L4Executable(L4BuiltinsMixin, L4StagingMixin, L4LocalSolveMixin):
     """A runnable ExaSlang-4 program on `device` ("cpu" or "cuda")."""
 
     def __init__(
@@ -126,6 +138,7 @@ class L4Executable(L4BuiltinsMixin, L4LocalSolveMixin):
         *,
         device,
         out=print,
+        jit_functions: Optional[bool] = None,
     ):
         self.prog = program
         self.k = knowledge
@@ -138,6 +151,23 @@ class L4Executable(L4BuiltinsMixin, L4LocalSolveMixin):
         self.out = out
         self.timers = TimerRegistry(knowledge, self.device)
         self.dtype = real_dtype(knowledge)
+        # --- staged execution (`jit_functions`): maximal stageable
+        # statement runs are captured per (statements, level, signature)
+        # as CUDA graphs and replayed (dsl/interp_staging); None stages
+        # where the reference jits, on the accelerator ---
+        self.jit_functions = (
+            knowledge.tpu_stage_functions and self.device.type == "cuda"
+            if jit_functions is None else jit_functions
+        )
+        self._in_trace = False
+        self._stage_cache: Dict[Tuple, dict] = {}
+        self._stage_blacklist: set = set()
+        self._stageable_memo: Dict[Tuple, bool] = {}
+        self.stage_stats = StageStats()
+        self._unstaged: Dict[str, str] = {}  # run -> why it stays eager
+        # tensors a device loop body masks its updates against: in-place
+        # kernels clone them first (own_field)
+        self._pinned: List[list] = []
         self._host_rng = np.random.default_rng(0x5EED)  # native() RNG emulation
         self._glibc_rand = _glibc_rand_stream()  # exact std::rand() (seed 1)
         self._ghost_rules: Dict[Tuple[str, int], dict] = {}  # virtual-ghost bc rules
@@ -485,7 +515,8 @@ class L4Executable(L4BuiltinsMixin, L4LocalSolveMixin):
 
     def _shares_storage(self, t: torch.Tensor, skip=None) -> bool:
         """True if `t`'s storage is also held by a state entry other than
-        `skip`, or by a variable of an active frame or a global."""
+        `skip`, by a variable of an active frame or a global, or by a
+        tensor a device loop masks against (`_pinned`)."""
         ptr = t.untyped_storage().data_ptr()
 
         def held(v):
@@ -494,6 +525,8 @@ class L4Executable(L4BuiltinsMixin, L4LocalSolveMixin):
             return isinstance(v, torch.Tensor) and v.untyped_storage().data_ptr() == ptr
 
         if any(k != skip and held(v) for k, v in self.state.items()):
+            return True
+        if any(held(v) for pins in self._pinned for v in pins):
             return True
         frames = [f.vars for f in self._frames] + [self.globals]
         return any(held(v) for env in frames for v in env.values())
@@ -755,7 +788,9 @@ class L4Executable(L4BuiltinsMixin, L4LocalSolveMixin):
         if isinstance(e, N.UnOp):
             v = self.eval_expr(e.operand, fr, loop)
             if e.op == "-":
-                return v.map(torch.negative) if is_mat(v) else -v
+                if is_mat(v):
+                    return v.map(torch.negative)
+                return py_float(-v) if is_py_float(v) else -v
             if e.op == "im":  # `(expr)j` imaginary suffix
                 return v * 1j
             return torch.logical_not(v) if isinstance(v, torch.Tensor) else (not v)
@@ -1339,16 +1374,26 @@ class L4Executable(L4BuiltinsMixin, L4LocalSolveMixin):
     # statements
     def exec_block(self, stmts: List[N.Stmt], fr: Frame, loop=None):
         """Execute statements with C++-style block scoping: Var/Val
-        declarations die (and stop shadowing outer names) at block exit."""
+        declarations die (and stop shadowing outer names) at block exit.
+        With `jit_functions`, maximal stageable runs execute as one
+        recording (see _run_staged)."""
         shadowed = {}
         declared = set()
-        for s in stmts:
-            if isinstance(s, N.VarDecl) and s.name not in declared:
-                declared.add(s.name)
-                if s.name in fr.vars:
-                    shadowed[s.name] = fr.vars[s.name]
+
+        def note_decls(run):
+            for s in run:
+                if isinstance(s, N.VarDecl) and s.name not in declared:
+                    declared.add(s.name)
+                    if s.name in fr.vars:
+                        shadowed[s.name] = fr.vars[s.name]
+
         try:
-            self._exec_plan_aware(stmts, fr, loop)
+            for run, staged in self._partition_stmts(stmts, fr, loop):
+                note_decls(run)
+                if staged:
+                    self._run_staged(run, fr)
+                else:
+                    self._exec_plan_aware(run, fr, loop)
         finally:
             for name in declared:
                 if name in shadowed:
@@ -1358,7 +1403,9 @@ class L4Executable(L4BuiltinsMixin, L4LocalSolveMixin):
 
     def _exec_plan_aware(self, stmts: List[N.Stmt], fr: Frame, loop=None):
         """Execute a statement run, routing recognized multigrid legs
-        through the CUDA fast path (dsl/fastpath.py)."""
+        through the CUDA fast path (dsl/fastpath.py).  Called both eagerly
+        and inside staged runs, where the kernels are captured with the
+        rest of the run."""
         plan = ()
         if self._fastpath is not None and loop is None and fr.level is not None:
             plan = self._fastpath.plan(stmts, fr.level)
@@ -1431,6 +1478,29 @@ class L4Executable(L4BuiltinsMixin, L4LocalSolveMixin):
             else:
                 self.exec_block(s.else_body, fr, loop)
         elif isinstance(s, N.RepeatTimes):
+            if self.jit_functions and loop is None:
+                parts = self._match_early_exit_repeat(s, fr.level)
+                if parts is None and not self._in_trace \
+                        and isinstance(s.count, N.Num) \
+                        and float(s.count.value) > 24 \
+                        and all(self._stmt_stageable(x, fr.level)
+                                for x in s.body) \
+                        and not self._body_mutates_slots(s.body, fr.level):
+                    # large no-exit repeat: one device loop with a
+                    # never-true exit (its body captured ONCE instead of
+                    # unrolled 128x), replayed with no host read
+                    parts = (list(s.body), N.Num(0, is_int=True), [])
+                if parts is not None:
+                    if self._in_trace:
+                        # tail position (enforced by _fn_stageable):
+                        # early return == loop break, lower inline
+                        self._exec_repeat_early_exit_traced(s, fr, parts)
+                        return
+                    handled = self._exec_repeat_early_exit(s, fr, parts)
+                    if handled == "return":
+                        raise _Return(None)
+                    if handled:
+                        return
             n = int(self.eval_expr(s.count, fr, loop))
             for it in range(n):
                 if s.count_var is not None:
@@ -1674,11 +1744,11 @@ class L4Executable(L4BuiltinsMixin, L4LocalSolveMixin):
             if is_mat(arr) and arr.rows == 1 and arr.cols == 1:
                 arr = arr.data[..., 0, 0]  # dot() returns a 1x1 matrix
             red = torch.sum(torch.where(loop.mask, arr, 0)) if loop.mask is not None else torch.sum(arr)
-            env[var] = env.get(var, 0.0) + red
+            env[var] = _apply_binop("+", env.get(var, 0.0), red)
             return
         if s.op == "*=":
             arr = self.eval_expr(s.value, fr, loop)
-            env[var] = env.get(var, 1.0) * torch.prod(arr)
+            env[var] = _apply_binop("*", env.get(var, 1.0), torch.prod(arr))
             return
         if s.op == "=" and isinstance(s.value, N.Call) and s.value.name in ("min", "max"):
             others = [a for a in s.value.args
@@ -2074,110 +2144,6 @@ class L4Executable(L4BuiltinsMixin, L4LocalSolveMixin):
             for a in e.args:
                 out |= self._referenced_names(a)
         return out
-
-    # call-graph analysis for the fast path and liveness (reference
-    # dsl/interp_staging.py: _call_targets, _stmt_refs)
-    def _call_targets(self, e: N.Call, level):
-        """FunctionDecls an L4 call can bind to (with their levels)."""
-        out = []
-        if e.level is not None:
-            try:
-                lvls = e.level.resolve(self.lo, self.hi, level)
-            except Exception:
-                return None  # unresolvable at scan time
-            for l in lvls:
-                if (e.name, l) in self.functions:
-                    out.append((self.functions[(e.name, l)], l))
-        else:
-            if (e.name, level) in self.functions:
-                out.append((self.functions[(e.name, level)], level))
-            elif (e.name, None) in self.functions:
-                out.append((self.functions[(e.name, None)], level))
-        return out
-
-    def _stmt_refs(self, s, level) -> frozenset:
-        key = (id(s), level)
-        if key in self._refs_memo:
-            return self._refs_memo[key]
-        self._refs_memo[key] = frozenset()  # cycle guard
-        out = set()
-
-        def expr(e):
-            if e is None:
-                return
-            if isinstance(e, N.Access):
-                out.add(e.name)
-                if e.component:
-                    for c in e.component:
-                        for x in c[1:]:
-                            if isinstance(x, N.Expr):
-                                expr(x)
-            elif isinstance(e, N.BinOp):
-                expr(e.lhs); expr(e.rhs)
-            elif isinstance(e, N.UnOp):
-                expr(e.operand)
-            elif isinstance(e, N.MatrixLit):
-                for row in e.rows:
-                    for x in row:
-                        expr(x)
-            elif isinstance(e, N.TensorLit):
-                for _, x in e.entries:
-                    expr(x)
-            elif isinstance(e, N.Call):
-                for a in e.args:
-                    expr(a)
-                for fn, lvl in (self._call_targets(e, level) or []):
-                    for st in fn.body:
-                        out.update(self._stmt_refs(st, lvl))
-
-        if isinstance(s, N.VarDecl):
-            expr(s.init)
-        elif isinstance(s, N.Assign):
-            out.add(s.target.name)
-            expr(s.value)
-        elif isinstance(s, N.If):
-            expr(s.cond)
-            for x in s.then_body + s.else_body:
-                out.update(self._stmt_refs(x, level))
-        elif isinstance(s, N.RepeatTimes):
-            expr(s.count)
-            for x in s.body:
-                out.update(self._stmt_refs(x, level))
-        elif isinstance(s, (N.LoopOverFragments, N.LevelScope, N.RepeatWith,
-                            N.ColorWith)):
-            if isinstance(s, N.ColorWith):
-                expr(s.colors)
-                for c in s.more_colors:
-                    expr(c)
-            if isinstance(s, N.RepeatWith):
-                for c in s.conditions:
-                    expr(c)
-            for x in s.body:
-                out.update(self._stmt_refs(x, level))
-        elif isinstance(s, N.LoopOverField):
-            out.add(s.field.name)
-            expr(s.condition)
-            if s.reduction:
-                out.add(s.reduction[1])
-            for x in s.body:
-                out.update(self._stmt_refs(x, level))
-        elif isinstance(s, (N.Communicate, N.ApplyBC, N.Advance)):
-            out.add(s.field.name)
-        elif isinstance(s, N.SolveLocally):
-            expr(s.relax)
-            for u in s.unknowns:
-                out.add(u.name)
-            for lhs, rhs in s.equations:
-                expr(lhs); expr(rhs)
-        elif isinstance(s, N.SolveMatSys):
-            out.update({s.A.name, s.u.name, s.f.name})
-        elif isinstance(s, N.ExprStmt):
-            expr(s.expr)
-        elif isinstance(s, N.Return):
-            expr(s.value)
-        res = frozenset(out)
-        self._refs_memo[key] = res
-        return res
 
     def _node_interior_mask(self, loc, shape, true_shape=None, dup_layers=None):
         """False on physical-boundary planes along node-localized dims

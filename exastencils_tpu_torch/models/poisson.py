@@ -151,3 +151,10 @@ class PoissonMGSolver:
             print_error=print_error,
             state=state,
         )
+
+    def solve_fused(self, max_its: int = 100, target_res_reduction: float = 1e-10, state=None):
+        """Device-resident solve (reference `solve_fused`,
+        models/poisson.py:197-202): (sol, init_res, cur_res, it) as device
+        values, no line printed."""
+        return self.gen.solve_fused(max_its=max_its, target_res_reduction=target_res_reduction,
+                                    state=state)

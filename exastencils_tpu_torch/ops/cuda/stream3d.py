@@ -32,7 +32,9 @@ with nvcc on first use into build/exastencils_tpu_torch/ at the
 repository root and loaded with ctypes.  A wrapper given CUDA tensors
 launches the kernels (or raises); given CPU tensors it runs the plain
 version; any other device raises.  Each wrapper counts the kernel
-launches it makes in its own `.launches`.  K1-K3 and K5 update `sol` in
+launches it makes in its own `.launches` (runtime/staging
+`count_launch`: a launch captured into a CUDA graph is counted by the
+recording at every replay of that graph).  K1-K3 and K5 update `sol` in
 place and return it, where the JAX version relied on the donated
 iterate: K1-K3's blocks run concurrently on overlapping windows, so their
 kernel writes a second tensor, which the wrapper copies back into `sol`.
@@ -61,6 +63,7 @@ from exastencils_tpu_torch.ops.transfer import (
     prolongation_matrix_1d,
     restriction_matrix_1d,
 )
+from exastencils_tpu_torch.runtime.staging import count_launch
 
 NO_EXCL = (-1,) * 6  # per-dim lo/hi planes excluded from updates; -1 = none
 MAX_TAPS = 3  # transfer taps per dim the kernels take (kMaxTaps)
@@ -531,7 +534,7 @@ def _leg_launches(sol, rhs, A, omega, K, mode, kernels, lo, excl, counted,
             nz, ny, nx, nzc, nyc, nxc, coefs, omega / c0, k, reach, m, chunk, taps, ntaps, tlo,
             excl_c, _is_double(sol), _stream())
         _check(lib, err, "leg_kernel")
-        counted.launches += 1
+        count_launch(counted)
         cur, spare = spare, cur
     if cur is not sol:
         sol.copy_(cur)
@@ -652,7 +655,7 @@ def res_restrict(sol, rhs, A: BoundStencil, r_kernels, r_lo,
         if chunk is None:
             chunk = transfer_chunk(LEG_RESTRICT, sol.shape, coarse_shape, _sm_count(sol.device.index))
         out = _residual_restrict(lib, sol, rhs, A, r_kernels, r_lo, coarse_shape, chunk)
-        res_restrict.launches += 1
+        count_launch(res_restrict)
     return out
 
 
@@ -674,7 +677,7 @@ def prolong_correct(sol, sol_c, p_kernels, p_lo, chunk=None):
         if chunk is None:
             chunk = transfer_chunk(LEG_PROLONG, sol.shape, sol_c.shape, _sm_count(sol.device.index))
         _prolong_correct(lib, sol, sol_c, p_kernels, p_lo, chunk)
-        prolong_correct.launches += 1
+        count_launch(prolong_correct)
     return sol
 
 
@@ -783,7 +786,7 @@ def rbgs_wavefront(sol, rhs, A: BoundStencil, omega: float, K: int, excl=NO_EXCL
         if cuda:
             sol, _ = _cluster_leg_launch(LEG_SMOOTH, sol, rhs, A, omega, k, *_NO_TAPS, cluster,
                                          excl=excl)
-            rbgs_wavefront.launches += 1
+            count_launch(rbgs_wavefront)
         else:
             sol = rbgs_wavefront_plain(sol, rhs, A, omega, k, excl)
         K -= k
@@ -843,7 +846,7 @@ def smooth_res_restrict_wavefront(sol, rhs, A: BoundStencil, omega: float, K: in
     _check_shapes(sol, rhs, coarse_shape)
     out = _cluster_leg_launch(LEG_RESTRICT, sol, rhs, A, omega, K, r_kernels, r_lo, cluster,
                               coarse_shape=tuple(int(n) for n in coarse_shape))
-    smooth_res_restrict_wavefront.launches += 1
+    count_launch(smooth_res_restrict_wavefront)
     return out
 
 
@@ -865,7 +868,7 @@ def prolong_correct_smooth_wavefront(sol, sol_c, rhs, A: BoundStencil, omega: fl
     if cuda:
         sol, _ = _cluster_leg_launch(LEG_PROLONG, sol, rhs, A, omega, k, p_kernels, p_lo,
                                      cluster, sol_c=sol_c)
-        prolong_correct_smooth_wavefront.launches += 1
+        count_launch(prolong_correct_smooth_wavefront)
     else:
         sol = prolong_correct_smooth_wavefront_plain(sol, sol_c, rhs, A, omega, k,
                                                      p_kernels, p_lo)

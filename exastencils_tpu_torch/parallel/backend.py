@@ -2,8 +2,12 @@
 
 Reference: exastencils_tpu/parallel/backend.py (`DenseLevelHandle`,
 `DenseBackend`, :53-137).  Global dense node tensors on one device; halo
-exchange is absent and `wrap` is the identity (PyTorch runs eagerly).
-The fragment-sharded backend is later work.
+exchange is absent.  `wrap` stages on CUDA, as the reference's jax.jit
+does (:132-133): the wrapped function is captured as CUDA graphs per
+binding of its argument tensors and replayed (runtime/staging `Staged`),
+its donated outputs written back into the caller's tensors.  On the CPU
+`wrap` returns the function itself.  The fragment-sharded backend is later
+work.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ from exastencils_tpu_torch.ops.transfer import (
     build_prolong_mats,
     build_restrict_mats,
 )
+from exastencils_tpu_torch.runtime.staging import Staged
 
 
 @dataclass
@@ -112,5 +117,13 @@ class DenseBackend:
                 lambda sol_c: dense_prolong(prolong_op, sol_c, fine.shape),
             )
 
-    def wrap(self, fn, in_kinds=None, out_kinds=None):
-        return fn
+    @property
+    def device(self) -> torch.device:
+        return next(iter(self.handles.values())).device
+
+    def wrap(self, fn, in_kinds=None, out_kinds=None, donate_argnums=()):
+        """`fn` staged on CUDA (output i written back into argument
+        donate_argnums[i]); `fn` itself on the CPU."""
+        if self.device.type != "cuda":
+            return fn
+        return Staged(fn, donate=donate_argnums)

@@ -1,10 +1,14 @@
 """Krylov coarse-grid solvers: conjugate gradients.
 
 Reference: exastencils_tpu/solver/krylov.py (`cg`, :37-82).  The
-reference's `lax.while_loop` becomes a host loop that reads the residual
-norm once per iteration.  The start condition `init_res <= 0` (an
-all-Dirichlet coarsest level exits at once, with no 0/0) and the
-early-exit placement are the reference's.
+reference's `lax.while_loop` becomes a device loop (runtime/staging
+`device_loop`): the iterates, the iteration count and the done flag stay
+on the device, iterations after the exit are masked no-ops, and the host
+reads the done flag once per chunk of iterations, not once per
+iteration.  Inside a staged cycle the loop is a step of the recording.
+The start condition `init_res <= 0` (an all-Dirichlet coarsest level
+exits at once, with no 0/0) and the early-exit placement are the
+reference's.
 """
 
 from __future__ import annotations
@@ -14,11 +18,12 @@ from typing import Callable, NamedTuple
 import torch
 
 from exastencils_tpu_torch.ops.reductions import dot, norm_l2
+from exastencils_tpu_torch.runtime.staging import device_loop
 
 
 class KrylovResult(NamedTuple):
     sol: torch.Tensor
-    iterations: int
+    iterations: torch.Tensor  # 0-d int64, on the device
     residual: torch.Tensor
 
 
@@ -48,18 +53,19 @@ def cg(
     r = bc_res(rhs - A_apply(sol))
     init_res = norm_fn(r)
     p = bc_res(r)
-    cur_res = init_res
-    it = 0
-    done = bool(init_res <= 0.0)
-    while it < max_its and not done:
+
+    def body(c, _it):
+        sol, r, p, cur_res = c
         Ap = A_apply(p)
         alpha = dot_fn(r, r) / dot_fn(p, Ap)
         sol = bc_sol(sol + alpha * p)
         r = bc_res(r - alpha * Ap)
         next_res = norm_fn(r)
-        done = bool(next_res <= res_reduction * init_res)
+        done = next_res <= res_reduction * init_res
         beta = (next_res * next_res) / (cur_res * cur_res)
         p = bc_res(r + beta * p)
-        cur_res = next_res
-        it += 1
+        return [sol, r, p, next_res], done
+
+    (sol, _, _, cur_res), it, _ = device_loop([sol, r, p, init_res], body, max_its,
+                                             done=init_res <= 0.0)
     return KrylovResult(sol, it, cur_res)

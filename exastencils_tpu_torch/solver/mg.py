@@ -1,11 +1,15 @@
 """Geometric multigrid cycles: V, W and F, FAS, and full multigrid.
 
 Reference: exastencils_tpu/solver/mg.py (`MGLevelOps`, `Multigrid.cycle`,
-`fmg`, `residual`, `res_norm`, `solve`).  PyTorch runs eagerly, so the
-level hierarchy is walked in Python on every cycle; `solve_jit` has no
-counterpart yet.  The dense backend has no halo exchange, so the
-reference's `exchange` calls are absent, and every level above the
-coarsest has `restrict_fn`/`prolong_fn`.
+`fmg`, `residual`, `res_norm`, `solve`, `solve_jit`).  The reference jits
+the cycle and the residual norm; here, on CUDA, `solve` replays them as
+captured CUDA graphs (runtime/staging `Staged`), and `solve_jit` keeps
+the whole solve on the device, as a device loop over cycles whose only
+host read per cycle is its exit test (the coarse CG inside the cycle is a
+device loop of its own).  The level hierarchy is walked in Python only
+when a cycle runs eagerly or is captured.  The dense backend has no halo
+exchange, so the reference's `exchange` calls are absent, and every level
+above the coarsest has `restrict_fn`/`prolong_fn`.
 
 In-place contract: where a level has kernels (ops/cuda), the cycle may
 update the iterate in place (the reference donated it); callers that
@@ -22,6 +26,7 @@ from typing import Callable, Dict, Optional
 import torch
 
 from exastencils_tpu_torch.ops.reductions import dot, norm_l2
+from exastencils_tpu_torch.runtime.staging import Staged, device_loop
 
 
 def _ident(x):
@@ -177,6 +182,16 @@ class Multigrid:
         level = self.max_level if level is None else level
         return self.levels[level].norm_fn(self.residual(level, sol, rhs))
 
+    def staged(self, name: str):
+        """The staged (captured, replayed) `cycle` or `res_norm` of this
+        hierarchy, made on first use; the cycle's iterate is written back
+        into the caller's tensor."""
+        cache = self.__dict__.setdefault("_staged", {})
+        if name not in cache:
+            cache[name] = Staged(self.cycle, donate=(0,)) if name == "cycle" \
+                else Staged(getattr(self, name))
+        return cache[name]
+
     def solve(
         self,
         sol,
@@ -184,17 +199,44 @@ class Multigrid:
         target_res_reduction: float = 1e-5,
         max_its: int = 128,
         callback: Callable = None,
+        jit: bool = True,
+        cycle_fn: Callable = None,
+        res_norm_fn: Callable = None,
     ):
         """Host-driven solve loop of Solve@finest: initial residual, then
         cycle until `curRes <= eps * initRes` or `max_its`, with
-        `callback(it, sol, cur_res)` after every cycle."""
-        init_res = self.res_norm(sol, rhs)
+        `callback(it, sol, cur_res)` after every cycle.  With `jit` and
+        CUDA tensors the cycle and the residual norm replay captured
+        graphs (the reference's jax.jit); `cycle_fn`/`res_norm_fn`
+        replace them."""
+        staged = jit and sol.is_cuda
+        cycle = cycle_fn or (self.staged("cycle") if staged else self.cycle)
+        res_norm = res_norm_fn or (self.staged("res_norm") if staged else self.res_norm)
+        init_res = res_norm(sol, rhs)
         cur_res = init_res
         it = 0
         while it < max_its and not bool(cur_res <= target_res_reduction * init_res):
             it += 1
-            sol = self.cycle(sol, rhs)
-            cur_res = self.res_norm(sol, rhs)
+            sol = cycle(sol, rhs)
+            cur_res = res_norm(sol, rhs)
             if callback is not None:
                 callback(it, sol, cur_res)
         return sol, init_res, cur_res, it
+
+    def solve_jit(self, sol, rhs, target_res_reduction: float = 1e-5, max_its: int = 128):
+        """Device-resident solve: the reference's `lax.while_loop` over
+        cycles as a device loop.  Returns (sol, init_res, cur_res, it),
+        all on the device; the host reads the loop's done flag once per
+        cycle and nothing else (the coarse solve's own loop aside).  The
+        cycle updates `sol` in place where kernels run, as in `cycle`."""
+        init_res = self.res_norm(sol, rhs)
+
+        def body(c, _it):
+            s, _ = c
+            s = self.cycle(s, rhs)
+            cur = self.res_norm(s, rhs)
+            return [s, cur], torch.logical_not(cur > target_res_reduction * init_res)
+
+        done = torch.logical_not(init_res > target_res_reduction * init_res)
+        (sol, cur), it, _ = device_loop([sol, init_res], body, max_its, done=done, masked=False)
+        return sol, init_res, cur, it

@@ -1,7 +1,7 @@
 """Solver synthesis: the L3 `generate solver for u in uEq` expansion.
 
 Reference: exastencils_tpu/solver/synthesis.py (`Equation`,
-`GeneratedSolver.init_state/solve`, the dense branch of
+`GeneratedSolver.init_state/solve/solve_fused`, the dense branch of
 `generate_solver`).  Kernel selection keeps the reference's conditions
 (:384-443) with `tpu_use_pallas` read as "use the hand-written kernels",
 so one Knowledge selects the same kernel mode in both packages: on a 3D
@@ -98,8 +98,10 @@ class GeneratedSolver:
     def __post_init__(self):
         b = self.backend
         # the cycle updates the iterate in place where kernels run (the
-        # reference donated it): clone an iterate before reusing it
-        self._cycle = b.wrap(self.mg.cycle, ("field", "field"), "field")
+        # reference donated it): clone an iterate before reusing it.  On
+        # CUDA the wrapped functions replay captured graphs, the staged
+        # cycle writing its result back into the caller's iterate
+        self._cycle = b.wrap(self.mg.cycle, ("field", "field"), "field", donate_argnums=(0,))
         self._res_norm = b.wrap(self.mg.res_norm, ("field", "field"), "scalar")
         if self.knowledge.solver_useFMG:
             self._fmg = b.wrap(
@@ -151,8 +153,29 @@ class GeneratedSolver:
             emit(fmt(cur_res))
 
         emit(fmt(self._res_norm(sol, rhs)))
-        sol, init_res, cur_res, it = self.mg.solve(sol, rhs, eps, max_its, callback)
+        sol, init_res, cur_res, it = self.mg.solve(
+            sol, rhs, eps, max_its, callback,
+            cycle_fn=self._cycle, res_norm_fn=self._res_norm)
         return sol, lines, float(init_res), float(cur_res), it
+
+    def solve_fused(self, max_its=None, target_res_reduction=None, state=None):
+        """The whole solve on the device (reference `solve_fused`,
+        synthesis.py:179-189): `Multigrid.solve_jit` through the backend's
+        `wrap`, so on CUDA one recording of captured graphs replayed per
+        call.  `state` is an initial (sol, rhs), default init_state(); sol
+        is updated in place.  Returns (sol, init_res, cur_res, it) as
+        device values; no line is printed."""
+        k = self.knowledge
+        max_its = k.solver_maxNumIts if max_its is None else max_its
+        eps = k.solver_targetResReduction if target_res_reduction is None else target_res_reduction
+        sol, rhs = self.init_state() if state is None else state
+        fused = self.__dict__.setdefault("_fused", {})
+        if (eps, max_its) not in fused:
+            fused[(eps, max_its)] = self.backend.wrap(
+                lambda s, r: self.mg.solve_jit(s, r, eps, max_its),
+                ("field", "field"), ("field", "scalar", "scalar", "scalar"),
+                donate_argnums=(0,))
+        return fused[(eps, max_its)](sol, rhs)
 
 
 def generate_solver(

@@ -558,7 +558,9 @@ def test_dsl_cycle_launches_the_leg_kernels(cuda, monkeypatch, v1):
     the whole-leg kernels, K1/K2 leg_launches per level and leg (f64, K=3:
     two, as one launch holds K2 2 and K1 1 iterations in f64), or with
     EXA_STREAM_V1=1 K7/K8 one launch per level and leg, and a K6 launch
-    each for the iterations they do not hold in f64."""
+    each for the iterations they do not hold in f64.  The cycle is staged:
+    the first call captures it, the counted one is a replay, whose graphs
+    count the launches captured in them."""
     if v1:
         monkeypatch.setenv("EXA_STREAM_V1", "1")
     kernels = (s3.smooth_res_restrict, s3.prolong_correct_smooth, s3.rbgs_fused,
@@ -567,6 +569,9 @@ def test_dsl_cycle_launches_the_leg_kernels(cuda, monkeypatch, v1):
     ex, _ = dsl_bench("cuda")
     finest = ex.hi
     ex.call_function(ex.functions[("InitF", finest)], finest, [])
+    captures = ex.stage_stats.captures
+    ex.call_function(ex.functions[("MGCycle", finest)], finest, [])
+    assert ex.jit_functions and ex.stage_stats.captures == captures + 1
     n0 = [fn.launches for fn in kernels]
     ex.call_function(ex.functions[("MGCycle", finest)], finest, [])
     torch.cuda.synchronize()
@@ -578,11 +583,189 @@ def test_dsl_cycle_launches_the_leg_kernels(cuda, monkeypatch, v1):
 
 
 def test_dsl_profile_reports_every_level(cuda):
-    """The DSL cycle breakdown tool at maxLevel 6: a time for every
-    MGCycle level, device activity in the trace, cycle times by block."""
+    """The DSL cycle breakdown tool at maxLevel 6: for the eager executor a
+    time for every MGCycle level, summing to the cycle time of the same
+    cycles; for the staged one its graphs and host reads; device activity
+    in the trace and cycle times by block for both."""
     from exastencils_tpu_torch.runtime import dsl_profile
 
-    r = dsl_profile.profile_variant(6, True, 2)
+    r = dsl_profile.profile_variant(6, "eager", 2)
     assert sorted(r["exclusive_ms_by_level"]) == list(range(1, 7))
-    assert len(r["cycle_ms_by_block"]) == 4 and min(r["cycle_ms_by_block"]) > 0
-    assert r["device_busy_ms_per_cycle"] > 0 and r["device_kernels_per_cycle"] > 0
+    assert abs(r["levels_sum_ms"] - r["levels_cycle_ms"]) <= 0.01
+    s = dsl_profile.profile_variant(6, "staged", 2)
+    assert s["staging"]["graphs"] > 0 and s["staging"]["unstaged"] == 0
+    assert s["staging"]["host_reads_per_cycle"] == 1.0  # the coarsest CG's exit
+    for v in (r, s):
+        assert len(v["cycle_ms_by_block"]) == 4 and min(v["cycle_ms_by_block"]) > 0
+        assert v["device_busy_ms_per_cycle"] > 0 and v["device_kernels_per_cycle"] > 0
+
+
+# ----------------------------------------------------------------------
+# staged execution: CUDA graphs (runtime/staging, dsl/interp_staging)
+# ----------------------------------------------------------------------
+
+STAGED_CYCLES = {
+    "rbgs": ({}, {}, False),
+    "jacobi": ({}, {"smoother": "Jac"}, False),
+    "fas": ({"solver_useFAS": True}, {}, False),
+    "v1_rbgs": ({}, {}, True),
+    "v1_fas": ({"solver_useFAS": True}, {}, True),
+}
+
+
+def staged_solver(name, monkeypatch, dtype=torch.float32, max_level=5):
+    knowledge_kw, model_kw, v1 = STAGED_CYCLES[name]
+    if v1:
+        monkeypatch.setenv("EXA_STREAM_V1", "1")
+    f64 = dtype == torch.float64
+    k = Knowledge(dimensionality=3, minLevel=0, maxLevel=max_level, useDblPrecision=f64,
+                  tpu_compute_dtype="" if f64 else "float32", **knowledge_kw).update()
+    return PoissonMGSolver(k, device="cuda", **model_kw)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("name", sorted(STAGED_CYCLES))
+def test_staged_cycle_equals_eager_bitwise(cuda, monkeypatch, name, dtype):
+    """The wrapped cycle replays CUDA graphs (captured after a warm-up with
+    sync debug "error"): bit for bit the eager cycle, twice in a row, the
+    iterate written back in place, the kernels counted per replay."""
+    from exastencils_tpu_torch.runtime.staging import Staged
+
+    ts = staged_solver(name, monkeypatch, dtype)
+    assert isinstance(ts._cycle, Staged)
+    sol, rhs = ts.init_state()
+    e1 = ts.mg.cycle(sol.clone(), rhs).clone()
+    e2 = ts.mg.cycle(e1.clone(), rhs).clone()
+    x = sol.clone()
+    assert ts._cycle(x, rhs) is x and torch.equal(x, e1)
+    counters = [getattr(s3, fn) for fn in (
+        "smooth_res_restrict", "prolong_correct_smooth", "rbgs_fused", "res_restrict",
+        "prolong_correct", "rbgs_wavefront", "smooth_res_restrict_wavefront",
+        "prolong_correct_smooth_wavefront")]
+    n0 = [c.launches for c in counters]
+    assert ts._cycle(x, rhs) is x and torch.equal(x, e2)
+    assert sum(c.launches - k for c, k in zip(counters, n0)) > 0
+    st = ts._cycle.stats
+    assert st.captures == 1 and st.replays == 2 and st.graphs >= 3 and st.loops == 1
+    assert st.pool_bytes > 0
+
+
+def test_staged_capture_refuses_a_host_read(cuda):
+    """A host read inside a staged function raises before capture (the
+    warm-up runs with host reads forbidden and sync debug "error")."""
+    from exastencils_tpu_torch.runtime import staging
+
+    x = torch.ones(8, device="cuda")
+    with pytest.raises(RuntimeError):
+        staging.Staged(lambda a: a * float(a.sum()))(x)
+    assert torch.cuda.get_sync_debug_mode() == 0
+
+
+def test_held_iterate_is_unchanged_by_the_next_replay(cuda, monkeypatch):
+    """A cycle's result held by the caller is not touched by a replay on
+    another iterate, and a residual norm held from one replay is not
+    overwritten by the next (results never stay in a graph pool)."""
+    ts = staged_solver("rbgs", monkeypatch)
+    sol, rhs = ts.init_state()
+    a = ts._cycle(sol.clone(), rhs)
+    held = a.clone()
+    r_a = ts._res_norm(a, rhs)
+    r_held = r_a.clone()
+    b = ts._cycle(sol.clone(), rhs)
+    ts._cycle(b, rhs)
+    ts._res_norm(b, rhs)
+    r_b = ts._res_norm(b, rhs)
+    assert torch.equal(a, held) and torch.equal(r_a, r_held)
+    assert not torch.equal(r_b, r_a)
+
+
+def test_kernel_error_inside_a_staged_run_propagates(cuda, monkeypatch):
+    ts = staged_solver("rbgs", monkeypatch)
+    sol, rhs = ts.init_state()
+
+    def boom(*args, **kwargs):
+        raise RuntimeError("leg kernel failed")
+
+    monkeypatch.setattr(ts.mg.levels[5], "down_leg_fn", boom)
+    with pytest.raises(RuntimeError, match="leg kernel failed"):
+        ts._cycle(sol.clone(), rhs)
+
+
+def test_solve_fused_matches_solve_on_cuda(cuda, monkeypatch):
+    """maxLevel 6 f64: the device-resident solve (one recording, a device
+    loop over cycles) takes the staged solve's cycles to the same final
+    residual and iterate, bit for bit."""
+    a = staged_solver("rbgs", monkeypatch, torch.float64, max_level=6)
+    sol, _, init, cur, it = a.solve(max_its=100, target_res_reduction=1e-10)
+    b = staged_solver("rbgs", monkeypatch, torch.float64, max_level=6)
+    f_sol, f_init, f_cur, f_it = b.solve_fused(max_its=100, target_res_reduction=1e-10)
+    assert int(f_it) == it and float(f_cur) == cur and float(f_init) == init
+    assert torch.equal(f_sol, sol)
+
+
+@pytest.mark.parametrize("v1", [False, True])
+def test_staged_dsl_equals_eager_bitwise(cuda, monkeypatch, v1):
+    """The bench program at maxLevel 6 float32, staged (the default on
+    CUDA) against jit_functions=False: every field and line bit for bit,
+    MGCycle@finest one staged run with no run left eager."""
+    from exastencils_tpu_torch.dsl.interpreter import L4Executable
+    from exastencils_tpu_torch.dsl.parser import parse_l4
+
+    if v1:
+        monkeypatch.setenv("EXA_STREAM_V1", "1")
+    out = {}
+    for jit in (None, False):
+        k = Knowledge(dimensionality=3, minLevel=1, maxLevel=6, useDblPrecision=False,
+                      tpu_compute_dtype="float32", tpu_shard_dsl=False).update()
+        lines = []
+        ex = L4Executable(parse_l4(BENCH_EXA4), k, device="cuda", out=lines.append,
+                          jit_functions=jit)
+        ex.run()
+        out[jit] = (ex, lines)
+    (staged, l1), (eager, l0) = out[None], out[False]
+    assert staged.jit_functions and not eager.jit_functions
+    assert l1 == l0
+    for key, t in eager.state.items():
+        assert torch.equal(staged.state[key], t), key
+    st = staged.staging_stats()
+    assert st["unstaged"] == 0 and st["graphs"] > 0 and st["loops"] >= 1
+
+
+def traced_float_bits(op, device):
+    """A Python float and the 0-d float64 tensor a staged run traces it as
+    (marked `py_float`) give the same bits and type against a float32 and
+    a float64 field, a float32 0-d value (a reduction) and a traced int,
+    on either side of the operator; two traced floats compute in float64,
+    as Python does."""
+    from exastencils_tpu_torch.dsl.interp_base import _apply_binop, is_py_float, py_float
+
+    rng = np.random.default_rng(5)
+    f32 = torch.from_numpy(rng.standard_normal((7, 9)).astype(np.float32)).to(device)
+    operands = (f32, f32.double(), f32.sum(), torch.full((), 7, dtype=torch.int64, device=device))
+    for v in (0.8, 1.0 / 3.0, 1e-3, np.pi, -2.5e7, 3.0000001):
+        t = py_float(torch.full((), v, dtype=torch.float64, device=device))
+        for x in operands:
+            for lhs, rhs, tl, tr in ((x, v, x, t), (v, x, t, x)):
+                got = _apply_binop(op, tl, tr)
+                if x.dtype == torch.int64:  # a traced int: Python's float arithmetic
+                    py = {"+": float.__add__, "-": float.__sub__, "*": float.__mul__,
+                          "/": float.__truediv__, "<=": float.__le__, ">": float.__gt__}[op]
+                    want = py(7.0, float(v)) if lhs is x else py(float(v), 7.0)
+                    assert got.item() == want, (op, v)
+                    continue
+                want = _apply_binop(op, lhs, rhs)
+                assert got.dtype == want.dtype, (op, v, x.dtype)
+                assert torch.equal(got.cpu(), want.cpu()), (op, v, x.dtype, x.dim())
+    a, b = 0.1, 0.7
+    ta, tb = (py_float(torch.full((), u, dtype=torch.float64, device=device)) for u in (a, b))
+    got = _apply_binop(op, ta, tb)
+    assert got.item() == {"+": a + b, "-": a - b, "*": a * b, "/": a / b,
+                          "<=": a <= b, ">": a > b}[op]
+    assert is_py_float(got) == (op not in ("<=", ">"))
+
+
+@pytest.mark.parametrize("op", ["+", "-", "*", "/", "<=", ">"])
+def test_traced_float_gives_the_python_float_bits_on_cuda(cuda, op):
+    """On the card a division by a Python float is a product with its
+    reciprocal: the traced float gives the same bits there too."""
+    traced_float_bits(op, "cuda")
