@@ -58,8 +58,25 @@ bit for bit the eager one:
                the DSL IO builtins through the CLI;
   perf_estimate  performance_printEstimation's lines at detect_chip()'s
                bandwidth;
-and compares the two schedules in one process (ab_schedule: K7/K1, K8/K2,
-v1_path/main_path).  The `staging` line sums up the graphs, device loops,
+compares the two schedules in one process (ab_schedule: K7/K1, K8/K2,
+v1_path/main_path), and runs the sharded backend (parallel/), its ranks
+spawned on the one card:
+  sharded_kernels  the ghosted K1/K2/K3 of one rank's halo-extended
+               fragment against their plain versions, for the excl planes
+               of each rank of a 2x2x2 mesh, at the fragment of 513^3
+               (273^3, ghost 8; timed) and at small fragments (unequal
+               cells, an unsharded dim, an odd ghost width);
+  sharded_path main_path's solver on 2x2x2 ranks over gloo (the halo
+               slabs through pinned host buffers, fields and kernels on
+               the card): K1/K2/K3 launches per rank and cycle, cycle ms
+               on rank 0 (CUDA events between barriers) and the share of
+               a cycle spent in the exchange, the first cycle's residual
+               against the dense one, and a float64 level-6 solve whose
+               lines must be the dense port's;
+  sharded_world1_nccl  one rank over NCCL on a 1x1x1 mesh (excl planes on
+               all six sides): main_path's problem prints the dense lines;
+  sharded_dryrun  parallel/dryrun.py at 4 ranks.
+The `staging` line sums up the graphs, device loops,
 capture seconds and graph-pool bytes of every staged path.  Every phase
 prints one line; any failure raises and exits non-zero.  The third-to-last line
 is the kernel table as JSON, then the card's name and power limit, the
@@ -222,6 +239,96 @@ def compare_legs(level, K, dtype, timed=False, shape=None, excl=None):
         phase("leg_times", level=level, K=K, **{f"{k}_{f}": f"{v[f]:.4f}" for k, v in out.items()
                                                  for f in ("ms", "plain_ms", "composition_ms")})
     return out
+
+
+# The ghosted K1/K2/K3 of the sharded path (ops/cuda make_sharded_fused_*,
+# the fragment of one rank, halo-extended): (local cells, mesh shape,
+# ghost width, K).  A 2x2x2 fragment of 513^3 at V(3,3); the smallest
+# fragment the legs admit at K = 1; unequal cells; x unsharded (a 2x2x1
+# mesh: ghost 0 in x, the array edge its boundary); an odd ghost width
+# (comm_ghostWidth 9: the aligned restriction taps' lo shifted by one).
+SHARDED_KERNEL_CASES = (
+    ((256, 256, 256), (2, 2, 2), 8, 3),
+    ((2, 2, 2), (2, 2, 2), 4, 1),
+    ((6, 10, 14), (2, 2, 2), 8, 3),
+    ((10, 6, 32), (2, 2, 1), 8, 3),
+    ((6, 6, 6), (2, 2, 2), 9, 3),
+)
+
+
+def rank_topologies(dims, ghost):
+    """The ShardTopology of every rank of a mesh of shape `dims`
+    (host-side: no process group)."""
+    from exastencils_tpu_torch.parallel.mesh import AXIS_NAMES, DomainMesh
+    from exastencils_tpu_torch.parallel.topology import ShardTopology
+
+    return [ShardTopology(DomainMesh(dims, rank=r), dims, AXIS_NAMES, ghost)
+            for r in range(int(np.prod(dims)))]
+
+
+def compare_sharded_kernels(cells, dims, g, K, dtype, timed=False):
+    """K1, K2 and K3 on one rank's halo-extended fragment against their
+    plain versions, for the excl planes (ops/cuda._excl_planes) of each
+    rank of a mesh of shape `dims` with ghost width `g`: K1's coarse
+    geometry shifted by the ghost width, its y/x coarse ghost rows zero;
+    K2's prolongation over the whole fragment.  The RBGS (K3, K1's sol)
+    bitwise; K1's coarse rhs and K2 within TOL of the largest value.
+    Returns {kernel: max abs error} (and with `timed`, the first rank's
+    ms)."""
+    from exastencils_tpu_torch.core.stencil import node_prolongation, node_restriction
+    from exastencils_tpu_torch.ops.cuda import _excl_planes
+    from exastencils_tpu_torch.ops.cuda import stream3d as s3
+    from exastencils_tpu_torch.ops.transfer import separable_kernels
+
+    topos = rank_topologies(dims, g)
+    ghost = topos[0].ghosts
+    shape, cshape = topos[0].local_shape(cells), topos[0].local_shape(tuple(n // 2 for n in cells))
+    A, sol, rhs, sol_c, _ = star_inputs(shape, cshape, dtype, seed=sum(cells) + K)
+    R, P = node_restriction(3), node_prolongation(3)
+    rk, pk = separable_kernels(R), separable_kernels(P)
+    tol, worst, out = TOL[dtype], {"K1": 0.0, "K2": 0.0, "K3": 0.0}, {}
+    for topo in topos:
+        coords, excl = topo.mesh.coords, _excl_planes(topo, cells)
+        n0 = launch_counts()
+        s_got, rc_got = s3.smooth_res_restrict(sol.clone(), rhs, A, OMEGA, K, rk, R.lo, cshape,
+                                               excl, ghost=ghost)
+        u_got = s3.prolong_correct_smooth(sol.clone(), sol_c, rhs, A, OMEGA, K, pk, P.lo, excl,
+                                          ghost=ghost)
+        m_got = s3.rbgs_fused(sol.clone(), rhs, A, OMEGA, K, excl)
+        torch.cuda.synchronize()
+        n1 = launch_counts()
+        s_ref, rc_ref = s3.smooth_res_restrict_plain(sol, rhs, A, OMEGA, K, rk, R.lo, cshape, excl,
+                                                     ghost=ghost)
+        u_ref = s3.prolong_correct_smooth_plain(sol, sol_c, rhs, A, OMEGA, K, pk, P.lo, excl,
+                                                ghost=ghost)
+        m_ref = s3.rbgs_fused_plain(sol, rhs, A, OMEGA, K, excl)
+        e_rc, e_u = rel_err(rc_got, rc_ref), rel_err(u_got, u_ref)
+        bitwise = bool(torch.equal(s_got, s_ref)) and bool(torch.equal(m_got, m_ref))
+        # the y/x coarse ghost layers, which the reference leaves zero
+        ghosts_zero = all(not rc_got.narrow(d, start, ghost[d]).any()
+                          for d in (1, 2) for start in (0, cshape[d] - ghost[d]))
+        launched = all(n1[kk] > n0[kk] for kk in ("K1", "K2", "K3"))
+        worst["K1"] = max(worst["K1"], e_rc[0], rel_err(s_got, s_ref)[0])
+        worst["K2"] = max(worst["K2"], e_u[0])
+        worst["K3"] = max(worst["K3"], rel_err(m_got, m_ref)[0])
+        if not (bitwise and e_rc[1] <= tol and e_u[1] <= tol and ghosts_zero and launched):
+            raise AssertionError(
+                f"sharded kernels: cells {cells} ghost {ghost} K {K} {dtype} rank {coords}: "
+                f"rbgs bitwise {bitwise}, K1 coarse {e_rc[1]:.3e}, K2 {e_u[1]:.3e}, "
+                f"ghost rows zero {ghosts_zero}, launched {launched}")
+        if timed and topo is topos[0]:
+            s = sol.clone()
+            out["K1_ms"] = cuda_ms(lambda: s3.smooth_res_restrict(
+                s, rhs, A, OMEGA, K, rk, R.lo, cshape, excl, ghost=ghost), 5)
+            out["K2_ms"] = cuda_ms(lambda: s3.prolong_correct_smooth(
+                s, sol_c, rhs, A, OMEGA, K, pk, P.lo, excl, ghost=ghost), 5)
+            out["K3_ms"] = cuda_ms(lambda: s3.rbgs_fused(s, rhs, A, OMEGA, K, excl), 5)
+    phase("sharded_kernels", cells=cells, mesh="x".join(map(str, dims)), ghost=ghost,
+          shape=shape, coarse=cshape, K=K, dtype=str(dtype).split(".")[1], ranks=len(topos),
+          rbgs_bitwise=True,
+          **{f"{kk}_max_abs": f"{v:.3e}" for kk, v in worst.items()}, tol=tol,
+          **{kk: f"{v:.4f}" for kk, v in out.items()})
+    return {**worst, **out}
 
 
 def leg_level_times(level, K):
@@ -1527,6 +1634,210 @@ def perf_estimate():
     phase("perf_estimate", chip=chip, bandwidth_B_s=HBM_BANDWIDTH[chip], lines=len(lines))
 
 
+# The sharded path (parallel/): ranks spawned on the one card
+SHARD_DIMS = (2, 2, 2)
+SHARDED_CYCLES = 5  # timed cycles of sharded_path
+SHARDED_LINES_LEVEL, SHARDED_LINES_CYCLES = 6, 10  # the f64 solve whose lines are compared
+WORLD1_CYCLES = 5  # cycles of the one-rank NCCL solve whose lines are compared
+# sharded_path at 513^3 over 2x2x2, per rank and cycle: K1/K2 on levels
+# 9-7 (their coarse levels sharded), K3 pre- and post-smoothing on level 6
+# (level 5 is replicated below tpu_coarse_replicate_threshold's 32 cells
+# per shard), one launch each at K = 3 in float32
+SHARDED_LAUNCHES = {"K1": 3, "K2": 3, "K3": 2}
+
+
+def sharded_solver(device, dims, **knowledge_kw):
+    """This rank's PoissonMGSolver V(3,3) on a mesh of `dims` ranks, with
+    the kernels."""
+    from exastencils_tpu_torch.models.poisson import PoissonMGSolver
+    from exastencils_tpu_torch.parallel.mesh import make_domain_mesh
+
+    k = poisson_knowledge(tpu_use_pallas=True, **knowledge_kw)
+    return PoissonMGSolver(k, device, omega=OMEGA, n_pre=K_MAIN, n_post=K_MAIN,
+                           mesh=make_domain_mesh(dims), shard_dims=dims)
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def sharded_path_rank(device, level, lines_level):
+    """One rank of sharded_path: the 513^3 float32 V(3,3) solver on its
+    2x2x2 fragment.  One cycle with the launch counters set to 0 just
+    before and read just after; SHARDED_CYCLES cycles timed on rank 0 with
+    CUDA events between barriers, then again with the exchange timed (the
+    card synchronised around every exchange); then the float64 level-6
+    solve's lines."""
+    import torch.distributed as dist
+
+    solver = sharded_solver(device, SHARD_DIMS, maxLevel=level)
+    topo, gen = solver.backend.topo, solver.gen
+    sol, rhs = gen.init_state()
+    r0 = float(gen._res_norm(sol, rhs))
+    launch_counts(reset=True)
+    sol = gen._cycle(sol, rhs)
+    _sync(device)
+    launches = {kk: v for kk, v in launch_counts().items() if v}
+    r1 = float(gen._res_norm(sol, rhs))
+    shape_ok = tuple(sol.shape) == tuple(solver.backend.handle(level).work_shape)
+    finite = bool(torch.isfinite(sol).all())
+
+    def timed_cycles():
+        """(device ms per cycle from CUDA events, or host ms on the CPU;
+        host seconds of all cycles)."""
+        nonlocal sol
+        dist.barrier()
+        _sync(device)
+        cuda = device.type == "cuda"
+        if cuda:
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+        t0 = time.perf_counter()
+        for _ in range(SHARDED_CYCLES):
+            sol = gen._cycle(sol, rhs)
+        if cuda:
+            end.record()
+        _sync(device)
+        wall = time.perf_counter() - t0
+        dist.barrier()
+        ms = start.elapsed_time(end) if cuda else wall * 1e3
+        return ms / SHARDED_CYCLES, wall
+
+    cycle_ms, _ = timed_cycles()
+    calls0, bytes0 = topo.stats.calls, topo.stats.bytes_sent
+    topo.stats.timed, topo.stats.seconds = True, 0.0
+    timed_ms, wall = timed_cycles()
+    topo.stats.timed = False
+    exchange = {"share": topo.stats.seconds / wall, "timed_cycle_ms": timed_ms,
+                "per_cycle": (topo.stats.calls - calls0) / SHARDED_CYCLES,
+                "bytes_per_cycle": (topo.stats.bytes_sent - bytes0) / SHARDED_CYCLES}
+    del sol, rhs, solver, gen
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    small = sharded_solver(device, SHARD_DIMS, maxLevel=lines_level,
+                           useDblPrecision=True, tpu_compute_dtype="float64")
+    lines = small.solve(max_its=SHARDED_LINES_CYCLES, target_res_reduction=1e-10)[1]
+    return {"rank": dist.get_rank(), "coords": topo.mesh.coords, "transport": topo.mesh.backend,
+            "r0": r0, "r1": r1, "launches": launches, "cycle_ms": cycle_ms,
+            "exchange": exchange, "lines": lines, "shape_ok": shape_ok, "finite": finite,
+            "replicated": sorted(small.backend.replicated),
+            "jax": sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "exastencils_tpu"))}
+
+
+def world1_rank(device, level):
+    """The one rank of sharded_world1_nccl: the 513^3 float32 solver on a
+    1x1x1 mesh (no ghosts; excl planes on all six sides; NCCL all-reduces)
+    solving WORLD1_CYCLES cycles, its launches per cycle and its lines."""
+    import torch.distributed as dist
+
+    solver = sharded_solver(device, (1, 1, 1), maxLevel=level)
+    sol, rhs = solver.gen.init_state()
+    launch_counts(reset=True)
+    solver.gen._cycle(sol.clone(), rhs)
+    _sync(device)
+    launches = launch_counts()
+    lines = solver.solve(max_its=WORLD1_CYCLES, target_res_reduction=1e-10)[1]
+    return {"transport": dist.get_backend(), "launches": launches, "lines": lines}
+
+
+def sharded_phases(device="cuda", kernel_cases=SHARDED_KERNEL_CASES):
+    """sharded_kernels, sharded_path, sharded_world1_nccl and
+    sharded_dryrun (see the module docstring), the ranks on `device`.
+    Returns the ghosted kernels' times at the 2x2x2 fragment of 513^3 and
+    rank 0's sharded_path results."""
+    import gc
+
+    from exastencils_tpu_torch.models.poisson import PoissonMGSolver
+    from exastencils_tpu_torch.parallel.dryrun import run_dryrun
+    from exastencils_tpu_torch.parallel.mesh import run_ranks, transport
+
+    t0 = time.perf_counter()
+    frag = {}
+    for i, (cells, dims, g, K) in enumerate(kernel_cases):
+        for dtype in (torch.float32, torch.float64):
+            out = compare_sharded_kernels(cells, dims, g, K, dtype,
+                                          timed=i == 0 and dtype == torch.float32)
+            if i == 0 and dtype == torch.float32:
+                frag = out
+    phase("sharded_kernels_done", cases=len(kernel_cases), dtypes=2,
+          seconds=f"{time.perf_counter() - t0:.1f}")
+
+    # the dense references on the card: main_path's cycle (eager; the
+    # staged one is bitwise it) and the level-6 float64 solve's lines
+    dense = PoissonMGSolver(poisson_knowledge(tpu_use_pallas=True), device, omega=OMEGA,
+                            n_pre=K_MAIN, n_post=K_MAIN)
+    sol, rhs = dense.gen.init_state()
+    dense_r1 = float(dense.gen._res_norm(dense.mg.cycle(sol, rhs), rhs))
+    dense_lines = {}
+    for tag, kw, cycles in (("l6_f64", dict(maxLevel=SHARDED_LINES_LEVEL, useDblPrecision=True,
+                                            tpu_compute_dtype="float64"), SHARDED_LINES_CYCLES),
+                            ("main", {}, WORLD1_CYCLES)):
+        dense_lines[tag] = PoissonMGSolver(poisson_knowledge(tpu_use_pallas=True, **kw), device,
+                                           omega=OMEGA, n_pre=K_MAIN, n_post=K_MAIN).solve(
+            max_its=cycles, target_res_reduction=1e-10)[1]
+    del dense, sol, rhs
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    n_ranks = int(np.prod(SHARD_DIMS))
+    t1 = time.perf_counter()
+    ranks = run_ranks(sharded_path_rank, n_ranks, MAIN_LEVEL, SHARDED_LINES_LEVEL, device=device)
+    seconds = time.perf_counter() - t1
+    first = ranks[0]
+    r1s = {r["r1"] for r in ranks}
+    rel = abs(first["r1"] - dense_r1) / dense_r1
+    phase("sharded_path", ranks=n_ranks, mesh="x".join(map(str, SHARD_DIMS)), level=MAIN_LEVEL,
+          transport=first["transport"],
+          halo_route="pinned host buffers" if first["transport"] == "gloo" else "device",
+          per_rank_launches_per_cycle=first["launches"], expected=SHARDED_LAUNCHES,
+          cycle_ms_rank0=f"{first['cycle_ms']:.3f}",
+          exchange_share=f"{first['exchange']['share']:.4f}",
+          exchange_timed_cycle_ms=f"{first['exchange']['timed_cycle_ms']:.3f}",
+          exchanges_per_cycle=first["exchange"]["per_cycle"],
+          exchange_bytes_per_cycle=int(first["exchange"]["bytes_per_cycle"]),
+          residual_drop=f"{first['r1'] / first['r0']:.4e}", dense_r1=f"{dense_r1:.6e}",
+          r1=f"{first['r1']:.6e}", rel_to_dense=f"{rel:.3e}", spawn_and_run_s=f"{seconds:.1f}")
+    want = SHARDED_LAUNCHES if device == "cuda" else {}  # the plain versions count none
+    for r in ranks:
+        if r["launches"] != want:
+            raise AssertionError(f"sharded_path rank {r['rank']}: launches {r['launches']}, "
+                                 f"expected {want}")
+        if not (r["shape_ok"] and r["finite"]) or r["jax"]:
+            raise AssertionError(f"sharded_path rank {r['rank']}: shape ok {r['shape_ok']}, "
+                                 f"finite {r['finite']}, imported {r['jax']}")
+        if r["lines"] != dense_lines["l6_f64"]:
+            raise AssertionError(f"sharded_path rank {r['rank']}: level-6 f64 lines differ:\n"
+                                 f"{r['lines']}\n{dense_lines['l6_f64']}")
+    if len(r1s) != 1 or not first["r1"] < 0.1 * first["r0"] or not rel <= 1e-5:
+        raise AssertionError(f"sharded_path: residuals {sorted(r1s)} from {first['r0']}, "
+                             f"dense {dense_r1} (rel {rel:.3e})")
+    phase("sharded_path_lines", level=SHARDED_LINES_LEVEL, dtype="float64",
+          cycles=SHARDED_LINES_CYCLES, replicated=first["replicated"],
+          lines_identical_to_dense=True, ranks=n_ranks, last=first["lines"][-1])
+
+    if device == "cuda" and transport("cuda", 1) != "nccl":
+        raise AssertionError("one rank on one card must take NCCL")
+    (w1,) = run_ranks(world1_rank, 1, MAIN_LEVEL, device=device)
+    main_launches = {kk: v for kk, v in w1["launches"].items() if v}
+    if w1["lines"] != dense_lines["main"] or w1["transport"] != transport(device, 1):
+        raise AssertionError(f"sharded_world1_nccl ({w1['transport']}): lines differ:\n"
+                             f"{w1['lines']}\n{dense_lines['main']}")
+    if main_launches != ({"K1": MAIN_LEVEL - 1, "K2": MAIN_LEVEL - 1} if device == "cuda" else {}):
+        raise AssertionError(f"sharded_world1_nccl: launches {main_launches}")
+    phase("sharded_world1_nccl", transport=w1["transport"], mesh="1x1x1", level=MAIN_LEVEL,
+          cycles=WORLD1_CYCLES, launches_per_cycle=main_launches,
+          lines_identical_to_dense=True, last=w1["lines"][-1])
+
+    out = run_dryrun(4, device)
+    phase("sharded_dryrun", ranks=out["ranks"], mesh="x".join(map(str, out["mesh"])),
+          residual=f"{out['residual']:.6e}", dense=f"{out['dense_residual']:.6e}",
+          rel=f"{out['rel']:.2e}", bound=1e-5)
+    phase("sharded_phases", seconds=f"{time.perf_counter() - t0:.1f}")
+    return frag, first
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; nothing run", file=sys.stderr)
@@ -1676,6 +1987,7 @@ def main():
     want = dsl_lines("dsl_lines_3d_l6_f64", BENCH_EXA4, 3, 1, 6)
     dsl_lines("dsl_lines_2d_l5_f64", EX2D_EXA4, 2, 0, 5)
     dsl_cli(want)
+    sharded_phases()
     phase("staging", **{tag: v for tag, v in STAGING.items()})
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")

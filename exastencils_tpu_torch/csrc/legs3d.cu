@@ -66,6 +66,16 @@
 //   load it: the result goes to a second array, which the wrapper copies
 //   back into sol (~0.36 ms at 513^3 f32, counted in the leg's time), or,
 //   for chained launches, uses as the next input.
+// - Halo-extended fragments (the sharded backend, ops/cuda
+//   make_sharded_fused_legs_3d; JAX: exastencils_tpu/ops/pallas/__init__.py:
+//   218-228).  The fragment is smoothed whole, excl planes marking the
+//   physical boundary; K2 prolongs with its taps' lo shifted by the ghost
+//   width g in every dim (the whole fragment corrected, ghosts included,
+//   as prolongation_matrix_full_ghosted does); K1 restricts through the
+//   Coarse geometry below: aligned coarse indices keep a block's coarse
+//   tile under its fine tile and the restriction's reach that of the
+//   unshifted operator, and a write window keeps the coarse rows the JAX
+//   kernel leaves zero (y/x ghost rows) zero.
 // - K3 is one kSmooth launch per call (chained beyond kMaxLegK).  It
 //   replaces 2K launches of a half-sweep kernel, each a pass over sol and
 //   rhs (4.77 ms at 513^3 f32, K=3, on an H100).
@@ -92,6 +102,40 @@ constexpr int kCoarseSlots = 4;  // K2's ring of coarse planes (enough for kLegA
 constexpr int kResSlots = 4;     // K1's ring of boxes of z-sums
 
 enum Mode { kSmooth = 0, kProlong = 1, kRestrict = 2 };
+
+// K1's coarse geometry per dim (z, y, x).  Coarse node c' of the output
+// array takes the fine nodes 2 c' + lo' + k of the window's taps; on a
+// halo-extended fragment (the sharded path) lo' = lo - g, with g the
+// fine ghost width.  The kernel works in aligned indices c = c' - off,
+// off = ceil(g / 2), whose taps are 2 c + t.lo + k with t.lo = lo + g % 2
+// (the wrapper passes it), so a block's coarse tile stays under its fine
+// tile and the node restriction's reach stays 1.  It
+// computes the aligned nodes [0, n) and writes those whose array index
+// lies in [lo, hi]; the wrapper zero-fills the rest.  Dense: off 0,
+// n = the coarse shape, [lo, hi] all of it; the dense K1 is compiled
+// apart (leg_kernel's GHOSTED false) and reads none of it, so the dense
+// main path keeps its launch as it was without this geometry.
+struct Coarse {
+  int off[3], n[3], lo[3], hi[3];
+};
+
+inline bool is_dense(const Coarse& cg, int nzc, int nyc, int nxc) {
+  const int n[3] = {nzc, nyc, nxc};
+  for (int d = 0; d < 3; ++d)
+    if (cg.off[d] != 0 || cg.n[d] != n[d] || cg.lo[d] != 0 || cg.hi[d] != n[d] - 1) return false;
+  return true;
+}
+
+inline Coarse make_coarse(const int* c) {
+  Coarse g;
+  for (int d = 0; d < 3; ++d) {
+    g.off[d] = c[d];
+    g.n[d] = c[3 + d];
+    g.lo[d] = c[6 + d];
+    g.hi[d] = c[9 + d];
+  }
+  return g;
+}
 
 // K1's window, wider by its halo, has more pairs of columns than a block
 // has threads: each of its threads takes two.
@@ -126,17 +170,32 @@ __device__ __host__ inline int coarse_edge(int R) { return (R + kMaxTaps) / 2 + 
 // K1: coarse plane cz of the block's coarse tile from its box of z-sums
 // (zbox: for each fine (y, x) of the tile plus `reach`, the residual summed
 // over cz's z taps), summed as K4 sums: the z sums are its
-// innermost ones, then y, then x.
-template <typename T>
+// innermost ones, then y, then x.  GHOSTED: in K1's aligned indices,
+// written at array index + off inside the write window (Coarse).
+template <bool GHOSTED, typename T>
 __device__ void restrict_yx(T* __restrict__ outc, const T* zbox, int cz, int ny, int nx,
-                            int nyc, int nxc, int reach, const Geom& g, const Taps<T>& t) {
+                            int nyc, int nxc, int reach, const Geom& g, const Taps<T>& t,
+                            const Coarse& cg) {
   const int rx = kLegTile + 2 * reach;
   constexpr int ct = kLegTile / 2;  // coarse tile edge
   const int by = g.ty0 - reach, bx = g.tx0 - reach;  // box origin
   const int cy0 = g.ty0 / 2, cx0 = g.tx0 / 2;
+  int oz = cz;
+  if constexpr (GHOSTED) {
+    oz += cg.off[0];
+    if (oz < cg.lo[0] || oz > cg.hi[0]) return;  // block-uniform
+  }
   for (int i = threadIdx.x; i < ct * ct; i += blockDim.x) {
     const int cy = cy0 + i / ct, cx = cx0 + i % ct;
-    if (cy >= nyc || cx >= nxc) continue;
+    int oy = cy, ox = cx;
+    if constexpr (GHOSTED) {
+      if (cy >= cg.n[1] || cx >= cg.n[2]) continue;
+      oy += cg.off[1];
+      ox += cg.off[2];
+      if (oy < cg.lo[1] || oy > cg.hi[1] || ox < cg.lo[2] || ox > cg.hi[2]) continue;
+    } else {
+      if (cy >= nyc || cx >= nxc) continue;
+    }
     T acc_x = T(0);
 #pragma unroll
     for (int kx = 0; kx < kMaxTaps; ++kx) {
@@ -151,7 +210,7 @@ __device__ void restrict_yx(T* __restrict__ outc, const T* zbox, int cz, int ny,
       }
       acc_x = acc_x + t.w[2][kx] * acc_y;
     }
-    outc[(static_cast<int64_t>(cz) * nyc + cy) * nxc + cx] = acc_x;
+    outc[(static_cast<int64_t>(oz) * nyc + oy) * nxc + ox] = acc_x;
   }
 }
 
@@ -164,6 +223,7 @@ struct Span {
 
 template <typename T>
 __device__ Span span_for(int bz, int chunk, int nz, int nzc, bool down, const Taps<T>& t) {
+  // nzc: K1's aligned coarse planes (Coarse::n[0])
   Span sp;
   sp.z0 = bz * chunk;
   sp.z1 = min(sp.z0 + chunk, nz);
@@ -223,18 +283,18 @@ __device__ __forceinline__ Pair pair_at(int e, const Geom& g, int ny, int nx, co
   return c;
 }
 
-template <typename T, int K, int MODE>
+template <typename T, int K, int MODE, bool GHOSTED>
 __global__ void __launch_bounds__(MODE == kRestrict ? kMaxDownThreads : kMaxUpThreads)
 leg_kernel(T* __restrict__ out, T* __restrict__ outc, const T* __restrict__ sol,
            const T* __restrict__ solc, const T* __restrict__ rhs, int nz, int ny, int nx,
            int nzc, int nyc, int nxc, Star<T> s, T scale, int reach, int chunk, Taps<T> t,
-           Excl ex) {
+           Excl ex, Coarse cg) {
   constexpr int L = 2 * K;  // half-sweeps
   constexpr bool up = MODE == kProlong, down = MODE == kRestrict;
   constexpr int S = L + 2 + down + kLegAhead;  // ring slots, of sol and of rhs
   constexpr int NP = leg_pairs_per_thread(MODE);
   extern __shared__ __align__(16) unsigned char smem[];
-  const Span sp = span_for(blockIdx.z, chunk, nz, nzc, down, t);
+  const Span sp = span_for(blockIdx.z, chunk, nz, GHOSTED ? cg.n[0] : nzc, down, t);
   if (sp.zf0 > sp.zf1) return;  // block-uniform: nothing to compute
   const Geom g = geom_for(MODE, K, reach, blockIdx.y, blockIdx.x);
   T* ring = reinterpret_cast<T*>(smem);
@@ -377,8 +437,8 @@ leg_kernel(T* __restrict__ out, T* __restrict__ outc, const T* __restrict__ sol,
     // coarse plane by exactly one block: its chunk's).
     if constexpr (down) {
       for (const int qp = p - L - 2; czr < sp.cz1 && last_of(czr) == qp; ++czr)
-        restrict_yx(outc, extra + (czr % kResSlots) * rry * rrx, czr, ny, nx, nyc, nxc, reach,
-                    g, t);
+        restrict_yx<GHOSTED>(outc, extra + (czr % kResSlots) * rry * rrx, czr, ny, nx, nyc, nxc,
+                             reach, g, t, cg);
     }
 
     // Half-sweep l on plane p - l, l = 1..2K, all on the thread's active
@@ -525,19 +585,24 @@ int leg_threads(int mode, int K, int reach) {
 
 int tiles(int n, int tile) { return (n + tile - 1) / tile; }
 
-template <typename T, int MODE>
+template <typename T, int MODE, bool GHOSTED = false>
 auto leg_kernel_for(int K) {
-  return K == 1 ? leg_kernel<T, 1, MODE> : K == 2 ? leg_kernel<T, 2, MODE> : leg_kernel<T, 3, MODE>;
+  return K == 1   ? leg_kernel<T, 1, MODE, GHOSTED>
+         : K == 2 ? leg_kernel<T, 2, MODE, GHOSTED>
+                  : leg_kernel<T, 3, MODE, GHOSTED>;
 }
 
+// The kernel of one launch; `ghosted`: K1 on a halo-extended fragment.
 template <typename T>
-auto leg_kernel_for(int K, int mode) {
+auto leg_kernel_for(int K, int mode, bool ghosted = false) {
   return mode == kProlong ? leg_kernel_for<T, kProlong>(K)
-       : mode == kRestrict ? leg_kernel_for<T, kRestrict>(K) : leg_kernel_for<T, kSmooth>(K);
+       : mode == kRestrict ? (ghosted ? leg_kernel_for<T, kRestrict, true>(K)
+                                      : leg_kernel_for<T, kRestrict>(K))
+                           : leg_kernel_for<T, kSmooth>(K);
 }
 
 // Blocks of one launch resident on one SM (registers, shared memory and
-// threads all counted), or -1.
+// threads all counted; kRestrict: the dense kernel's), or -1.
 template <typename T>
 int leg_occupancy(int mode, int K, int reach) {
   if (K < 1 || K > kMaxLegK) return -1;
@@ -557,27 +622,28 @@ cudaError_t launch_leg(void* out, void* outc, const void* sol, const void* solc,
                        const void* rhs, int nz, int ny, int nx, int nzc, int nyc, int nxc,
                        const double* coefs, double scale, int K, int reach, int mode,
                        int chunk, const double* taps, const int* ntaps, const int* lo,
-                       const int* excl, cudaStream_t stream) {
+                       const int* excl, const int* coarse, cudaStream_t stream) {
   if (K < 1 || K > kMaxLegK || chunk < 2 || chunk % 2) return cudaErrorInvalidValue;
   const size_t smem = leg_smem(mode, K, reach, sizeof(T));
   const int threads = leg_threads(mode, K, reach);
   if (threads > (mode == kRestrict ? kMaxDownThreads : kMaxUpThreads)) return cudaErrorInvalidValue;
   if (mode < kSmooth || mode > kRestrict) return cudaErrorInvalidValue;
-  auto kernel = leg_kernel_for<T>(K, mode);
+  const Coarse cg = make_coarse(coarse);
+  auto kernel = leg_kernel_for<T>(K, mode, !is_dense(cg, nzc, nyc, nxc));
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   dim3 grid(tiles(nx, kLegTile), tiles(ny, kLegTile), tiles(nz, chunk));
   if (mode == kRestrict) {
-    grid.x = std::max<int>(grid.x, tiles(nxc, kLegTile / 2));
-    grid.y = std::max<int>(grid.y, tiles(nyc, kLegTile / 2));
-    grid.z = std::max<int>(grid.z, tiles(nzc, chunk / 2));
+    grid.x = std::max<int>(grid.x, tiles(cg.n[2], kLegTile / 2));
+    grid.y = std::max<int>(grid.y, tiles(cg.n[1], kLegTile / 2));
+    grid.z = std::max<int>(grid.z, tiles(cg.n[0], chunk / 2));
   }
   kernel<<<grid, threads, smem, stream>>>(
       static_cast<T*>(out), static_cast<T*>(outc), static_cast<const T*>(sol),
       static_cast<const T*>(solc), static_cast<const T*>(rhs), nz, ny, nx, nzc, nyc, nxc,
       make_star<T>(coefs), static_cast<T>(scale), reach, chunk, make_taps<T>(taps, ntaps, lo),
-      make_excl(excl));
+      make_excl(excl), cg);
   return cudaGetLastError();
 }
 
@@ -587,8 +653,10 @@ cudaError_t launch_leg(void* out, void* outc, const void* sol, const void* solc,
 // are new arrays, never aliases of the inputs; `solc` is read by kProlong
 // only, `outc` written by kRestrict only (pass any pointer otherwise).  The
 // transfer taps are the prolongation's for kProlong, the restriction's
-// for kRestrict; `chunk` (even) is the fine z-planes of one block.  Returns
-// the CUDA error of the launch.
+// for kRestrict; `chunk` (even) is the fine z-planes of one block;
+// `coarse` is K1's geometry (12 ints: Coarse's off, n, lo, hi per dim; read
+// by kRestrict only, which takes the dense kernel where it is the dense
+// geometry).  Returns the CUDA error of the launch.
 extern "C" {
 
 // The layout constants the wrapper mirrors (ops/cuda/stream3d.py), in order:
@@ -609,13 +677,15 @@ int exa_leg_occupancy(int mode, int K, int reach, int is_double) {
 int exa_leg(void* out, void* outc, const void* sol, const void* solc, const void* rhs, int nz,
             int ny, int nx, int nzc, int nyc, int nxc, const double* coefs, double scale, int K,
             int reach, int mode, int chunk, const double* taps, const int* ntaps,
-            const int* lo, const int* excl, int is_double, void* stream) {
+            const int* lo, const int* excl, const int* coarse, int is_double, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return static_cast<int>(
       is_double ? launch_leg<double>(out, outc, sol, solc, rhs, nz, ny, nx, nzc, nyc, nxc, coefs,
-                                     scale, K, reach, mode, chunk, taps, ntaps, lo, excl, st)
+                                     scale, K, reach, mode, chunk, taps, ntaps, lo, excl, coarse,
+                                     st)
                 : launch_leg<float>(out, outc, sol, solc, rhs, nz, ny, nx, nzc, nyc, nxc, coefs,
-                                    scale, K, reach, mode, chunk, taps, ntaps, lo, excl, st));
+                                    scale, K, reach, mode, chunk, taps, ntaps, lo, excl, coarse,
+                                    st));
 }
 
 }  // extern "C"

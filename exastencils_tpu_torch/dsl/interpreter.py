@@ -302,13 +302,15 @@ class L4Executable(L4BuiltinsMixin, L4StagingMixin, L4LocalSolveMixin):
                     self.functions[(fn.name, lvl)] = fn
 
         # the reference runs staggered (Face_*) programs dense; any other
-        # program it would shard over a device mesh is not ported
+        # program it would shard over a device mesh waits for the sharded
+        # DSL slice of the port
         if _shards_requested(knowledge) and not any(
                 info.localization in FACES for info in self.fields.values()):
             raise NotImplementedError(
-                "the sharded DSL (a device mesh over the fields) needs the "
-                "port of exastencils_tpu/parallel/dslsharding.py, which is "
-                "not done: run with tpu_shard_dsl = false")
+                "the sharded DSL (fields over a rank mesh: an executor on explicit "
+                "fragments with halo exchange at `communicate`, the port of "
+                "exastencils_tpu/parallel/dslsharding.py) is the next slice of the "
+                "port: run with tpu_shard_dsl = false")
 
         # --- state ---
         self.state: Dict[Tuple[str, int], torch.Tensor] = {}

@@ -4,7 +4,10 @@ Reference: exastencils_tpu/models/poisson.py.  `PoissonMGSolver` assembles
 damped red-black Gauss-Seidel V(3,3)-cycles with full-weighting
 restriction, trilinear prolongation and a CG coarse solve on the dense
 backend of `device`; on CUDA and in 3D the levels with at least 5 nodes
-per dimension run the whole-leg kernels K1/K2.
+per dimension run the whole-leg kernels K1/K2.  Given a `mesh`
+(parallel/mesh.DomainMesh, one per rank), it runs on the sharded backend
+instead, each rank the solver of its fragment (the reference's
+:111-126).
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ from exastencils_tpu_torch.core.field import DirichletBC, Field
 from exastencils_tpu_torch.core.grid import NODE, level_grids
 from exastencils_tpu_torch.core.stencil import Stencil, node_prolongation, node_restriction
 from exastencils_tpu_torch.device import check_device, real_dtype
-from exastencils_tpu_torch.parallel.backend import DenseBackend
+from exastencils_tpu_torch.parallel.backend import DenseBackend, ShardedBackend
 from exastencils_tpu_torch.solver.synthesis import Equation, generate_solver
 
 
@@ -111,7 +114,10 @@ def default_rhs_3d(x, y, z):
 
 @dataclass
 class PoissonMGSolver:
-    """FD Poisson with geometric multigrid on [0,1]^d on one device."""
+    """FD Poisson with geometric multigrid on [0,1]^d: on one device, or
+    with `mesh` (this rank's DomainMesh) and `shard_dims` (shards per
+    spatial dim, default the mesh's shape) one fragment per rank on the
+    rank's `device`."""
 
     knowledge: Knowledge
     device: object
@@ -126,6 +132,8 @@ class PoissonMGSolver:
     cgs_max_its: int = 128
     cgs_res_reduction: float = 1e-3
     domain: Optional[Domain] = None
+    mesh: object = None  # parallel/mesh.DomainMesh -> the sharded backend
+    shard_dims: Optional[tuple] = None  # shards per spatial dim
 
     def __post_init__(self):
         k = self.knowledge
@@ -144,7 +152,18 @@ class PoissonMGSolver:
         self.stencil = laplace_stencil(nd)
         self.restrict_op = node_restriction(nd)
         self.prolong_op = node_prolongation(nd)
-        self.backend = DenseBackend(self.grids)
+        if self.mesh is None:
+            self.backend = DenseBackend(self.grids)
+        else:
+            dims = tuple(self.shard_dims or self.mesh.shape)
+            ghost = max(1, k.comm_ghostWidth, k.comm_haloAggregationFactor)
+            if k.tpu_use_pallas and nd == 3:
+                # wide halos let the sharded whole-leg kernels run one
+                # exchange per leg: the down leg needs 2K+2 layers (K
+                # iterations + residual radius + restriction tap)
+                ghost = max(ghost, 2 * max(self.n_pre, self.n_post) + 2)
+            self.backend = ShardedBackend(self.grids, self.mesh, dims, ghost=ghost,
+                                          replicate_below=k.tpu_coarse_replicate_threshold)
 
         self.solution = Field(
             "Solution",

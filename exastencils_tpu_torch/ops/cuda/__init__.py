@@ -12,6 +12,18 @@ mode in both packages:
   stencil, separable transfers of the default node or cell z-geometry);
 - `make_fused_legs_3d`: K1/K2 (as K3 and K4/K5, and n_pre, n_post >= 1).
 
+and for a sharded 3D level (the JAX package's :57-230), on one rank's
+halo-extended fragment after one wide halo exchange:
+
+- `make_sharded_fused_smoother_3d`: K3 (the dense smoother's contract on
+  the fragment's shape, two colours, ghost >= 2 on a sharded mesh), one
+  exchange per g//2 iterations, the physical boundary's dup planes
+  excluded by the rank's excl planes;
+- `make_sharded_fused_legs_3d`: K1/K2 (the dense legs' contract, and the
+  staleness budget g >= 2 n_pre + 2 and g >= 2 n_post + 1 on a sharded
+  mesh), the coarse geometry shifted by the ghost width
+  (stream3d.coarse_geometry).
+
 The smoother and the legs call the schedule dispatchers of stream3d.py,
 so with EXA_STREAM_V1=1 they run the single-plane wavefronts K6 (for K3)
 and K7/K8 (for K1/K2) instead, as the JAX package's dispatchers do.
@@ -39,9 +51,11 @@ from exastencils_tpu_torch.ops.cuda.stream3d import (  # noqa: F401
     _star_coefs,
     cuda_applicable_3d,
     prolong_correct,
+    prolong_correct_smooth,
     prolong_correct_smooth_fused_3d,
     rbgs_fused_3d,
     res_restrict,
+    smooth_res_restrict,
     smooth_res_restrict_fused_3d,
 )
 from exastencils_tpu_torch.ops.transfer import separable_kernels
@@ -153,5 +167,116 @@ def make_fused_legs_3d(
     def up(sol, sol_c, rhs):
         return prolong_correct_smooth_fused_3d(sol, sol_c, rhs, A, omega, n_post,
                                                p_kern, p_lo)
+
+    return down, up
+
+
+def _excl_planes(topo, local_cells):
+    """The rank's excl planes (z lo, z hi, y lo, y hi, x lo, x hi): the dup
+    plane g of a low physical boundary, g + cells[d] of a high one, else
+    -1 (reference :209-215).  Host ints: the mesh coordinates are."""
+    gs, ex = topo.ghosts, []
+    for d in range(3):
+        ex.append(gs[d] if topo.is_lo_boundary(d) else -1)
+        ex.append(gs[d] + local_cells[d] if topo.is_hi_boundary(d) else -1)
+    return tuple(ex)
+
+
+def make_sharded_fused_smoother_3d(A, field: Field, level: int, topo, local_cells,
+                                   omega: float, num_colors: int):
+    """K3 (K6 under EXA_STREAM_V1=1) on a SHARDED 3D level: ONE wide-halo
+    exchange per g//2 iterations (the reference's halo aggregation), then
+    the fused smoother over the halo-extended fragment, the physical
+    boundary's dup planes excluded by the rank's excl planes, so
+    Dirichlet values stay as the dense path's never-written array edge.
+
+    The never-updated local edge ring goes stale one layer per
+    half-sweep, so g ghost layers admit g//2 iterations per exchange
+    before the staleness reaches the dup planes.  The rhs is exchanged
+    once per call.  Returns smooth_n(n, sol, rhs) or None outside the
+    contract."""
+    if num_colors != 2:
+        return None
+    if not _node_dirichlet(field, level):
+        return None
+    cells = tuple(local_cells)
+    if not cuda_applicable_3d(tuple(topo.local_shape(cells)), A.offsets, A.coefs):
+        return None
+    sharded = any(p > 1 for p in topo.P)
+    if sharded and topo.ghost < 2:
+        return None
+    # with no sharded dim there is no staleness at all
+    per_block = (topo.ghost // 2) if sharded else None
+    excl = _excl_planes(topo, cells)
+
+    def smooth_n(n, sol, rhs):
+        rhsx = topo.exchange(rhs, cells)
+        done = 0
+        while done < n:
+            k = (n - done) if per_block is None else min(per_block, n - done)
+            sol = rbgs_fused_3d(topo.exchange(sol, cells), rhsx, A, omega, k, excl)
+            done += k
+        return sol
+
+    return smooth_n
+
+
+def make_sharded_fused_legs_3d(A, field: Field, level: int, topo, local_cells,
+                               coarse_local_cells, restrict_op, prolong_op, omega: float,
+                               n_pre: int, n_post: int, num_colors: int):
+    """K1/K2 on a SHARDED 3D level: the down leg (n_pre RBGS iterations +
+    residual + restriction) and the up leg (prolongation + correction +
+    n_post iterations) each as one pass over the halo-extended fragment,
+    after one wide halo exchange of its operands.
+
+    Geometry (reference :187-228): coarse fragment node c takes the fine
+    nodes 2c + lo - g + k, and the y/x coarse ghost rows stay zero (the
+    reference's ghosted restriction matrices write rows g .. g + nc only;
+    in z it writes every coarse plane); the up leg corrects the whole
+    fragment with the full-ghosted prolongation, so halo corrections equal
+    the neighbour's interior ones and the post-smoothing in the same pass
+    stays valid.
+
+    Staleness (as the smoother's): the down leg needs g >= 2 n_pre + 2
+    (K iterations + residual radius + restriction tap), the up leg g >=
+    2 n_post + 1, so all owned and dup values stay bitwise those of the
+    exchange-every-colour path.  Returns (down(sol, rhs) -> (sol, rhs_c),
+    up(sol, sol_c, rhs) -> sol), each exchanging its sol and rhs, or
+    (None, None) outside the contract.  The TPU VMEM budget (`_max_k`)
+    is not ported, as for the dense legs."""
+    if num_colors != 2:
+        return None, None
+    if not _node_dirichlet(field, level):
+        return None, None
+    gs = topo.ghosts
+    sharded = any(p > 1 for p in topo.P)
+    if sharded and topo.ghost < max(2 * n_pre + 2, 2 * n_post + 1):
+        return None, None
+    cells, ccells = tuple(local_cells), tuple(coarse_local_cells)
+    local_shape = tuple(topo.local_shape(cells))
+    coarse_shape = tuple(topo.local_shape(ccells))
+    if not cuda_applicable_3d(local_shape, A.offsets, A.coefs):
+        return None, None
+    if not (1 <= n_pre and 1 <= n_post):
+        return None, None
+    taps = _transfer_taps(restrict_op, prolong_op)
+    if taps is None:
+        return None, None
+    r_kern, p_kern = taps
+    off_p = (1 - (int(prolong_op.lo[0]) - gs[0])) // 2
+    if coarse_shape[0] < off_p + 2:
+        return None, None  # coarse fragment too shallow (the reference's ring)
+    r_lo, p_lo = tuple(restrict_op.lo), tuple(prolong_op.lo)
+    excl = _excl_planes(topo, cells)
+
+    def down(sol, rhs):
+        rhsx, solx = topo.exchange(rhs, cells), topo.exchange(sol, cells)
+        return smooth_res_restrict(solx, rhsx, A, omega, n_pre, r_kern, r_lo, coarse_shape,
+                                   excl, ghost=gs)
+
+    def up(sol, sol_c, rhs):
+        rhsx, solx = topo.exchange(rhs, cells), topo.exchange(sol, cells)
+        return prolong_correct_smooth(solx, sol_c, rhsx, A, omega, n_post, p_kern, p_lo, excl,
+                                      ghost=gs)
 
     return down, up

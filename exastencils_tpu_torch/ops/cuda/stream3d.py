@@ -60,12 +60,13 @@ from exastencils_tpu_torch.ops.smoothers import color_mask, jacobi_update
 from exastencils_tpu_torch.ops.stencil_apply import apply_stencil
 from exastencils_tpu_torch.ops.transfer import (
     apply_separable,
-    prolongation_matrix_1d,
+    prolongation_matrix_full_ghosted,
     restriction_matrix_1d,
 )
 from exastencils_tpu_torch.runtime.staging import count_launch
 
 NO_EXCL = (-1,) * 6  # per-dim lo/hi planes excluded from updates; -1 = none
+NO_GHOST = (0, 0, 0)  # per-dim ghost width of a halo-extended fragment (K1/K2)
 MAX_TAPS = 3  # transfer taps per dim the kernels take (kMaxTaps)
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
@@ -204,7 +205,8 @@ def load_library() -> ctypes.CDLL:
     lib.exa_leg_constant.argtypes, lib.exa_leg_constant.restype = [i], i
     lib.exa_leg_occupancy.argtypes, lib.exa_leg_occupancy.restype = [i, i, i, i], i
     lib.exa_leg_smem.argtypes, lib.exa_leg_smem.restype = [i, i, i, i], ctypes.c_longlong
-    lib.exa_leg.argtypes = [p, p, p, p, p, i, i, i, i, i, i, pd, d, i, i, i, i, pd, pi, pi, pi, i, p]
+    lib.exa_leg.argtypes = [p, p, p, p, p, i, i, i, i, i, i, pd, d, i, i, i, i, pd, pi, pi, pi, pi,
+                            i, p]
     lib.exa_error_string.argtypes, lib.exa_error_string.restype = [i], ctypes.c_char_p
     lib.exa_transfer_constant.argtypes, lib.exa_transfer_constant.restype = [i], i
     lib.exa_residual_restrict.argtypes = [p, p, p, i, i, i, i, i, i, pd, pd, pi, pi, i, i, p]
@@ -376,16 +378,30 @@ def _rbgs_plain(sol, rhs, A, omega, K, inner):
     return sol
 
 
-def _res_restrict_plain(sol, rhs, A, r_kernels, r_lo, coarse_shape, inner):
+def coarse_window(coarse_shape, ghost=NO_GHOST):
+    """K1's coarse write window per dim, (lo, hi) inclusive, on a fragment
+    with `ghost` layers: every z-plane, and in y/x the rows g .. n-1-g
+    (the reference's ghosted restriction matrices write those only,
+    ops/pallas/__init__.py:187-199); every node without ghosts."""
+    return tuple((0 if d == 0 else g, int(n) - 1 - (0 if d == 0 else g))
+                 for d, (n, g) in enumerate(zip(coarse_shape, ghost)))
+
+
+def _res_restrict_plain(sol, rhs, A, r_kernels, r_lo, coarse_shape, inner, ghost=NO_GHOST):
+    """The residual on `inner` nodes, restricted: coarse node c of the
+    write window (coarse_window) takes the fine nodes 2c + lo - ghost + k
+    (zero elsewhere)."""
     res = torch.where(inner, rhs - apply_stencil(A, sol), 0.0)
-    mats = [restriction_matrix_1d(r_kernels[d], r_lo[d], coarse_shape[d],
-                                  sol.shape[d], coarse_shape[d]) for d in range(3)]
+    mats = []
+    for d, (w0, w1) in enumerate(coarse_window(coarse_shape, ghost)):
+        mats.append(restriction_matrix_1d(r_kernels[d], r_lo[d] - ghost[d] + 2 * w0, w1 - w0 + 1,
+                                          sol.shape[d], coarse_shape[d], 0, w0))
     return apply_separable(mats, res)
 
 
-def _prolong_correct_plain(sol, sol_c, p_kernels, p_lo, inner):
-    mats = [prolongation_matrix_1d(p_kernels[d], p_lo[d], sol.shape[d],
-                                   sol_c.shape[d], sol.shape[d]) for d in range(3)]
+def _prolong_correct_plain(sol, sol_c, p_kernels, p_lo, inner, ghost=NO_GHOST):
+    mats = [prolongation_matrix_full_ghosted(p_kernels[d], p_lo[d], sol_c.shape[d],
+                                             sol.shape[d], ghost[d]) for d in range(3)]
     return torch.where(inner, sol + apply_separable(mats, sol_c), sol)
 
 
@@ -410,20 +426,22 @@ def prolong_correct_plain(sol, sol_c, p_kernels, p_lo):
 
 
 def smooth_res_restrict_plain(sol, rhs, A: BoundStencil, omega: float, K: int,
-                              r_kernels, r_lo, coarse_shape, excl=NO_EXCL):
-    """K RBGS iterations, then the residual restricted.  Out of place:
-    returns (smoothed sol, coarse rhs)."""
+                              r_kernels, r_lo, coarse_shape, excl=NO_EXCL, ghost=NO_GHOST):
+    """K RBGS iterations, then the residual restricted (on a halo-extended
+    fragment: `ghost` as smooth_res_restrict's).  Out of place: returns
+    (smoothed sol, coarse rhs)."""
     inner = _inner_mask(sol.shape, excl, sol.device)
     sol = _rbgs_plain(sol, rhs, A, omega, K, inner)
-    return sol, _res_restrict_plain(sol, rhs, A, r_kernels, r_lo, coarse_shape, inner)
+    return sol, _res_restrict_plain(sol, rhs, A, r_kernels, r_lo, coarse_shape, inner, ghost)
 
 
 def prolong_correct_smooth_plain(sol, sol_c, rhs, A: BoundStencil, omega: float,
-                                 K: int, p_kernels, p_lo, excl=NO_EXCL):
-    """sol + P sol_c on inner nodes, then K RBGS iterations.  Out of
+                                 K: int, p_kernels, p_lo, excl=NO_EXCL, ghost=NO_GHOST):
+    """sol + P sol_c on inner nodes (on a halo-extended fragment the
+    prolongation shifted by `ghost`), then K RBGS iterations.  Out of
     place: returns the new sol."""
     inner = _inner_mask(sol.shape, excl, sol.device)
-    sol = _prolong_correct_plain(sol, sol_c, p_kernels, p_lo, inner)
+    sol = _prolong_correct_plain(sol, sol_c, p_kernels, p_lo, inner, ghost)
     return _rbgs_plain(sol, rhs, A, omega, K, inner)
 
 
@@ -511,28 +529,58 @@ def leg_chain(mode: int, K: int, dtype: torch.dtype, reach: int = 1):
 _NO_TAPS = ((0.0,),) * 3, (0, 0, 0)
 
 
+def coarse_geometry(fine_shape, coarse_shape, r_lo, ghost=NO_GHOST):
+    """K1's coarse geometry (legs3d.cu Coarse) for a restriction with
+    window offsets `r_lo` on a fragment with `ghost` layers: (the taps'
+    aligned lo per dim, the 12 ints off, n, lo, hi).  Aligned coarse node
+    c is array node c + ceil(g/2) and takes fine 2c + lo + g%2 + k, so the
+    node restriction's reach stays 1 for either parity of g.  On a
+    halo-extended fragment only the aligned nodes with a fine tap inside
+    the array are computed; the others are zero, as are the array nodes
+    below ceil(g/2), whose taps reach at most the array's edge, where the
+    residual is zero."""
+    off = tuple((g + 1) // 2 for g in ghost)
+    lo = tuple(int(r_lo[d]) - ghost[d] + 2 * off[d] for d in range(3))
+    if tuple(ghost) == NO_GHOST:
+        n = tuple(int(c) for c in coarse_shape)
+    else:
+        n = tuple(min(int(coarse_shape[d]) - off[d], (int(fine_shape[d]) - 1 - lo[d]) // 2 + 1)
+                  for d in range(3))
+    win = coarse_window(coarse_shape, ghost)
+    return lo, (*off, *n, *(w[0] for w in win), *(w[1] for w in win))
+
+
 def _leg_launches(sol, rhs, A, omega, K, mode, kernels, lo, excl, counted,
-                  sol_c=None, coarse_shape=(1, 1, 1), chunk=None):
+                  sol_c=None, coarse_shape=(1, 1, 1), chunk=None, ghost=NO_GHOST):
     """The launches of leg_chain(mode, K) on CUDA tensors, each out of place
     into the other of (sol, a scratch tensor); the result ends in sol.
-    `chunk`: the fine z-planes of a block (default leg_chunk).  Returns
-    K1's coarse rhs (None for K2, K3)."""
+    `chunk`: the fine z-planes of a block (default leg_chunk); `ghost`: a
+    halo-extended fragment's geometry (K1: coarse_geometry; K2: taps lo
+    shifted by the ghost width).  Returns K1's coarse rhs
+    (None for K2, K3)."""
     lib, excl_c = load_library(), _excl_array(excl)
     c0, coefs = _star_array(A)
-    reach = _restrict_reach(kernels, lo) if mode == LEG_RESTRICT else 0
     nz, ny, nx = sol.shape
     nzc, nyc, nxc = sol_c.shape if sol_c is not None else coarse_shape
+    geom = (0, 0, 0, nzc, nyc, nxc, 0, 0, 0, nzc - 1, nyc - 1, nxc - 1)
+    if mode == LEG_RESTRICT:
+        lo, geom = coarse_geometry(sol.shape, (nzc, nyc, nxc), lo, ghost)
+    elif mode == LEG_PROLONG:
+        lo = tuple(int(lo[d]) - ghost[d] for d in range(3))
+    geom_c = (ctypes.c_int * 12)(*geom)
+    reach = _restrict_reach(kernels, lo) if mode == LEG_RESTRICT else 0
     cur, spare, out_c = sol, torch.empty_like(sol), None
     chunk = leg_chunk(sol.shape, _sm_count(sol.device.index)) if chunk is None else chunk
+    new_c = torch.empty if tuple(ghost) == NO_GHOST else torch.zeros
     for m, k in leg_chain(mode, K, sol.dtype, reach):
         taps, ntaps, tlo = _taps_arrays(*((kernels, lo) if m != LEG_SMOOTH else _NO_TAPS))
         if m == LEG_RESTRICT:
-            out_c = torch.empty((nzc, nyc, nxc), dtype=sol.dtype, device=sol.device)
+            out_c = new_c((nzc, nyc, nxc), dtype=sol.dtype, device=sol.device)
         err = lib.exa_leg(
             spare.data_ptr(), (out_c if out_c is not None else spare).data_ptr(),
             cur.data_ptr(), (sol_c if sol_c is not None else cur).data_ptr(), rhs.data_ptr(),
             nz, ny, nx, nzc, nyc, nxc, coefs, omega / c0, k, reach, m, chunk, taps, ntaps, tlo,
-            excl_c, _is_double(sol), _stream())
+            excl_c, geom_c, _is_double(sol), _stream())
         _check(lib, err, "leg_kernel")
         count_launch(counted)
         cur, spare = spare, cur
@@ -543,21 +591,26 @@ def _leg_launches(sol, rhs, A, omega, K, mode, kernels, lo, excl, counted,
 
 def smooth_res_restrict(sol, rhs, A: BoundStencil, omega: float, K: int,
                         r_kernels, r_lo, coarse_shape: Tuple[int, int, int],
-                        excl=NO_EXCL):
+                        excl=NO_EXCL, ghost=NO_GHOST):
     """K1, the whole down leg: K RBGS iterations on `sol` (in place), then
     the residual restricted to `coarse_shape`.  Returns (sol, coarse rhs).
     `r_kernels`/`r_lo` are the per-dim restriction taps and window offsets
-    (ops/transfer.separable_kernels, IntergridStencil.lo).  On CUDA one
-    legs3d.cu launch for K up to max_leg_k (leg_chain beyond)."""
+    (ops/transfer.separable_kernels, IntergridStencil.lo).  On a
+    halo-extended fragment (the sharded path) coarse node c takes the fine
+    nodes 2c + lo - ghost[d] + k, and only the coarse nodes in its write
+    window (coarse_window: every z-plane, the y/x rows outside the coarse
+    ghost layers) are written, the others zero.  On CUDA
+    one legs3d.cu launch for K up to max_leg_k (leg_chain beyond)."""
     if _device_type(sol, rhs) == "cpu":
         new, rc = smooth_res_restrict_plain(sol, rhs, A, omega, K, r_kernels,
-                                            r_lo, coarse_shape, excl)
+                                            r_lo, coarse_shape, excl, ghost)
         return sol.copy_(new), rc
     _check_cuda_fields(sol, rhs)
     _check_shapes(sol, rhs, coarse_shape)
     with torch.cuda.device(sol.device):
         out = _leg_launches(sol, rhs, A, omega, K, LEG_RESTRICT, r_kernels, r_lo, excl,
-                            smooth_res_restrict, coarse_shape=tuple(int(n) for n in coarse_shape))
+                            smooth_res_restrict, coarse_shape=tuple(int(n) for n in coarse_shape),
+                            ghost=ghost)
     return sol, out
 
 
@@ -565,18 +618,20 @@ smooth_res_restrict.launches = 0
 
 
 def prolong_correct_smooth(sol, sol_c, rhs, A: BoundStencil, omega: float,
-                           K: int, p_kernels, p_lo, excl=NO_EXCL):
+                           K: int, p_kernels, p_lo, excl=NO_EXCL, ghost=NO_GHOST):
     """K2, the whole up leg: sol += P sol_c on inner nodes, then K RBGS
-    iterations, all in place on `sol`.  Returns sol.  On CUDA one
-    legs3d.cu launch for K up to max_leg_k (leg_chain beyond)."""
+    iterations, all in place on `sol`.  Returns sol.  On a halo-extended
+    fragment fine node j takes the coarse nodes (j - lo + ghost[d] - k)/2,
+    ghost nodes corrected too.  On CUDA one legs3d.cu launch for K up to
+    max_leg_k (leg_chain beyond)."""
     if _device_type(sol, sol_c, rhs) == "cpu":
         return sol.copy_(prolong_correct_smooth_plain(
-            sol, sol_c, rhs, A, omega, K, p_kernels, p_lo, excl))
+            sol, sol_c, rhs, A, omega, K, p_kernels, p_lo, excl, ghost))
     _check_cuda_fields(sol, sol_c, rhs)
     _check_shapes(sol, rhs)
     with torch.cuda.device(sol.device):
         _leg_launches(sol, rhs, A, omega, K, LEG_PROLONG, p_kernels, p_lo, excl,
-                      prolong_correct_smooth, sol_c=sol_c)
+                      prolong_correct_smooth, sol_c=sol_c, ghost=ghost)
     return sol
 
 

@@ -1,6 +1,7 @@
 """Separable inter-grid transfers as per-dimension banded contractions.
 
-Reference: exastencils_tpu/ops/transfer.py.  The numpy functions that build
+Reference: exastencils_tpu/ops/transfer.py (with
+`prolongation_matrix_full_ghosted` :77-103).  The numpy functions that build
 the matrices are copied verbatim (importing the reference module would
 import jax); `apply_separable` contracts with `torch.tensordot`.  On the card the
 contraction is a float32/float64 matmul, so TF32 must stay off (see
@@ -59,6 +60,33 @@ def prolongation_matrix_1d(
             col = ghost_in + c
             if 0 <= col < total_in and 0 <= c:
                 M[ghost_out + j, col] += w
+    return M
+
+
+def prolongation_matrix_full_ghosted(
+    kernel: Sequence[float],
+    lo: int,
+    total_in: int,
+    total_out: int,
+    ghost: int,
+) -> np.ndarray:
+    """Prolongation over the ENTIRE halo-extended fragment: fine ghosted
+    row j takes kernel[k] from coarse ghosted row (j + g - lo - k)/2
+    (parity-matching), with no zeroed ghost rows, so ghost-row values
+    reproduce the neighbour fragment's interior prolongation bit for bit.
+    The sharded up leg K2 corrects the whole fragment with it, where halo
+    corrections must stay neighbour-consistent for the post-smoothing in
+    the same pass; with ghost 0 it is prolongation_matrix_1d over all
+    rows."""
+    M = np.zeros((total_out, total_in))
+    for j in range(total_out):
+        for k, w in enumerate(kernel):
+            num = j + ghost - lo - k
+            if num % 2:
+                continue
+            c = num // 2
+            if 0 <= c < total_in:
+                M[j, c] += w
     return M
 
 

@@ -7,9 +7,12 @@ captured CUDA graphs (runtime/staging `Staged`), and `solve_jit` keeps
 the whole solve on the device, as a device loop over cycles whose only
 host read per cycle is its exit test (the coarse CG inside the cycle is a
 device loop of its own).  The level hierarchy is walked in Python only
-when a cycle runs eagerly or is captured.  The dense backend has no halo
-exchange, so the reference's `exchange` calls are absent, and every level
-above the coarsest has `restrict_fn`/`prolong_fn`.
+when a cycle runs eagerly or is captured.  Every level above the coarsest
+has `restrict_fn`/`prolong_fn`.  The halo `exchange` calls are the
+reference's, in its places: the identity on the dense backend, the
+neighbour exchange of a fragment on the sharded one (parallel/), where
+every rank runs the cycle eagerly and every loop exit reads an
+all-reduced value, so all ranks branch alike.
 
 In-place contract: where a level has kernels (ops/cuda), the cycle may
 update the iterate in place (the reference donated it); callers that
@@ -50,10 +53,11 @@ class MGLevelOps:
     """Everything the cycle needs on one level."""
 
     shape: tuple
-    A_apply: Callable  # sol -> A sol
+    A_apply: Callable  # sol -> A sol (on an exchanged sol where sharded)
     smooth: Callable  # sol, rhs -> sol (one full smoother iteration)
     bc_sol: Callable = _ident
     bc_res: Callable = _ident
+    exchange: Callable = _ident  # halo exchange (identity on one device)
     restrict_fn: Optional[Callable] = None  # fine residual -> coarse rhs
     prolong_fn: Optional[Callable] = None  # coarse sol -> fine correction
     dot_fn: Callable = dot
@@ -90,7 +94,7 @@ class Multigrid:
 
     def residual(self, level: int, sol, rhs):
         lv = self.levels[level]
-        return lv.bc_res(rhs - lv.A_apply(sol))
+        return lv.bc_res(rhs - lv.A_apply(lv.exchange(sol)))
 
     def _hook(self, stage: str, level: int, sol, rhs):
         fn = self.modifications.get(stage)
@@ -119,15 +123,15 @@ class Multigrid:
         if fused_down:
             sol, rhs_c = lv.down_leg_fn(sol, rhs)
         elif lv.res_restrict_fn is not None and not self.fas:
-            rhs_c = lv.res_restrict_fn(sol, rhs)
+            rhs_c = lv.res_restrict_fn(lv.exchange(sol), rhs)
         else:
-            rhs_c = lv.restrict_fn(self.residual(level, sol, rhs))
+            rhs_c = lv.restrict_fn(lv.exchange(self.residual(level, sol, rhs)))
         if self.fas:
             # tau-corrected coarse problem A_c(u_c) = R r + A_c(R u), initial
             # guess u_c = R u, correction P(u_c - R u).  The coarse cycle may
             # update its iterate in place, so it gets a copy of R u.
-            sol_c0 = coarse.bc_sol(lv.restrict_fn(sol))
-            rhs_c = rhs_c + coarse.A_apply(sol_c0)
+            sol_c0 = coarse.bc_sol(lv.restrict_fn(lv.exchange(sol)))
+            rhs_c = rhs_c + coarse.A_apply(coarse.exchange(sol_c0))
             sol_c = sol_c0.clone()
         else:
             sol_c = coarse.bc_sol(torch.zeros(coarse.shape, dtype=rhs_c.dtype,
@@ -141,12 +145,12 @@ class Multigrid:
             sol_c = self.cycle(sol_c, rhs_c, level - 1, kind=rk)
 
         if lv.up_leg_fn is not None and not self.fas:
-            sol = lv.up_leg_fn(sol, sol_c, rhs)
+            sol = lv.up_leg_fn(sol, coarse.exchange(sol_c), rhs)
         else:
             if lv.prolong_correct_fn is not None and not self.fas:
-                sol = lv.prolong_correct_fn(sol, sol_c)
+                sol = lv.prolong_correct_fn(sol, coarse.exchange(sol_c))
             else:
-                corr = lv.prolong_fn(sol_c - sol_c0) if self.fas else lv.prolong_fn(sol_c)
+                corr = lv.prolong_fn(coarse.exchange(sol_c - sol_c0 if self.fas else sol_c))
                 sol = lv.bc_sol(sol + corr)
             sol = _smooth_n(lv, self.n_post, sol, rhs)
         sol, rhs = self._hook("post", level, sol, rhs)
@@ -163,7 +167,8 @@ class Multigrid:
         start = self.min_level if start_level is None else start_level
         rhs_per_level = {self.max_level: rhs_fine}
         for lvl in range(self.max_level, start, -1):
-            rhs_per_level[lvl - 1] = self.levels[lvl].restrict_fn(rhs_per_level[lvl])
+            lv = self.levels[lvl]
+            rhs_per_level[lvl - 1] = lv.restrict_fn(lv.exchange(rhs_per_level[lvl]))
 
         lv0 = self.levels[start]
         sol = lv0.bc_sol(torch.zeros(lv0.shape, dtype=rhs_fine.dtype, device=rhs_fine.device))
@@ -174,7 +179,7 @@ class Multigrid:
         )
         for lvl in range(start + 1, self.max_level + 1):
             lv = self.levels[lvl]
-            sol = lv.bc_sol(lv.prolong_fn(sol))
+            sol = lv.bc_sol(lv.prolong_fn(self.levels[lvl - 1].exchange(sol)))
             sol = self.cycle(sol, rhs_per_level[lvl], lvl)
         return sol
 

@@ -13,7 +13,15 @@ transfers K4/K5.  FAS cycles bypass K1/K2 and K4/K5 and keep K3
 on the dense backend's node-shaped level arrays as in the reference; the
 kernel makers decline every localization but node (ops/cuda), where the
 reference's do not look.  The coarse solver is any of krylov.SOLVERS or
-`Smoother`.  The sharded backend is not ported.
+`Smoother`.  On the sharded backend (parallel/, reference :345-423) a level
+takes the reference's communication structure: the overlap smoother
+(`tpu_overlap_halo`), the aggregated smoother (`comm_haloAggregationFactor`)
+and, with kernels in 3D, the sharded K3 and, where the coarse level is
+sharded too, the sharded legs K1/K2; the dense kernel makers are not
+asked there, nor K4/K5 anywhere on it.  GeneratedSolver wraps through the
+backend (eager on the sharded one), and ExportedSolver scatters a global
+numpy array on entry and gathers it on exit, so every rank gets the
+global solution.
 """
 
 from __future__ import annotations
@@ -49,8 +57,15 @@ from exastencils_tpu_torch.ops.cuda import (
     make_fused_legs_3d,
     make_fused_smoother_3d,
     make_fused_transfers_3d,
+    make_sharded_fused_legs_3d,
+    make_sharded_fused_smoother_3d,
 )
-from exastencils_tpu_torch.ops.smoothers import make_smoother
+from exastencils_tpu_torch.ops.smoothers import (
+    is_star_radius1,
+    make_aggregated_smoother,
+    make_overlap_smoother,
+    make_smoother,
+)
 from exastencils_tpu_torch.ops.stencil_apply import apply_stencil
 from exastencils_tpu_torch.runtime.performance import HBM_BANDWIDTH, detect_chip
 from exastencils_tpu_torch.solver.krylov import SOLVERS
@@ -198,7 +213,7 @@ class GeneratedSolver:
 class ExportedSolver:
     """Embeddable view of a generated solver for host applications that
     own their field data as numpy arrays (reference `ExportedSolver`,
-    synthesis.py:191-274; the dense backend only).
+    synthesis.py:191-274).
 
     Contract:
       * `solve(rhs, u0=None, ...) -> (numpy, iterations, relative
@@ -206,7 +221,10 @@ class ExportedSolver:
         aliased or mutated: they are copied into the solver's own device
         buffers (the same buffers every call, so on CUDA every solve
         replays the one staged cycle bound to them), and the result is a
-        new numpy array.  Shapes are the finest level's `self.shape`.
+        new numpy array.  Shapes are the finest level's `self.shape`: on
+        a sharded backend the global node array, which every rank passes
+        whole, is scattered onto the rank's fragment on entry and
+        gathered on exit (one all-reduce), so every rank gets it back.
       * `step(sol, rhs) -> sol` is the raw cycle on device tensors with
         the iterate donated: on CUDA it is the staged cycle, which writes
         its result into `sol` and returns it; on the CPU the cycle may
@@ -218,13 +236,14 @@ class ExportedSolver:
         self._g = gen
         self.knowledge = gen.knowledge
         h = gen.backend.handle(gen.knowledge.maxLevel)
-        self.shape = tuple(h.work_shape)
+        self._sharded = gen.backend.is_sharded
+        self.shape = tuple(h.grid.shape_of(NODE) if self._sharded else h.work_shape)
         self.dtype = real_dtype(gen.knowledge)
         self.device = h.device
         self.step = gen._cycle  # donation: see the class docstring
         self.residual_norm = gen._res_norm
-        self._sol = torch.zeros(self.shape, dtype=self.dtype, device=self.device)
-        self._rhs = torch.zeros(self.shape, dtype=self.dtype, device=self.device)
+        self._sol = torch.zeros(h.work_shape, dtype=self.dtype, device=self.device)
+        self._rhs = torch.zeros(h.work_shape, dtype=self.dtype, device=self.device)
         # seconds of the last solve's copy-in, cycles and copy-out (host
         # clock, each ended by a device synchronisation on CUDA)
         self.last_seconds: Dict[str, float] = {}
@@ -238,11 +257,16 @@ class ExportedSolver:
         if host.shape != self.shape:
             raise ValueError(f"array of shape {host.shape}, the solver's is {self.shape}")
         # copy_ only reads its source: a writable array is read in place
-        buf.copy_(torch.from_numpy(host if host.flags.writeable else host.copy()))
+        src = torch.from_numpy(host if host.flags.writeable else host.copy())
+        if self._sharded:
+            src = self._g.backend.scatter_local(self.knowledge.maxLevel,
+                                                src.to(self.device, self.dtype))
+        buf.copy_(src)
         return buf
 
-    @staticmethod
-    def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    def _to_numpy(self, t: torch.Tensor) -> np.ndarray:
+        if self._sharded:
+            t = self._g.backend.gather_global(self.knowledge.maxLevel, t)
         return t.to("cpu", copy=True).numpy()
 
     def solve(self, rhs, u0=None, target_res_reduction=None, max_its=None):
@@ -305,16 +329,15 @@ def generate_solver(
     restrict_op: IntergridStencil = None,
     prolong_op: IntergridStencil = None,
 ) -> GeneratedSolver:
-    """Expand `generate solver for u in eq with {options}` on the dense
-    backend.  `options` are Knowledge keys without the `solver_` prefix
-    or full keys; `modifications` are the cycle's "pre"/"post" hooks."""
+    """Expand `generate solver for u in eq with {options}` on the dense or
+    the sharded backend.  `options` are Knowledge keys without the
+    `solver_` prefix or full keys; `modifications` are the cycle's
+    "pre"/"post" hooks."""
     k = knowledge
     for key, val in (options or {}).items():
         full = key if hasattr(k, key) else f"solver_{key}"
         k.set(full, val)
     k.update()
-    if backend.is_sharded:
-        raise NotImplementedError("the port has the dense backend only")
     if k.solver_cgs != "Smoother" and k.solver_cgs not in SOLVERS:
         raise ValueError(f"unknown coarse solver {k.solver_cgs!r}")
 
@@ -358,16 +381,40 @@ def generate_solver(
                 return expr
 
             coloring = h.color_masks(num_colors, color_fn=color_fn_nd)
-        smooth = make_smoother(A, bc_sol, omega=omega, coloring=coloring)
+        smooth = make_smoother(A, bc_sol, omega=omega, coloring=coloring, exchange=h.exchange)
         smooth_n = None
-        if k.tpu_use_pallas and nd == 3 and num_colors == 2 and smoother_kind in _GS:
+        kernels_3d = k.tpu_use_pallas and nd == 3
+        # the sharded path's communication structure (reference
+        # IR_SplitLoops / halo aggregation): overlap the interior update
+        # with the halo messages, and/or widen the halo to k layers
+        # exchanged once per k half-sweeps; replicated levels have no topo
+        sharded_level = backend.is_sharded and hasattr(h, "topo")
+        if sharded_level:
+            if k.tpu_overlap_halo and is_star_radius1(A):
+                smooth = make_overlap_smoother(A, bc_sol, h.topo, h.local_cells, omega, coloring)
+            if k.comm_haloAggregationFactor > 1 and is_star_radius1(A):
+                smooth_n = make_aggregated_smoother(A, bc_sol, h.topo, h.local_cells, omega,
+                                                    coloring, k.comm_haloAggregationFactor)
+            if kernels_3d and num_colors == 2 and smoother_kind in _GS:
+                fused = make_sharded_fused_smoother_3d(A, u, lvl, h.topo, h.local_cells, omega,
+                                                       num_colors)
+                if fused is not None:
+                    smooth_n = fused
+        if kernels_3d and not backend.is_sharded and num_colors == 2 and smoother_kind in _GS:
             smooth_n = make_fused_smoother_3d(A, u, lvl, h.work_shape, omega, num_colors)
         restrict_fn = prolong_fn = None
         res_restrict_fn = prolong_correct_fn = None
         down_leg_fn = up_leg_fn = None
         if lvl > k.minLevel:
             restrict_fn, prolong_fn = backend.transfer_fns(lvl, restrict_op, prolong_op)
-            if k.tpu_use_pallas and nd == 3:
+            coarse_h = backend.handle(lvl - 1)
+            if (kernels_3d and sharded_level and hasattr(coarse_h, "topo")
+                    and num_colors == 2 and smoother_kind in _GS):
+                down_leg_fn, up_leg_fn = make_sharded_fused_legs_3d(
+                    A, u, lvl, h.topo, h.local_cells, coarse_h.local_cells,
+                    restrict_op, prolong_op, omega,
+                    k.solver_smoother_numPre, k.solver_smoother_numPost, num_colors)
+            if kernels_3d and not backend.is_sharded:
                 coarse_shape = backend.handle(lvl - 1).work_shape
                 if smoother_kind in _GS:
                     down_leg_fn, up_leg_fn = make_fused_legs_3d(
@@ -386,6 +433,7 @@ def generate_solver(
             smooth=smooth,
             bc_sol=bc_sol,
             bc_res=bc_res,
+            exchange=h.exchange,
             restrict_fn=restrict_fn,
             prolong_fn=prolong_fn,
             dot_fn=h.dot,
@@ -414,7 +462,7 @@ def generate_solver(
 
         def coarse_solve(sol, rhs):
             return krylov(
-                lv0.A_apply, sol, rhs,
+                lambda p: lv0.A_apply(lv0.exchange(p)), sol, rhs,
                 bc_sol=lv0.bc_sol,
                 bc_res=lv0.bc_res,
                 max_its=k.solver_cgs_maxNumIts,

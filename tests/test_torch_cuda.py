@@ -924,3 +924,93 @@ def test_detect_chip_names_the_card(cuda):
     chip = detect_chip()
     assert chip == ("h100" if "H100" in torch.cuda.get_device_name(0) else "cpu")
     assert chip in HBM_BANDWIDTH
+
+
+# One rank's halo-extended fragment on the sharded path (ops/cuda
+# make_sharded_fused_*): (local cells, mesh shape, ghost width, K).
+# Unequal cells at V(3,3)'s ghost 8; the smallest fragment the legs admit
+# at K = 1; x unsharded (a 2x2x1 mesh: ghost 0 in x); an odd ghost width.
+GHOSTED = [((6, 10, 14), (2, 2, 2), 8, 3), ((2, 2, 2), (2, 2, 2), 4, 1),
+           ((10, 6, 32), (2, 2, 1), 8, 3), ((6, 6, 6), (2, 2, 2), 9, 3)]
+
+
+@pytest.mark.parametrize("cells,dims,g,K", GHOSTED)
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_ghosted_legs_and_smoother_match_plain(cuda, cells, dims, g, K, dtype):
+    """The sharded path's K1/K2/K3 on a halo-extended fragment, for the
+    excl planes (ops/cuda._excl_planes) of every rank of a mesh of shape
+    `dims`: the RBGS (K3, K1's sol) bitwise the plain version's, K1's
+    coarse rhs (geometry shifted by the ghost width, y/x coarse ghost rows
+    zero) and K2 (the whole fragment corrected) within TOL; every wrapper
+    launches."""
+    from exastencils_tpu_torch.ops.cuda import _excl_planes
+    from exastencils_tpu_torch.parallel.mesh import AXIS_NAMES, DomainMesh
+    from exastencils_tpu_torch.parallel.topology import ShardTopology
+
+    topos = [ShardTopology(DomainMesh(dims, rank=r), dims, AXIS_NAMES, g)
+             for r in range(int(np.prod(dims)))]
+    ghost = topos[0].ghosts
+    shape, cshape = topos[0].local_shape(cells), topos[0].local_shape(tuple(n // 2 for n in cells))
+    rng = np.random.default_rng(sum(cells) + K)
+    sol, rhs = (torch.from_numpy(rng.standard_normal(shape)).to(cuda, dtype) for _ in range(2))
+    sol_c = torch.from_numpy(rng.standard_normal(cshape)).to(cuda, dtype)
+    offs = ((0, 0, 0), (-1, 0, 0), (1, 0, 0), (0, -1, 0), (0, 1, 0), (0, 0, -1), (0, 0, 1))
+    from exastencils_tpu_torch.core.stencil import BoundStencil
+    A = BoundStencil("A", offs, (6.5, -0.9, -1.1, -0.7, -1.3, -0.95, -1.05))
+    R, P = node_restriction(3), node_prolongation(3)
+    rk, pk = separable_kernels(R), separable_kernels(P)
+    tol = TOL[dtype]
+    for topo in topos:
+        excl = _excl_planes(topo, cells)
+        n0 = [fn.launches for fn in (s3.smooth_res_restrict, s3.prolong_correct_smooth,
+                                     s3.rbgs_fused)]
+        s_got, rc_got = s3.smooth_res_restrict(sol.clone(), rhs, A, OMEGA, K, rk, R.lo, cshape,
+                                               excl, ghost=ghost)
+        u_got = s3.prolong_correct_smooth(sol.clone(), sol_c, rhs, A, OMEGA, K, pk, P.lo, excl,
+                                          ghost=ghost)
+        m_got = s3.rbgs_fused(sol.clone(), rhs, A, OMEGA, K, excl)
+        torch.cuda.synchronize()
+        n1 = [fn.launches for fn in (s3.smooth_res_restrict, s3.prolong_correct_smooth,
+                                     s3.rbgs_fused)]
+        assert all(b > a for a, b in zip(n0, n1))
+        s_ref, rc_ref = s3.smooth_res_restrict_plain(sol, rhs, A, OMEGA, K, rk, R.lo, cshape,
+                                                     excl, ghost=ghost)
+        u_ref = s3.prolong_correct_smooth_plain(sol, sol_c, rhs, A, OMEGA, K, pk, P.lo, excl,
+                                                ghost=ghost)
+        assert torch.equal(s_got, s_ref)
+        assert torch.equal(m_got, s3.rbgs_fused_plain(sol, rhs, A, OMEGA, K, excl))
+        assert (rc_got - rc_ref).abs().max() <= tol * rc_ref.abs().max()
+        assert (u_got - u_ref).abs().max() <= tol * u_ref.abs().max()
+        for d in (1, 2):  # the y/x coarse ghost layers, which the reference leaves zero
+            assert not rc_got.narrow(d, 0, ghost[d]).any()
+            assert not rc_got.narrow(d, cshape[d] - ghost[d], ghost[d]).any()
+
+
+SHARDED_SOLVE = dict(dimensionality=3, minLevel=1, maxLevel=5, tpu_use_pallas=True,
+                     tpu_coarse_replicate_threshold=8)
+
+
+def sharded_solve_rank(device):
+    """One rank of a 2 x 2 x 2 sharded solve on the card: its lines and its
+    K1/K2/K3 launches."""
+    from exastencils_tpu_torch.parallel.mesh import make_domain_mesh
+
+    k = Knowledge(**SHARDED_SOLVE).update()
+    solver = PoissonMGSolver(k, device, mesh=make_domain_mesh((2, 2, 2)), shard_dims=(2, 2, 2))
+    n0 = [fn.launches for fn in (s3.smooth_res_restrict, s3.prolong_correct_smooth, s3.rbgs_fused)]
+    lines = solver.solve(max_its=12, target_res_reduction=1e-10)[1]
+    n1 = [fn.launches for fn in (s3.smooth_res_restrict, s3.prolong_correct_smooth, s3.rbgs_fused)]
+    return lines, [b - a for a, b in zip(n0, n1)]
+
+
+def test_sharded_solve_on_cuda_prints_the_dense_lines(cuda):
+    """Eight ranks sharing the card (gloo, halo slabs through host
+    buffers) run the 2 x 2 x 2 kernel solve: every rank prints the dense
+    solve's lines on the card and launched K1, K2 and K3."""
+    from exastencils_tpu_torch.parallel.mesh import run_ranks
+
+    want = PoissonMGSolver(Knowledge(**SHARDED_SOLVE).update(), device="cuda").solve(
+        max_its=12, target_res_reduction=1e-10)[1]
+    for lines, launches in run_ranks(sharded_solve_rank, 8, device="cuda", timeout_s=300):
+        assert lines == want
+        assert all(n > 0 for n in launches)

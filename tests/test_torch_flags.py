@@ -20,16 +20,16 @@ from exastencils_tpu_torch.config.knowledge import Knowledge
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
-# Read only by exastencils_tpu/parallel/ (the sharded backend, the device
-# mesh, halo aggregation and overlap), which the port has not ported yet;
-# ROADMAP Queue 1 keeps it.
+# Read only by exastencils_tpu/parallel/dslsharding.py (the mesh axis names
+# of the sharded DSL), which the port has not ported yet; ROADMAP Queue 1
+# keeps it.
 NOT_READ_UNTIL_PARALLEL = frozenset({
-    "comm_ghostWidth",
     "tpu_mesh_axis_names",
-    "tpu_coarse_replicate_threshold",
-    "comm_haloAggregationFactor",
-    "tpu_overlap_halo",
 })
+# Read by the port's sharded backend since it was ported; each changes it
+# (test_sharded_backend_reads_the_flag).
+SHARDED_FLAGS = ("comm_ghostWidth", "tpu_coarse_replicate_threshold",
+                 "comm_haloAggregationFactor", "tpu_overlap_halo")
 
 
 @functools.cache
@@ -70,6 +70,37 @@ def test_listed_flag_is_read_by_the_jax_package_only(flag):
     assert flag in {f.name for f in dataclasses.fields(Knowledge)}
     assert flag in flags_read("exastencils_tpu")
     assert flag not in flags_read("exastencils_tpu_torch")
+
+
+def _sharded_solver(**flags):
+    """A 2D Poisson solver on a 2x2 mesh's first fragment (building it does
+    not communicate, so no process group is needed)."""
+    from exastencils_tpu_torch.models.poisson import PoissonMGSolver
+    from exastencils_tpu_torch.parallel.mesh import DomainMesh
+
+    k = Knowledge(dimensionality=2, minLevel=2, maxLevel=6, **flags).update()
+    return PoissonMGSolver(k, "cpu", mesh=DomainMesh((2, 2)), shard_dims=(2, 2))
+
+
+# flag -> (a value that differs from the default, what it changes)
+SHARDED_FLAG_EFFECTS = {
+    "comm_ghostWidth": (3, lambda s: s.backend.topo.ghost),
+    "tpu_coarse_replicate_threshold": (8, lambda s: sorted(s.backend.replicated)),
+    "comm_haloAggregationFactor": (
+        4, lambda s: getattr(s.levels[6].smooth_n, "__qualname__", None)),
+    "tpu_overlap_halo": (True, lambda s: s.levels[6].smooth.__qualname__),
+}
+
+
+@pytest.mark.parametrize("flag", SHARDED_FLAGS)
+def test_sharded_backend_reads_the_flag(flag):
+    """Each flag the sharded backend reads changes it: the ghost width,
+    the replicated set, the aggregated smoother's selection, the overlap
+    smoother's selection; the port's modules name it."""
+    value, effect = SHARDED_FLAG_EFFECTS[flag]
+    base, flagged = effect(_sharded_solver()), effect(_sharded_solver(**{flag: value}))
+    assert base != flagged, (flag, base, flagged)
+    assert flag in flags_read("exastencils_tpu_torch")
 
 
 def test_performance_estimate_flag_is_read():

@@ -81,17 +81,24 @@ def updatable(shape, excl, z, y, x):
 
 
 def emulate_launch(mode, sol, rhs, A, K, kern, lo, excl, sol_c=None, coarse_shape=None,
-                   halo_cut=0, z_cut=0, chunk=None, excl_shift=0):
+                   halo_cut=0, z_cut=0, chunk=None, excl_shift=0, geom=None):
     """One leg_kernel launch, block by block, out of place: returns
     (new sol, coarse rhs or None) and checks that every output node is
     written by exactly one block.  `chunk`: the fine z-planes of a block
     (default: the wrapper's choice on an H100's 132 SMs).  `halo_cut`
     shortens the halo, `z_cut` the half-sweeps' z-ranges below the chunk
     and `excl_shift` moves the excl planes of the updatable mask (faults
-    the tests must catch)."""
+    the tests must catch).  `geom`: K1's Coarse geometry (legs3d.cu; the
+    12 ints of stream3d.coarse_geometry, `lo` then the aligned taps' lo):
+    blocks restrict aligned coarse nodes, written at array index + off
+    where inside the window [lo, hi]; default the dense geometry."""
     down, up = mode == s3.LEG_RESTRICT, mode == s3.LEG_PROLONG
     shape = tuple(sol.shape)
     nz, ny, nx = shape
+    if down and geom is None:
+        geom = (0, 0, 0, *coarse_shape, 0, 0, 0, *(n - 1 for n in coarse_shape))
+    if down:
+        off, cn, wlo, whi = geom[0:3], geom[3:6], geom[6:9], geom[9:12]
     CZ = s3.leg_chunk(shape, H100_SMS) if chunk is None else chunk
     reach = s3._restrict_reach(kern, lo) if down else 0
     halo = s3.leg_halo(mode, K, reach) - halo_cut
@@ -106,15 +113,14 @@ def emulate_launch(mode, sol, rhs, A, K, kern, lo, excl, sol_c=None, coarse_shap
     if down:
         out_c = torch.zeros(coarse_shape, dtype=sol.dtype)
         written_c = torch.zeros(coarse_shape, dtype=torch.int32)
-        rmats = [restriction_matrix_1d(kern[d], lo[d], coarse_shape[d], shape[d],
-                                       coarse_shape[d]) for d in range(3)]
+        rmats = [restriction_matrix_1d(kern[d], lo[d], cn[d], shape[d], cn[d]) for d in range(3)]
     grid = [tiles(nz, CZ), tiles(ny, TY), tiles(nx, TX)]
     if down:
-        grid = [max(grid[0], tiles(coarse_shape[0], CZ // 2)),
-                max(grid[1], tiles(coarse_shape[1], TY // 2)),
-                max(grid[2], tiles(coarse_shape[2], TX // 2))]
+        grid = [max(grid[0], tiles(cn[0], CZ // 2)),
+                max(grid[1], tiles(cn[1], TY // 2)),
+                max(grid[2], tiles(cn[2], TX // 2))]
     for bz in range(grid[0]):
-        z0, z1, cz0, cz1, rz0, rz1, zf0, zf1 = span(bz, CZ, nz, coarse_shape[0] if down else 0,
+        z0, z1, cz0, cz1, rz0, rz1, zf0, zf1 = span(bz, CZ, nz, cn[0] if down else 0,
                                                    down, kern, lo)
         if zf0 > zf1:
             continue
@@ -155,25 +161,41 @@ def emulate_launch(mode, sol, rhs, A, K, kern, lo, excl, sol_c=None, coarse_shap
                     rfull = torch.zeros_like(sol)
                     rfull[tuple(g.expand(W.shape)[box] for g in (gz, gy, gx))] = res[box]
                     coarse = apply_separable(rmats, rfull)
-                    cy = slice(ty0 // 2, min(ty0 // 2 + TY // 2, coarse_shape[1]))
-                    cx = slice(tx0 // 2, min(tx0 // 2 + TX // 2, coarse_shape[2]))
-                    out_c[cz0:cz1, cy, cx] = coarse[cz0:cz1, cy, cx]
-                    written_c[cz0:cz1, cy, cx] += 1
+                    # the block's aligned coarse tile, then its array nodes
+                    # inside the window
+                    a0 = (cz0, ty0 // 2, tx0 // 2)
+                    a1 = (cz1, min(ty0 // 2 + TY // 2, cn[1]), min(tx0 // 2 + TX // 2, cn[2]))
+                    lo_a = [max(a0[d], wlo[d] - off[d]) for d in range(3)]
+                    hi_a = [min(a1[d], whi[d] - off[d] + 1) for d in range(3)]
+                    if all(lo_a[d] < hi_a[d] for d in range(3)):
+                        src = tuple(slice(lo_a[d], hi_a[d]) for d in range(3))
+                        dst = tuple(slice(lo_a[d] + off[d], hi_a[d] + off[d]) for d in range(3))
+                        out_c[dst] = coarse[src]
+                        written_c[dst] += 1
     assert torch.equal(written, torch.ones_like(written)), "fine nodes written != once"
     if down:
-        assert torch.equal(written_c, torch.ones_like(written_c)), "coarse nodes written != once"
+        want = torch.zeros_like(written_c)
+        want[tuple(slice(max(wlo[d], off[d]), min(whi[d] + 1, off[d] + cn[d]))
+                   for d in range(3))] = 1
+        assert torch.equal(written_c, want), "coarse nodes written != once in the window"
     return out, out_c
 
 
 def emulate_leg(mode, sol, rhs, A, K, kern, lo, excl, sol_c=None, coarse_shape=None,
-                chunk=None, dtype=None):
+                chunk=None, dtype=None, ghost=s3.NO_GHOST):
     """The wrapper's chain of launches (leg_chain for `dtype`, default
-    sol's), each out of place."""
+    sol's), each out of place; `ghost` a halo-extended fragment's
+    geometry, as the wrapper passes it (_leg_launches)."""
+    geom = None
+    if mode == s3.LEG_RESTRICT:
+        lo, geom = s3.coarse_geometry(sol.shape, coarse_shape, lo, ghost)
+    elif mode == s3.LEG_PROLONG:
+        lo = tuple(lo[d] - ghost[d] for d in range(3))
     reach = s3._restrict_reach(kern, lo) if mode == s3.LEG_RESTRICT else 0
     out_c = None
     for m, k in s3.leg_chain(mode, K, dtype or sol.dtype, reach):
         sol, c = emulate_launch(m, sol, rhs, A, k, kern, lo, excl, sol_c, coarse_shape,
-                                chunk=chunk)
+                                chunk=chunk, geom=geom)
         out_c = c if c is not None else out_c
     return sol, out_c
 
@@ -230,6 +252,54 @@ def test_up_leg_decomposition_is_plain_k2(case, K):
     got, _ = emulate_leg(s3.LEG_PROLONG, sol, rhs, A, K, pk, P.lo, excl, sol_c=sol_c)
     assert torch.equal(got, s3.prolong_correct_smooth_plain(sol, sol_c, rhs, A, OMEGA, K, pk,
                                                             P.lo, excl))
+
+
+# One rank's halo-extended fragment on the sharded path (ops/cuda
+# make_sharded_fused_legs_3d): (local cells, ghost per dim, excl planes of
+# the rank).  The smallest fragment the legs admit at K = 1 (ghost 4);
+# unequal cells at ghost 8, the low corner rank and the high one; x
+# unsharded (ghost 0); an odd ghost width (9).
+GHOSTED = {
+    "smallest_g4_low": ((2, 2, 2), (4, 4, 4), (4, -1, 4, -1, 4, -1)),
+    "cells_6x10x14_g8_low": ((6, 10, 14), (8, 8, 8), (8, -1, 8, -1, 8, -1)),
+    "cells_6x10x14_g8_high": ((6, 10, 14), (8, 8, 8), (-1, 14, -1, 18, -1, 22)),
+    "x_unsharded": ((10, 6, 32), (8, 8, 0), (-1, 14, 8, -1, 0, 32)),
+    "odd_g9": ((6, 6, 6), (9, 9, 9), (9, -1, -1, 15, 9, -1)),
+}
+
+
+def ghosted(case):
+    cells, ghost, excl = GHOSTED[case]
+    shape = tuple(n + 1 + 2 * g for n, g in zip(cells, ghost))
+    cshape = tuple(n // 2 + 1 + 2 * g for n, g in zip(cells, ghost))
+    return shape, cshape, ghost, excl
+
+
+@pytest.mark.parametrize("K", [1, 2, 3])
+@pytest.mark.parametrize("case", sorted(GHOSTED))
+def test_ghosted_legs_decomposition_is_plain(case, K):
+    """K1 and K2 on a halo-extended fragment: K1's blocks restrict aligned
+    coarse nodes (the taps' lo shifted by the ghost width's parity only,
+    so the window's halo stays that of the dense node restriction, also
+    for an odd ghost width) into the coarse write window, zeros
+    elsewhere; K2 prolongs over the whole
+    fragment with the taps' lo shifted by the ghost width.  Sol bitwise,
+    the coarse rhs within 1e-12 (its matrices are shaped otherwise)."""
+    shape, cshape, ghost, excl = ghosted(case)
+    sol, rhs, sol_c = inputs(shape, cshape, 60 + K)
+    A, (R, P) = star(K), NODE
+    rk, pk = separable_kernels(R), separable_kernels(P)
+    lo_eff, _ = s3.coarse_geometry(shape, cshape, R.lo, ghost)
+    assert s3._restrict_reach(rk, lo_eff) == 1
+    got, got_c = emulate_leg(s3.LEG_RESTRICT, sol, rhs, A, K, rk, R.lo, excl, coarse_shape=cshape,
+                             ghost=ghost)
+    want, want_c = s3.smooth_res_restrict_plain(sol, rhs, A, OMEGA, K, rk, R.lo, cshape, excl,
+                                                ghost=ghost)
+    assert torch.equal(got, want)
+    assert torch.allclose(got_c, want_c, rtol=0, atol=1e-12)
+    got, _ = emulate_leg(s3.LEG_PROLONG, sol, rhs, A, K, pk, P.lo, excl, sol_c=sol_c, ghost=ghost)
+    assert torch.equal(got, s3.prolong_correct_smooth_plain(sol, sol_c, rhs, A, OMEGA, K, pk,
+                                                            P.lo, excl, ghost=ghost))
 
 
 @pytest.mark.parametrize("K", [1, 2, 3])

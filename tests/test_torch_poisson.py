@@ -92,7 +92,9 @@ REPO = pathlib.Path(__file__).resolve().parents[1]
     "exastencils_tpu_torch.interop", "exastencils_tpu_torch.core",
     "exastencils_tpu_torch.runtime.performance", "exastencils_tpu_torch.runtime.fieldio",
     "exastencils_tpu_torch.runtime.vtk", "exastencils_tpu_torch.solver.krylov",
-    "exastencils_tpu_torch.solver.synthesis", "exastencils_tpu_torch.dsl.interp_builtins"])
+    "exastencils_tpu_torch.solver.synthesis", "exastencils_tpu_torch.dsl.interp_builtins",
+    "exastencils_tpu_torch.parallel.mesh", "exastencils_tpu_torch.parallel.topology",
+    "exastencils_tpu_torch.parallel.backend", "exastencils_tpu_torch.parallel.dryrun"])
 def test_import_leaves_jax_out(module):
     """Importing a module of the port, in a fresh interpreter, puts neither
     jax nor the JAX package (exastencils_tpu or any of its submodules)
