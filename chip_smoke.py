@@ -75,7 +75,25 @@ spawned on the one card:
                lines must be the dense port's;
   sharded_world1_nccl  one rank over NCCL on a 1x1x1 mesh (excl planes on
                all six sides): main_path's problem prints the dense lines;
-  sharded_dryrun  parallel/dryrun.py at 4 ranks.
+  sharded_dryrun  parallel/dryrun.py at 4 ranks: the DSL half (the 2D
+               example over a 2x2 rank mesh, digit-equal to the dense
+               run), then the Python-API half;
+and the sharded DSL (dsl/interp_fragments), its ranks spawned on the one
+card over gloo:
+  sharded_dsl_path  examples/poisson_3d_bench.exa4 at 513^3 float32 on
+               2x2x2 ranks (no kernel: the DSL fast path is dense only):
+               the program's Solve, whose lines must agree with the dense
+               plain executor's on the card (the same cycle count, each
+               residual within max(1e-5 rel, 2 F), F the largest
+               difference of the dense fast path's lines to the plain
+               executor's), the first drop < 0.2; then 2 more cycles:
+               ms per MGCycle@finest on rank 0 (CUDA events between
+               barriers), exchanges per rank and cycle (`communicate` and
+               implicit apart), MB sent, the exchange share of a cycle in
+               a synchronised run, the sharded and replicated levels and
+               the runs left eager; and the program's Solve at maxLevel 6
+               in float64, whose lines must be the dense run's by the dry
+               run's rule.
 The `staging` line sums up the graphs, device loops,
 capture seconds and graph-pool bytes of every staged path.  Every phase
 prints one line; any failure raises and exits non-zero.  The third-to-last line
@@ -1741,6 +1759,158 @@ def world1_rank(device, level):
     return {"transport": dist.get_backend(), "launches": launches, "lines": lines}
 
 
+# sharded_dsl_path: timed cycles, the float64 Solve's level
+SHARDED_DSL_TIMED, SHARDED_DSL_LINES_LEVEL = 2, 6
+
+
+def sharded_dsl_knowledge(level, f64=False):
+    from exastencils_tpu_torch import Knowledge
+
+    return Knowledge(dimensionality=3, minLevel=1, maxLevel=level, useDblPrecision=f64,
+                     tpu_compute_dtype="" if f64 else "float32", tpu_mesh_shape=SHARD_DIMS,
+                     tpu_shard_dsl=True, tpu_dsl_fastpath=False).update()
+
+
+def sharded_dsl_rank(device, level, lines_level):
+    """One rank of sharded_dsl_path: the bench program at `level` float32
+    on its 2x2x2 fragment (its Solve's lines, then SHARDED_DSL_TIMED
+    cycles timed on rank 0 with CUDA events between barriers, then again
+    with the exchanges timed), then the float64 Solve at `lines_level`."""
+    import torch.distributed as dist
+
+    from exastencils_tpu_torch.dsl.interpreter import L4Executable
+    from exastencils_tpu_torch.dsl.parser import parse_l4
+
+    # staged by request (the card's default too): a sharded run stays eager
+    # and counts the runs it leaves so
+    res = []
+    ex = L4Executable(parse_l4(BENCH_EXA4), sharded_dsl_knowledge(level), device=device,
+                      out=res.append, jit_functions=True)
+    ex.run()
+    fin = ex.hi
+
+    def cycle():
+        ex.call_function(ex.functions[("MGCycle", fin)], fin, [])
+
+    u = ex.get_field("U", fin)
+    finite = bool(torch.isfinite(u).all()) and u.dtype == torch.float32
+    stats = ex.frag.stats
+
+    def timed_cycles():
+        dist.barrier()
+        _sync(device)
+        cuda = device.type == "cuda"
+        if cuda:
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+        t0 = time.perf_counter()
+        for _ in range(SHARDED_DSL_TIMED):
+            cycle()
+        if cuda:
+            end.record()
+        _sync(device)
+        wall = time.perf_counter() - t0
+        dist.barrier()
+        return (start.elapsed_time(end) if cuda else wall * 1e3) / SHARDED_DSL_TIMED, wall
+
+    before = (stats.communicate, stats.implicit, stats.bytes_sent, stats.gathers)
+    cycle_ms, _ = timed_cycles()
+    per_cycle = [(a - b) / SHARDED_DSL_TIMED for a, b in zip(
+        (stats.communicate, stats.implicit, stats.bytes_sent, stats.gathers), before)]
+    stats.timed, stats.seconds = True, 0.0
+    timed_ms, wall = timed_cycles()
+    stats.timed = False
+    levels = {lvl: ex._window(lvl, "Node").sharded for lvl in range(ex.lo, ex.hi + 1)}
+    staging = ex.staging_stats()
+    del ex, u
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    lines = []
+    small = L4Executable(parse_l4(BENCH_EXA4), sharded_dsl_knowledge(lines_level, f64=True),
+                         device=device, out=lines.append)
+    small.run()
+    return {"rank": dist.get_rank(), "res": res, "finite": finite, "cycle_ms": cycle_ms,
+            "timed_cycle_ms": timed_ms, "exchange_share": stats.seconds / wall,
+            "communicate": per_cycle[0], "implicit": per_cycle[1],
+            "mb_sent": per_cycle[2] / 1e6, "gathers": per_cycle[3],
+            "sharded": [lvl for lvl, sh in levels.items() if all(sh)],
+            "replicated": [lvl for lvl, sh in levels.items() if not any(sh)],
+            "unstaged": staging["unstaged"], "unstaged_why": sorted(set(
+                staging["unstaged_runs"].values())),
+            "lines": lines, "lines_sharded": small.frag is not None,
+            "jax": sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "exastencils_tpu"))}
+
+
+def sharded_dsl_path(device="cuda", level=None, lines_level=SHARDED_DSL_LINES_LEVEL):
+    """sharded_dsl_path (see the module docstring): the dense references
+    on `device` first, then the ranks."""
+    import gc
+
+    from exastencils_tpu_torch.parallel.dryrun import _line_ok
+    from exastencils_tpu_torch.parallel.mesh import run_ranks
+
+    level = MAIN_LEVEL if level is None else level
+    t0 = time.perf_counter()
+    ref = {}
+    for tag, fastpath in (("plain", False), ("fast", True)):
+        lines = []
+        dsl_executable(BENCH_EXA4, device, fastpath, max_level=level, lines=lines,
+                       jit_functions=False).run()
+        ref[tag] = lines
+        gc.collect()
+    if ref["fast"][-1] != ref["plain"][-1]:
+        raise AssertionError(f"sharded_dsl_path: the dense fast path's Solve {ref['fast']} "
+                             f"and the plain one's {ref['plain']} differ in cycles")
+    floor = max(abs(float(a) - float(b)) for a, b in zip(ref["plain"][:-1], ref["fast"][:-1]))
+    dense_lines = []
+    dsl_executable(BENCH_EXA4, device, False, max_level=lines_level, f64=True,
+                   lines=dense_lines, jit_functions=False).run()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    n_ranks = int(np.prod(SHARD_DIMS))
+    t1 = time.perf_counter()
+    ranks = run_ranks(sharded_dsl_rank, n_ranks, level, lines_level, device=device)
+    first = ranks[0]
+    got, want = first["res"], ref["plain"]
+    pairs = [(float(a), float(b)) for a, b in zip(got[:-1], want[:-1])]
+    errs = [abs(a - b) / abs(b) for a, b in pairs]
+    ok = len(got) == len(want) and got[-1] == want[-1] and all(
+        abs(a - b) <= max(1e-5 * abs(b), 2 * floor) for a, b in pairs)
+    drop = float(got[1]) / float(got[0])
+    phase("sharded_dsl_path", ranks=n_ranks, mesh="x".join(map(str, SHARD_DIMS)), level=level,
+          dtype="float32", transport="gloo", solve_cycles=got[-1], lines=got,
+          dense_plain=want, dense_fast=ref["fast"],
+          max_rel_to_dense=f"{max(errs):.3e}", floor_F=f"{floor:.3e}",
+          first_drop=f"{drop:.4e}", drop_bound=DSL_DROP_BOUND,
+          cycle_ms_rank0=f"{first['cycle_ms']:.3f}",
+          exchange_share=f"{first['exchange_share']:.4f}",
+          exchange_timed_cycle_ms=f"{first['timed_cycle_ms']:.3f}",
+          communicate_per_cycle=first["communicate"], implicit_per_cycle=first["implicit"],
+          mb_sent_per_cycle=f"{first['mb_sent']:.3f}", gathers_per_cycle=first["gathers"],
+          sharded_levels=first["sharded"], replicated_levels=first["replicated"],
+          runs_left_eager=first["unstaged"], why=first["unstaged_why"],
+          spawn_and_run_s=f"{time.perf_counter() - t1:.1f}")
+    for r in ranks:
+        if (r["res"] == []) == (r["rank"] == 0) or not r["finite"] or r["jax"]:
+            raise AssertionError(f"sharded_dsl_path rank {r['rank']}: lines {r['res']} (rank 0 "
+                                 f"prints), finite {r['finite']}, imported {r['jax']}")
+    if not ok or not drop < DSL_DROP_BOUND:
+        raise AssertionError(f"sharded_dsl_path: lines {got} against the dense plain {want} "
+                             f"(F {floor}), first drop {drop}")
+    if not first["unstaged"] or first["implicit"] or not first["communicate"]:
+        raise AssertionError(f"sharded_dsl_path: {first['unstaged']} runs left eager, "
+                             f"exchanges {first['communicate']} + {first['implicit']}")
+    lines = first["lines"]
+    if not (first["lines_sharded"] and len(lines) == len(dense_lines)
+            and all(map(_line_ok, lines, dense_lines))):
+        raise AssertionError(f"sharded_dsl_path: level-{lines_level} f64 lines differ:\n"
+                             f"{lines}\n{dense_lines}")
+    phase("sharded_dsl_path_lines", level=lines_level, dtype="float64", lines=len(lines),
+          rule="abs 1e-6 or rel 1e-9", identical=lines == dense_lines, last=lines[-2],
+          cycles=lines[-1], seconds=f"{time.perf_counter() - t0:.1f}")
+    return first
+
+
 def sharded_phases(device="cuda", kernel_cases=SHARDED_KERNEL_CASES):
     """sharded_kernels, sharded_path, sharded_world1_nccl and
     sharded_dryrun (see the module docstring), the ranks on `device`.
@@ -1831,9 +2001,14 @@ def sharded_phases(device="cuda", kernel_cases=SHARDED_KERNEL_CASES):
           lines_identical_to_dense=True, last=w1["lines"][-1])
 
     out = run_dryrun(4, device)
+    dsl = out["dsl"]
     phase("sharded_dryrun", ranks=out["ranks"], mesh="x".join(map(str, out["mesh"])),
           residual=f"{out['residual']:.6e}", dense=f"{out['dense_residual']:.6e}",
-          rel=f"{out['rel']:.2e}", bound=1e-5)
+          rel=f"{out['rel']:.2e}", bound=1e-5, dsl_mesh="x".join(map(str, dsl["mesh"])),
+          dsl_sharded_instances=dsl["sharded_instances"], dsl_lines=len(dsl["lines"]),
+          dsl_residual=f"{dsl['res_first']:.3e}->{dsl['res_last']:.3e}",
+          dsl_digit_equal_to_dense=True)
+    sharded_dsl_path(device)
     phase("sharded_phases", seconds=f"{time.perf_counter() - t0:.1f}")
     return frag, first
 

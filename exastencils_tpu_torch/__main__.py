@@ -7,6 +7,13 @@ run fails unless --cpu is given.  As in the reference, fields are float32
 unless --f64 is given (JAX computes in float32 unless x64 is enabled).
 --check diffs the printed lines against a golden .results file;
 --trace-dir writes a torch.profiler trace of the run (chrome JSON).
+
+Under `torchrun --nproc-per-node N -m exastencils_tpu_torch ...` every
+rank joins torchrun's process group (parallel/mesh.init_from_env) and the
+program runs sharded over the mesh of its decomposition (the reference's
+blocks x fragments, or `tpu_mesh_shape`, fitted to N ranks:
+parallel/dslsharding.build_dsl_mesh); rank 0 prints and applies --check,
+and the exit code is rank 0's.
 """
 
 from __future__ import annotations
@@ -44,17 +51,36 @@ def main(argv=None):
 
     import torch
 
+    if not args.cpu and not torch.cuda.is_available():
+        raise SystemExit("exastencils_tpu_torch: no CUDA device "
+                         "(torch.cuda.is_available() is false); use --cpu")
+    device = "cpu" if args.cpu else "cuda"
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:  # started by torchrun
+        import torch.distributed as dist
+
+        from exastencils_tpu_torch.parallel.mesh import init_from_env
+
+        device = init_from_env(device)
+        try:
+            rc = _run(args, device)
+            codes = [None] * dist.get_world_size()
+            dist.all_gather_object(codes, rc)
+        finally:
+            dist.destroy_process_group()
+        return codes[0]
+    return _run(args, device)
+
+
+def _run(args, device):
+    import torch
+    import torch.distributed as dist
+
     from exastencils_tpu_torch.config import Knowledge
     from exastencils_tpu_torch.config.parser import parse_config_file
 
     from exastencils_tpu_torch.device import real_dtype
     from exastencils_tpu_torch.dsl.driver import build_program
     from exastencils_tpu_torch.dsl.interpreter import L4Executable
-
-    if not args.cpu and not torch.cuda.is_available():
-        raise SystemExit("exastencils_tpu_torch: no CUDA device "
-                         "(torch.cuda.is_available() is false); use --cpu")
-    device = "cpu" if args.cpu else "cuda"
 
     k = Knowledge()
     if args.knowledge:
@@ -72,6 +98,9 @@ def main(argv=None):
         lines.append(str(s))
 
     ex = L4Executable(prog, k, device=device, out=emit if args.check else print)
+    if dist.is_initialized() and dist.get_rank() != 0:
+        ex.run(args.function)  # rank 0 prints and checks
+        return 0
     if args.trace_dir:
         from torch.profiler import ProfilerActivity, profile
 

@@ -177,6 +177,36 @@ class LevelGrid:
         raise ValueError(f"unknown localization {localization!r}")
 
 
+@dataclass(frozen=True)
+class WindowGrid(LevelGrid):
+    """One rank's window of a level of the sharded DSL: the geometry of
+    the global grid (widths, volumes, domain), with the shapes and the
+    coordinates of the window's points.  `windows[loc][d]` is the global
+    [lo, hi) along d of the local array of localization `loc`
+    (parallel/topology.FieldWindow.bounds); only the localizations it
+    names have a window."""
+
+    windows: dict = dc_field(default=None, compare=False, repr=False)
+
+    def coords_1d(self, localization: str, dim: int) -> torch.Tensor:
+        lo, hi = self._bounds(localization)[dim]
+        return super().coords_1d(localization, dim)[lo:hi]
+
+    def shape_of(self, localization: str) -> Tuple[int, ...]:
+        return tuple(hi - lo for lo, hi in self._bounds(localization))
+
+    def _bounds(self, localization: str):
+        if localization not in self.windows:
+            raise NotImplementedError(f"the sharded DSL with {localization} fields")
+        return self.windows[localization]
+
+
+def window_grid(grid: LevelGrid, windows: dict) -> WindowGrid:
+    """`grid` seen through one rank's windows (WindowGrid)."""
+    return WindowGrid(grid.domain, grid.level, grid.cells, grid.dtype, grid.device,
+                      grid.node_positions, windows)
+
+
 def level_grids(domain: Domain, knowledge, device, dtype=None) -> dict:
     """LevelGrid per level in [minLevel, maxLevel] on `device`.
 

@@ -82,8 +82,12 @@ def _forced() -> bool:
 def fastpath_enabled(exe) -> bool:
     """`tpu_dsl_fastpath` and `tpu_use_pallas` (read as "use the
     hand-written kernels"), a 3D program, and a CUDA device (or
-    EXA_FASTPATH_FORCE=1 on the CPU, for parity tests)."""
+    EXA_FASTPATH_FORCE=1 on the CPU, for parity tests); dense runs only,
+    as the reference's (a sharded run has no whole-grid array to hand a
+    kernel)."""
     k = exe.k
+    if getattr(exe, "frag", None) is not None:
+        return False
     if not (k.tpu_dsl_fastpath and k.tpu_use_pallas):
         return False
     if k.dimensionality != 3:

@@ -103,10 +103,18 @@ class L4BuiltinsMixin:
             # L3 field dot product: sum over all grid points
             # (solver/l3 L3_FieldFieldConvolution); optional third arg
             # selects the summation algorithm (ComplexNumbers/sumAlgos)
+            w = self._value_window(e.args[:2], fr, loop)
             if len(e.args) > 2:
                 algo = str(getattr(e.args[2], "value", "")).strip("'\"")
-                return _compensated_sum((a * b).reshape(-1), algo)
-            return torch.sum(a * b)
+                ab = a * b
+                if w is not None and isinstance(ab, torch.Tensor) \
+                        and tuple(ab.shape) == w.shape:
+                    # sequential order over the global grid: every rank sums
+                    # the whole product, as the dense run does
+                    ab = self.frag.gather(ab, w)
+                return _compensated_sum(ab.reshape(-1), algo)
+            red = self._global_reduce(a * b, w, "sum", 0)
+            return torch.sum(a * b) if red is None else red
         # ---- matrix builtins (reference baseExt/ir/IR_MatNodes/*) ----
         if name == "dotProduct":
             return MV.dot_product(self.eval_expr(e.args[0], fr, loop),
@@ -137,7 +145,8 @@ class L4BuiltinsMixin:
                 return a * a
             if not isinstance(v, torch.Tensor):
                 return abs(v)
-            return torch.sqrt(torch.sum(v ** 2))
+            red = self._global_reduce(v ** 2, self._value_window(e.args[:1], fr, loop), "sum", 0)
+            return torch.sqrt(torch.sum(v ** 2) if red is None else red)
         # ---- tensor builtins (reference baseExt/ir/IR_TensorOperations
         # .scala resolveFunctions: add/dotp/dyadic/deter/eigen/...) ----
         if name == "add":
@@ -301,9 +310,10 @@ class L4BuiltinsMixin:
             for fname in ("u", "v", "w", "p"):
                 if fname in self.fields and lvl in self.fields[fname].levels:
                     self._io_calls += 1
-                    print_vtk(f"{path}.{fname}.vtk",
-                              {fname: self.get_field(fname, lvl)},
-                              self.grids[lvl], self.fields[fname].localization)
+                    arr = self.whole_field(fname, lvl)
+                    self._io_write(lambda: print_vtk(
+                        f"{path}.{fname}.vtk", {fname: arr}, self._base_grids[lvl],
+                        self.fields[fname].localization))
             return None
         if name in ("showMappedImage", "showMappedImageAndWaitWhen",
                     "writeMappedImage", "readImage"):
@@ -314,8 +324,10 @@ class L4BuiltinsMixin:
             # native(); C++ RNG state cannot be reproduced, so a seeded
             # host RNG supplies the draw (output is self-checked, not
             # golden-diffed)
-            shape = tuple(loop.shape) if loop is not None else ()
-            return torch.as_tensor(self._host_rng.random(shape) < 0.25, device=self.device)
+            if loop is None:
+                return torch.as_tensor(self._host_rng.random(()) < 0.25, device=self.device)
+            return self._loop_draw(loop, lambda shp: torch.as_tensor(
+                self._host_rng.random(shp) < 0.25, device=self.device))
         if name == "native":
             # emulate the generated std::cout stream-precision calls the
             # reference's old-style reduced-precision printing relies on
@@ -332,21 +344,24 @@ class L4BuiltinsMixin:
                 if loop is None:
                     return torch.as_tensor(next(self._glibc_rand) / 2147483647.0,
                                            dtype=self.dtype, device=self.device)
-                mask = loop.mask
-                shape = tuple(loop.shape)
-                mT = (np.ones(shape[::-1], bool) if mask is None
-                      else torch.broadcast_to(mask, shape).cpu().numpy().T)
-                n_draw = int(mT.sum())
-                draws = np.fromiter(
-                    (next(self._glibc_rand) for _ in range(n_draw)),
-                    dtype=np.float64, count=n_draw) / 2147483647.0
-                arrT = np.zeros(shape[::-1])
-                arrT[mT] = draws
-                return torch.as_tensor(arrT.T.copy(), dtype=self.dtype, device=self.device)
+                def glibc_draw(shape, mask):
+                    mT = (np.ones(shape[::-1], bool) if mask is None
+                          else torch.broadcast_to(mask, shape).cpu().numpy().T)
+                    n_draw = int(mT.sum())
+                    draws = np.fromiter(
+                        (next(self._glibc_rand) for _ in range(n_draw)),
+                        dtype=np.float64, count=n_draw) / 2147483647.0
+                    arrT = np.zeros(shape[::-1])
+                    arrT[mT] = draws
+                    return torch.as_tensor(arrT.T.copy(), dtype=self.dtype, device=self.device)
+
+                return self._loop_draw(loop, glibc_draw, masked=True)
             if "realdist(" in code:
-                shape = tuple(loop.shape) if loop is not None else ()
-                return torch.as_tensor(self._host_rng.random(shape), dtype=self.dtype,
-                                       device=self.device)
+                if loop is None:
+                    return torch.as_tensor(self._host_rng.random(()), dtype=self.dtype,
+                                           device=self.device)
+                return self._loop_draw(loop, lambda shp: torch.as_tensor(
+                    self._host_rng.random(shp), dtype=self.dtype, device=self.device))
             if "setprecision" in code:
                 # std::cout << setprecision(digits10+1) — long-double print
                 self._cout_precision = 19
@@ -400,8 +415,11 @@ class L4BuiltinsMixin:
                 except (TypeError, ValueError):
                     val = str(val)
                 obj[str(key)] = val
-            with open(path, "w") as f:
-                _json.dump(obj, f, indent=1)
+            def dump():
+                with open(path, "w") as f:
+                    _json.dump(obj, f, indent=1)
+
+            self._io_write(dump)
             return None
         if name in ("getTotalTime", "getTotalFromTimer"):
             return self.timers.get_total_time(str(self.eval_expr(e.args[0], fr, loop)))
@@ -428,9 +446,8 @@ class L4BuiltinsMixin:
             acc = e.args[1]
             self._io_calls += 1
             with self.timers.auto_scope("IO"):
-                write_field(
-                    path,
-                    self.get_field(acc.name, self._resolve_level(acc.level, fr)))
+                arr = self.whole_field(acc.name, self._resolve_level(acc.level, fr))
+                self._io_write(lambda: write_field(path, arr))
             return None
         if name == "readField":
             from exastencils_tpu_torch.runtime.fieldio import read_field
@@ -438,10 +455,9 @@ class L4BuiltinsMixin:
             path = str(self.eval_expr(e.args[0], fr, loop))
             acc = e.args[1]
             lvl = self._resolve_level(acc.level, fr)
-            cur = self.get_field(acc.name, lvl)
             self._io_calls += 1
             with self.timers.auto_scope("IO"):
-                self.set_field(acc.name, lvl, read_field(path, like=cur))
+                self._io_read(acc.name, lvl, lambda like: read_field(path, like=like))
             return None
         if name.startswith(("writeField_", "readField_", "printField_")):
             self._io_calls += 1
@@ -472,9 +488,8 @@ class L4BuiltinsMixin:
             acc = e.args[1]
             self._io_calls += 1
             with self.timers.auto_scope("IO"):
-                print_field(
-                    path,
-                    self.get_field(acc.name, self._resolve_level(acc.level, fr)))
+                arr = self.whole_field(acc.name, self._resolve_level(acc.level, fr))
+                self._io_write(lambda: print_field(path, arr))
             return None
         if name == "printVtk":
             from exastencils_tpu_torch.runtime.vtk import print_vtk
@@ -484,8 +499,9 @@ class L4BuiltinsMixin:
             lvl = self._resolve_level(acc.level, fr)
             self._io_calls += 1
             with self.timers.auto_scope("IO"):
-                print_vtk(path, {acc.name: self.get_field(acc.name, lvl)}, self.grids[lvl],
-                          self.fields[acc.name].localization)
+                arr = self.whole_field(acc.name, lvl)
+                self._io_write(lambda: print_vtk(path, {acc.name: arr}, self._base_grids[lvl],
+                                                 self.fields[acc.name].localization))
             return None
         # user function
         lvl = self._resolve_level(e.level, fr) if e.level is not None else fr.level
@@ -522,7 +538,7 @@ class L4BuiltinsMixin:
             acc = e.args[1]
             extra = ()
         lvl = self._resolve_level(acc.level, fr)
-        arr = self.get_field(acc.name, lvl)
+        arr = self.whole_field(acc.name, lvl)
 
         def binary_arg(default):
             return bool(self.eval_expr(e.args[3], fr, loop)) if len(e.args) > 3 else default
@@ -533,9 +549,10 @@ class L4BuiltinsMixin:
         if op == "printField" and backend == "lock":
             # ascii visualization output carries positions + value, binary
             # stays raw values
-            coords = self.grids[lvl].coord_mesh(self.fields[acc.name].localization)
-            FIO.print_field_lock(path, arr, coords=coords, binary=binary_arg(False),
-                                 sep=sep_arg())
+            coords = self._base_grids[lvl].coord_mesh(self.fields[acc.name].localization)
+            binary, sep = binary_arg(False), sep_arg()
+            self._io_write(lambda: FIO.print_field_lock(path, arr, coords=coords,
+                                                        binary=binary, sep=sep))
             return None
         if op == "printField":
             # visualization output of the same backend family: the write path
@@ -555,20 +572,23 @@ class L4BuiltinsMixin:
                         raise NotImplementedError(
                             "writeField with a non-trivial condition "
                             "argument is not supported")
-                fn(path, arr, binary=binary, sep=sep_arg())
+                sep = sep_arg()
+                self._io_write(lambda: fn(path, arr, binary=binary, sep=sep))
             elif backend == "fpp":
-                fn(path, arr, binary=binary_arg(True))
+                binary = binary_arg(True)
+                self._io_write(lambda: fn(path, arr, binary=binary))
             else:
-                fn(path, *extra, arr)
+                self._io_write(lambda: fn(path, *extra, arr))
             return None
         fn = getattr(FIO, f"read_field_{backend}")
         if backend == "lock":
-            new = fn(path, arr, binary=binary_arg(False), sep=sep_arg())
+            binary, sep = binary_arg(False), sep_arg()
+            self._io_read(acc.name, lvl, lambda like: fn(path, like, binary=binary, sep=sep))
         elif backend == "fpp":
-            new = fn(path, arr, binary=binary_arg(True))
+            binary = binary_arg(True)
+            self._io_read(acc.name, lvl, lambda like: fn(path, like, binary=binary))
         else:
-            new = fn(path, *extra, arr)
-        self.set_field(acc.name, lvl, new)
+            self._io_read(acc.name, lvl, lambda like: fn(path, *extra, like))
         return None
 
     def _mutate_matrix_var(self, target, fr: Frame, loop, fn):
@@ -610,7 +630,8 @@ class L4BuiltinsMixin:
             e_nd = adiff.ndim - len(loop.shape)
             m = loop.mask[(...,) + (None,) * e_nd] if e_nd else loop.mask
             adiff = torch.where(m, adiff, 0.0)
-        diff = torch.max(adiff)
+        diff = self._global_reduce(adiff, self._value_window(e.args[:2], fr, loop), "max", 0.0)
+        diff = torch.max(adiff) if diff is None else diff
         if bool(diff > prec):
             self.emit(
                 f"compare: mismatch (max |a-b| = {float(diff):.6g} > {prec:g})"

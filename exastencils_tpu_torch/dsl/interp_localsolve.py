@@ -18,7 +18,6 @@ from exastencils_tpu_torch.dsl.interp_base import (
     _FunctionBC,
     _LoopCtx,
     _and,
-    _iota,
     _is_stencil,
 )
 from exastencils_tpu_torch.ops.stencil_apply import _pad
@@ -51,6 +50,11 @@ class L4LocalSolveMixin:
             for u in s.unknowns
         ]
         n = len(unknowns)
+        if self.frag is not None and any(any(off) for _, _, off in unknowns):
+            # a ghost point's block would write its garbage into an owned
+            # neighbour: the reference's embed_add needs halo-wide blocks
+            raise NotImplementedError("the sharded DSL with `solve locally` on "
+                                      "offset unknowns")
         relax = float(self.eval_expr(s.relax, fr, loop)) if s.relax is not None else 1.0
         dtype = self.dtype
         if any(self.fields[nm].is_complex for nm, _, _ in unknowns):
@@ -106,12 +110,12 @@ class L4LocalSolveMixin:
         loc = info.localization
         if loc == CELL:
             return None
-        true_shape = self.true_shape(name, lvl)
+        true_shape = self._gshape(lvl, loc)
         nd = len(shape)
         dims = list(range(nd)) if loc == NODE else [FACES.index(loc)]
         m = None
         for d in dims:
-            i = _iota(shape, d, self.device) + (off[d] if off else 0)
+            i = self._gidx(shape, d, lvl, loc) + (off[d] if off else 0)
             m = _and(m, torch.logical_and(i > 0, i < true_shape[d] - 1))
         return m
 

@@ -52,6 +52,10 @@ from exastencils_tpu_torch.runtime.staging import (
     warm_up,
 )
 
+# why the runs of a sharded DSL program stay eager (dsl/interp_fragments)
+EAGER_REASON = ("sharded run: halo exchanges and all-reduces are host-driven messages, "
+                "which a CUDA graph does not capture")
+
 
 def _never_exits(cond: N.Expr) -> bool:
     """The never-true exit that exec_stmt gives a large no-exit repeat."""
@@ -100,7 +104,21 @@ class L4StagingMixin:
     })
 
     def _partition_stmts(self, stmts: List[N.Stmt], fr: Frame, loop):
-        """Split a statement list into (run, staged?) groups."""
+        """Split a statement list into (run, staged?) groups.  A sharded
+        run (dsl/interp_fragments) stages nothing: each run that would be
+        staged is counted once as left eager, with the reason."""
+        if self.frag is not None and self.jit_functions:
+            for run, staged in self._stage_runs(stmts, fr, loop):
+                key = (id(run[0]), len(run), fr.level)
+                if staged and key not in self._eager_runs:
+                    self._eager_runs.add(key)
+                    self.stage_stats.unstaged += 1
+                    self._unstaged[f"run@{fr.level} #{len(self._unstaged)}"] = EAGER_REASON
+                yield run, False
+            return
+        yield from self._stage_runs(stmts, fr, loop)
+
+    def _stage_runs(self, stmts: List[N.Stmt], fr: Frame, loop):
         if not self.jit_functions or loop is not None or self._in_trace:
             yield stmts, False
             return

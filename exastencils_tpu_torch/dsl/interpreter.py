@@ -16,10 +16,16 @@ runs the same staging with a replay that re-runs the recorded statements
 on the static buffers (for tests); `jit_functions=False` is the eager
 executor on any device.
 
+Sharded runs (dsl/interp_fragments): where the reference would place the
+fields on a device mesh (parallel/dslsharding.build_dsl_mesh: a
+decomposition above 1 and an initialised process group of more than one
+rank, or an explicit `mesh`), each rank holds its window of every field
+plus ghost layers and exchanges halos at `communicate` and before offset
+reads of fields written since their last exchange; only rank 0 prints.
+With one rank the program runs dense, and `communicate` moves nothing.
+Staggered (Face_*) programs run dense on every rank, as in the reference.
+
 Differences from the reference, by design:
-- Dense single-device only: `communicate` is a no-op (as in the
-  reference without a mesh), and a configuration the reference would
-  shard over a device mesh raises NotImplementedError.
 - State is never updated in place by the interpreter's own statements:
   every store replaces the tensor (slots by copy), as the reference's
   immutable arrays do.  The in-place writers are the fast path's kernels
@@ -32,18 +38,20 @@ Differences from the reference, by design:
 
 from __future__ import annotations
 
+import logging
 import math
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from exastencils_tpu_torch.config import Knowledge
 from exastencils_tpu_torch.dsl import nodes as N
 
 from exastencils_tpu_torch.core.domain import AABB, Domain, unit_domain
 from exastencils_tpu_torch.core.field import DirichletBC, Field, NeumannBC
-from exastencils_tpu_torch.core.grid import FACES, NODE, level_grids
+from exastencils_tpu_torch.core.grid import CELL, FACES, NODE, level_grids
 from exastencils_tpu_torch.core import matval as MV
 from exastencils_tpu_torch.core.matval import MatVal, is_mat
 from exastencils_tpu_torch.core.stencil import BoundStencil, IntergridStencil, galerkin_product
@@ -73,7 +81,6 @@ from exastencils_tpu_torch.dsl.interp_base import (
     _apply_binop,
     _dtype_info,
     _glibc_rand_stream,
-    _iota,
     _is_stencil,
     _minmax,
     _scale_stencil,
@@ -84,22 +91,13 @@ from exastencils_tpu_torch.dsl.interp_base import (
 )
 from exastencils_tpu_torch.dsl.fastpath import FastPathPlanner, fastpath_enabled
 from exastencils_tpu_torch.dsl.interp_builtins import L4BuiltinsMixin
+from exastencils_tpu_torch.dsl.interp_fragments import L4FragmentMixin
 from exastencils_tpu_torch.dsl.interp_localsolve import L4LocalSolveMixin
 from exastencils_tpu_torch.dsl.interp_staging import L4StagingMixin
+from exastencils_tpu_torch.parallel.dslsharding import build_dsl_mesh
 from exastencils_tpu_torch.runtime.staging import StageStats
 
-
-def _shards_requested(knowledge) -> bool:
-    """True where the reference would place the DSL fields on a device
-    mesh (parallel/dslsharding.decomposition_from_knowledge > 1 block)."""
-    if not knowledge.tpu_shard_dsl:
-        return False
-    nd = knowledge.dimensionality
-    if knowledge.tpu_mesh_shape:
-        want = list(knowledge.tpu_mesh_shape)[:nd]
-    else:
-        want = [knowledge.frags_total(d) for d in range(nd)]
-    return math.prod(want) > 1
+log = logging.getLogger("exastencils_tpu_torch")
 
 
 def _plane_set(arr, dim: int, idx: int, values, within=None):
@@ -128,8 +126,11 @@ def _is_int(v) -> bool:
     return isinstance(v, (int, np.integer)) and not isinstance(v, bool)
 
 
-class L4Executable(L4BuiltinsMixin, L4StagingMixin, L4LocalSolveMixin):
-    """A runnable ExaSlang-4 program on `device` ("cpu" or "cuda")."""
+class L4Executable(L4BuiltinsMixin, L4StagingMixin, L4LocalSolveMixin, L4FragmentMixin):
+    """A runnable ExaSlang-4 program on `device` ("cpu" or "cuda").
+    `mesh` (a parallel/mesh.DomainMesh) shards it over the mesh's ranks;
+    by default the mesh comes from the Knowledge and the initialised
+    process group when `tpu_shard_dsl` is set (build_dsl_mesh)."""
 
     def __init__(
         self,
@@ -139,6 +140,7 @@ class L4Executable(L4BuiltinsMixin, L4StagingMixin, L4LocalSolveMixin):
         device,
         out=print,
         jit_functions: Optional[bool] = None,
+        mesh=None,
     ):
         self.prog = program
         self.k = knowledge
@@ -183,6 +185,7 @@ class L4Executable(L4BuiltinsMixin, L4StagingMixin, L4LocalSolveMixin):
         else:
             self.domain = unit_domain(knowledge.dimensionality)
         self.grids = level_grids(self.domain, knowledge, self.device, dtype=self.dtype)
+        self._base_grids = self.grids  # global grids (sharded runs window self.grids)
         self.lo, self.hi = knowledge.minLevel, knowledge.maxLevel
 
         # --- layouts ---
@@ -301,16 +304,26 @@ class L4Executable(L4BuiltinsMixin, L4StagingMixin, L4LocalSolveMixin):
                 for lvl in fn.levels.resolve(self.lo, self.hi):
                     self.functions[(fn.name, lvl)] = fn
 
-        # the reference runs staggered (Face_*) programs dense; any other
-        # program it would shard over a device mesh waits for the sharded
-        # DSL slice of the port
-        if _shards_requested(knowledge) and not any(
+        # --- rank-mesh placement (the sharded DSL, dsl/interp_fragments) ---
+        if mesh is None and knowledge.tpu_shard_dsl:
+            mesh = build_dsl_mesh(knowledge, knowledge.dimensionality)
+        self.mesh = mesh
+        self.frag = None
+        self._windows: Dict[Tuple[int, str], object] = {}
+        self._owned_masks: Dict[Tuple[int, str], torch.Tensor] = {}
+        self._dense_levels: set = set()
+        self._halo_stale: set = set()  # (field, level, slot) written since their exchange
+        self._eager_runs: set = set()
+        if (mesh.rank if mesh is not None else
+                dist.get_rank() if dist.is_initialized() else 0) != 0:
+            self.out = lambda *args, **kwargs: None  # rank 0 prints
+        if mesh is not None and any(
                 info.localization in FACES for info in self.fields.values()):
-            raise NotImplementedError(
-                "the sharded DSL (fields over a rank mesh: an executor on explicit "
-                "fragments with halo exchange at `communicate`, the port of "
-                "exastencils_tpu/parallel/dslsharding.py) is the next slice of the "
-                "port: run with tpu_shard_dsl = false")
+            # the reference runs staggered programs dense (its mesh-pad
+            # embedding does not cover their offset algebra): every rank
+            # runs the whole program, rank 0 prints
+            log.warning("staggered fields present: DSL mesh sharding disabled")
+            mesh = None
 
         # --- state ---
         self.state: Dict[Tuple[str, int], torch.Tensor] = {}
@@ -329,6 +342,8 @@ class L4Executable(L4BuiltinsMixin, L4StagingMixin, L4LocalSolveMixin):
         # provably dead carry a rematerializer in _stale ---
         self._stale: Dict[Tuple[str, int], object] = {}
         self._stale_proven: set = set()
+        if mesh is not None:
+            self._setup_fragments(mesh)
         self._fastpath = None
         if fastpath_enabled(self):
             self._fastpath = FastPathPlanner(self)
@@ -459,7 +474,8 @@ class L4Executable(L4BuiltinsMixin, L4StagingMixin, L4LocalSolveMixin):
     # ------------------------------------------------------------------
     # state management
     def true_shape(self, name: str, level: int) -> Tuple[int, ...]:
-        """Grid extents of `name@level` (dense: also its storage shape)."""
+        """Storage extents of `name@level`: its grid extents on a dense
+        run, its window's on a sharded one."""
         return self.grids[level].shape_of(self.fields[name].localization)
 
     @property
@@ -483,6 +499,7 @@ class L4Executable(L4BuiltinsMixin, L4StagingMixin, L4LocalSolveMixin):
             self.globals[g.name] = self._coerce_decl(g, fr, None)
 
     def init_fields_with_zero(self):
+        self._halo_stale.clear()
         for info in self.fields.values():
             for lvl in info.levels:
                 shape = self.true_shape(info.name, lvl) + info.elem_shape
@@ -550,6 +567,7 @@ class L4Executable(L4BuiltinsMixin, L4StagingMixin, L4LocalSolveMixin):
         and a value whose storage another state entry already holds (an
         unmasked `V = U`) is copied, so no two fields share storage."""
         self._stale.pop((name, level), None)
+        self._mark_written(name, level, slot)
         info = self.fields[name]
         key = (name, level)
         if info.num_slots > 1:
@@ -728,8 +746,15 @@ class L4Executable(L4BuiltinsMixin, L4StagingMixin, L4LocalSolveMixin):
         return self._bc_appliers[key]
 
     def _apply_bc_field(self, name: str, level: int, arr):
-        """`apply bc` on the field's grid."""
-        return self.bc_applier(name, level)(arr)
+        """`apply bc` on the field's grid (on a sharded run: on this
+        rank's window, kept on the global grid's boundary planes only)."""
+        out = self.bc_applier(name, level)(arr)
+        info = self.fields[name]
+        nd = arr.dim() - len(info.elem_shape)
+        m = self._phys_boundary(level, info.localization, tuple(arr.shape[:nd]))
+        if m is None:
+            return out
+        return torch.where(m[(...,) + (None,) * len(info.elem_shape)], out, arr)
 
     # ------------------------------------------------------------------
     # constant-expression evaluation (declarations, knowledge conditions)
@@ -884,7 +909,7 @@ class L4Executable(L4BuiltinsMixin, L4StagingMixin, L4LocalSolveMixin):
             # names as used in `where` clauses (dim 0 = x)
             d = int(name[1]) if name[0] == "i" else "xyz".index(name)
             return (
-                _iota(loop.shape, d, self.device)
+                self._gidx(loop.shape, d, loop.level, loop.localization)
                 if d < len(loop.shape)
                 else 0
             )
@@ -902,6 +927,8 @@ class L4Executable(L4BuiltinsMixin, L4StagingMixin, L4LocalSolveMixin):
             # updates are visible; reference IR_StencilFieldAccess)
             st = self.stencil_templates[name]
             lvl = self._resolve_level(e.level, fr)
+            if e.offset and any(e.offset):
+                self._offset_read(name, lvl, None, max(abs(int(o)) for o in e.offset))
             arr = self.get_field(name, lvl)
             if e.sten_entry is not None:
                 k = st.offsets.index(tuple(e.sten_entry))
@@ -916,6 +943,8 @@ class L4Executable(L4BuiltinsMixin, L4StagingMixin, L4LocalSolveMixin):
         if name in self.fields:
             info = self.fields[name]
             lvl = self._resolve_level(e.level, fr)
+            if e.offset and any(e.offset):
+                self._offset_read(name, lvl, e.slot, max(abs(int(o)) for o in e.offset))
             arr = self.get_field(name, lvl, e.slot)
             offset, comp = e.offset, e.component
             if comp and not info.elem_shape and offset is None \
@@ -924,6 +953,9 @@ class L4Executable(L4BuiltinsMixin, L4StagingMixin, L4LocalSolveMixin):
                 # stencil offset, not a component access
                 offset = (int(self._eval_const(comp[0][1])),)
                 comp = None
+                if any(offset):
+                    self._offset_read(name, lvl, e.slot, abs(offset[0]))
+                    arr = self.get_field(name, lvl, e.slot)
             e_nd = len(info.elem_shape)
             bc_lvl = info.bc_by_level.get(lvl)
             bc_ghosts = (
@@ -1115,7 +1147,7 @@ class L4Executable(L4BuiltinsMixin, L4StagingMixin, L4LocalSolveMixin):
             coords = grid.coord_mesh(NODE if loc == NODE else loc)
             return self._fit_coord(coords[d], d, loop)
         if base in ("vf_cellCenter", "vf_cellCen"):
-            c = grid.cell_center_1d(d)
+            c = grid.coords_1d(CELL, d)
             shape = [1] * grid.ndim
             shape[d] = c.shape[0]
             return self._fit_coord(c.reshape(shape), d, loop)
@@ -1242,6 +1274,9 @@ class L4Executable(L4BuiltinsMixin, L4StagingMixin, L4LocalSolveMixin):
                     return MatVal(total) if is_mat(rhs) else total
                 return ("__stencil__", _scale_stencil(st, rhs), st_level)
             f_level = self._resolve_level(e.rhs.level, fr)
+            off_r = max((abs(int(o)) for o in e.rhs.offset), default=0) if e.rhs.offset else 0
+            self._offset_read(e.rhs.name, f_level, e.rhs.slot,
+                              (st.radius + off_r) if isinstance(st, BoundStencil) else 1)
             arr = self.get_field(e.rhs.name, f_level, e.rhs.slot)
             if e.rhs.sten_entry is not None \
                     and e.rhs.name in self.stencil_templates:
@@ -1282,7 +1317,7 @@ class L4Executable(L4BuiltinsMixin, L4StagingMixin, L4LocalSolveMixin):
                 xp = self._padded_operand(e.rhs.name, f_level, arr, r)
                 conv = apply_stencil(st, xp, padded_radius=r, out_shape=out_shape)
                 return self._to_loop_space(conv, e.rhs.offset, loop)
-            return self._intergrid_apply(st, arr, f_level, loop)
+            return self._intergrid_apply(st, e.rhs.name, arr, f_level, loop)
         rhs = self.eval_expr(e.rhs, fr, loop)
         if _is_stencil(rhs):
             if e.op == "*":
@@ -1321,9 +1356,11 @@ class L4Executable(L4BuiltinsMixin, L4StagingMixin, L4LocalSolveMixin):
             out = term if out is None else out + term
         return out
 
-    def _intergrid_apply(self, ig: IntergridStencil, arr, f_level: int, loop):
+    def _intergrid_apply(self, ig: IntergridStencil, name: str, arr, f_level: int, loop):
         if loop is None:
             raise ValueError("inter-grid convolution outside a loop")
+        if self.frag is not None:
+            return self._intergrid_windows(ig, name, arr, f_level, loop)
         out_level = loop.level
         out_shape = self.grids[out_level].shape_of(loop.localization)
         key = (id(ig), f_level, out_level, out_shape, tuple(arr.shape), arr.dtype)
@@ -1351,11 +1388,6 @@ class L4Executable(L4BuiltinsMixin, L4StagingMixin, L4LocalSolveMixin):
         return None
 
     # ------------------------------------------------------------------
-    def _exec_communicate(self, s: N.Communicate, fr: Frame):
-        """`communicate field`: nothing to move on the dense single-device
-        path (the reference's dense case, and MPI_RemoveMPI.scala strips
-        all communication when MPI is off)."""
-
     def emit(self, text: str, newline: bool = True):
         """Line-buffered output: `std::cout <<` segments without an endl
         (e.g. evalMOpRuntimeExe) accumulate until the next newline."""
@@ -1470,7 +1502,7 @@ class L4Executable(L4BuiltinsMixin, L4StagingMixin, L4LocalSolveMixin):
                 m = torch.broadcast_to(cond, loop.shape)
                 if loop.mask is not None:
                     m = torch.logical_and(m, loop.mask)
-                if bool(torch.any(m)):
+                if self._any(m, loop):
                     self.exec_block(s.then_body, fr, loop)
                 elif s.else_body:
                     self.exec_block(s.else_body, fr, loop)
@@ -1493,7 +1525,7 @@ class L4Executable(L4BuiltinsMixin, L4StagingMixin, L4LocalSolveMixin):
             else:
                 self.exec_block(s.else_body, fr, loop)
         elif isinstance(s, N.RepeatTimes):
-            if self.jit_functions and loop is None:
+            if self.jit_functions and loop is None and self.frag is None:
                 parts = self._match_early_exit_repeat(s, fr.level)
                 if parts is None and not self._in_trace \
                         and isinstance(s.count, N.Num) \
@@ -1754,16 +1786,26 @@ class L4Executable(L4BuiltinsMixin, L4StagingMixin, L4LocalSolveMixin):
         """`redvar += expr` / `redvar = max(redvar, expr)` inside a
         reduction loop -> whole-array reduce then scalar combine."""
         op, var = loop.reduction
+        # sharded: each rank reduces the points it owns, then all ranks
+        # combine (the same bits on every rank); None on a dense run
+        own = self._owned(loop.level, loop.localization)
         if s.op == "+=":
             arr = self.eval_expr(s.value, fr, loop)
             if is_mat(arr) and arr.rows == 1 and arr.cols == 1:
                 arr = arr.data[..., 0, 0]  # dot() returns a 1x1 matrix
-            red = torch.sum(torch.where(loop.mask, arr, 0)) if loop.mask is not None else torch.sum(arr)
+            if own is not None:
+                m = own if loop.mask is None else torch.logical_and(loop.mask, own)
+                red = self.frag.all_reduce(torch.sum(torch.where(m, arr, 0)), "sum")
+            else:
+                red = torch.sum(torch.where(loop.mask, arr, 0)) if loop.mask is not None \
+                    else torch.sum(arr)
             env[var] = _apply_binop("+", env.get(var, 0.0), red)
             return
         if s.op == "*=":
             arr = self.eval_expr(s.value, fr, loop)
-            env[var] = _apply_binop("*", env.get(var, 1.0), torch.prod(arr))
+            red = torch.prod(arr) if own is None else \
+                self.frag.all_reduce(torch.prod(torch.where(own, arr, 1)), "prod")
+            env[var] = _apply_binop("*", env.get(var, 1.0), red)
             return
         if s.op == "=" and isinstance(s.value, N.Call) and s.value.name in ("min", "max"):
             others = [a for a in s.value.args
@@ -1771,10 +1813,15 @@ class L4Executable(L4BuiltinsMixin, L4StagingMixin, L4LocalSolveMixin):
             arrs = [self.eval_expr(a, fr, loop) for a in others]
             f_red = torch.amin if s.value.name == "min" else torch.amax
             combined = _minmax(s.value.name, arrs) if len(arrs) > 1 else arrs[0]
+            fill = math.inf if s.value.name == "min" else -math.inf
             if loop.mask is not None:
-                fill = math.inf if s.value.name == "min" else -math.inf
                 combined = torch.where(loop.mask, combined, fill)
-            env[var] = _minmax(s.value.name, [env.get(var, 0.0), f_red(combined)])
+            if own is not None:
+                red = self.frag.all_reduce(f_red(torch.where(own, combined, fill)),
+                                           s.value.name)
+            else:
+                red = f_red(combined)
+            env[var] = _minmax(s.value.name, [env.get(var, 0.0), red])
             return
         raise ValueError(f"unsupported reduction statement {s}")
 
@@ -1804,7 +1851,6 @@ class L4Executable(L4BuiltinsMixin, L4StagingMixin, L4LocalSolveMixin):
             self._record_ghost_rule(s, fr, lvl)
             return
         loop = _LoopCtx(lvl, info.localization, shape, reduction=s.reduction)
-        true = self.true_shape(s.field.name, lvl)
         if s.region is None:
             if s.starting or s.ending:
                 # `starting [..] ending [..]`: offsets on the default
@@ -1823,14 +1869,15 @@ class L4Executable(L4BuiltinsMixin, L4StagingMixin, L4LocalSolveMixin):
                         if d < len(info.dup_layers) and info.dup_layers[d] > 0
                     }
                 m = None
+                gtrue = self._gshape(lvl, info.localization)
                 for d in range(len(shape)):
                     lo = 1 if d in dims_dup else 0
-                    hi = true[d] - 2 if d in dims_dup else true[d] - 1
+                    hi = gtrue[d] - 2 if d in dims_dup else gtrue[d] - 1
                     if s.starting and d < len(s.starting):
                         lo += int(s.starting[d])
                     if s.ending and d < len(s.ending):
                         hi -= int(s.ending[d])
-                    i = _iota(shape, d, self.device)
+                    i = self._gidx(shape, d, lvl, info.localization)
                     mm = torch.logical_and(i >= lo, i <= hi)
                     m = mm if m is None else torch.logical_and(m, mm)
                 loop.mask = m if loop.mask is None else torch.logical_and(
@@ -1840,7 +1887,7 @@ class L4Executable(L4BuiltinsMixin, L4StagingMixin, L4LocalSolveMixin):
                 # domain) boundaries along node-localized dims
                 # (IR_LoopOverPointsInOneFragment.scala:73-101)
                 bmask = self._node_interior_mask(
-                    info.localization, shape, true, info.dup_layers)
+                    info.localization, shape, lvl, info.dup_layers)
                 if bmask is not None:
                     loop.mask = bmask if loop.mask is None else torch.logical_and(
                         loop.mask, bmask)
@@ -1851,7 +1898,7 @@ class L4Executable(L4BuiltinsMixin, L4StagingMixin, L4LocalSolveMixin):
             cond = self.eval_expr(s.condition, fr, loop)
             loop.mask = _and(loop.mask, cond)
         if s.region is not None:
-            rmask = self._region_mask(s, shape, true)
+            rmask = self._region_mask(s, shape, lvl, info.localization)
             loop.mask = rmask if loop.mask is None else torch.logical_and(loop.mask, rmask)
         if s.stepping:
             # `stepping [2,2,2]` visits every step-th point, anchored at
@@ -1872,7 +1919,7 @@ class L4Executable(L4BuiltinsMixin, L4StagingMixin, L4LocalSolveMixin):
             for d, step in enumerate(s.stepping):
                 if step and int(step) > 1:
                     start = 1 if d in interior_dims else 0
-                    i = _iota(shape, d, self.device)
+                    i = self._gidx(shape, d, lvl, info.localization)
                     mm = (i - start) % int(step) == 0
                     loop.mask = mm if loop.mask is None else torch.logical_and(
                         loop.mask, mm)
@@ -2035,21 +2082,28 @@ class L4Executable(L4BuiltinsMixin, L4StagingMixin, L4LocalSolveMixin):
         for nm in refs:
             if nm in self.fields and (nm, lvl) in self.state:
                 self.get_field(nm, lvl)  # rematerialize stale operands first
+        fsizes = self._seq_fragment_sizes(lvl, nd)
+        if self._field_window(tname, lvl) is not None:
+            if not self._seq_on_ranks(tname, lvl, fsizes):
+                # a rank border inside a reference fragment: the sweep is
+                # serial across it, so run it on the fields gathered whole
+                names = sorted(nm for nm in refs | {tname}
+                               if nm in self.fields and (nm, lvl) in self.state)
+                self.frag.stats.seq_gathered += 1
+                with self._gathered_level(lvl, names, keep=tname):
+                    self._exec_seq_loop(s, fr, lvl, info, self.true_shape(tname, lvl))
+                return
+            # cross-fragment reads see the sweep-start values, ghosts too
+            self._offset_read(tname, lvl, None, 1)
         # fragment-local node partition: fragment f_d cells per dim; node g
         # is updated by fragment g//f_d at local coordinate g mod f_d
         # (dup-left owned, dup-right excluded).  Cross-fragment stencil
         # reads see the sweep-start state (per-fragment ghost copies,
         # filled by the `communicate` preceding the loop).
-        fsizes = []
-        for d in range(nd):
-            cells = self.k.cells_per_dim(lvl, d)
-            F = self.k.frags_total(d)
-            fsizes.append(cells // F if F > 1 and cells % F == 0 and cells // F >= 1
-                          else cells)
         u0 = u = self.get_field(tname, lvl)
         diag_idx = None
         for d in range(nd):
-            li = _iota(shape, d, self.device) % fsizes[d]
+            li = self._gidx(shape, d, lvl, info.localization) % fsizes[d]
             diag_idx = li if diag_idx is None else diag_idx + li
         lctx = _LoopCtx(lvl, info.localization, shape)
         cond_mask = (self.eval_expr(s.condition, fr, lctx)
@@ -2073,6 +2127,17 @@ class L4Executable(L4BuiltinsMixin, L4StagingMixin, L4LocalSolveMixin):
             self.state[(tname, lvl)] = u0
         self.set_field(tname, lvl, u)
 
+    def _seq_fragment_sizes(self, lvl: int, nd: int):
+        """Cells of one reference fragment per dim (the whole dim where
+        they do not divide evenly)."""
+        fsizes = []
+        for d in range(nd):
+            cells = self.k.cells_per_dim(lvl, d)
+            F = self.k.frags_total(d)
+            fsizes.append(cells // F if F > 1 and cells % F == 0 and cells // F >= 1
+                          else cells)
+        return fsizes
+
     def _apply_stencil_frozen(self, st, name: str, lvl: int, arr, u0, fsizes):
         """Stencil conv for the in-place sweep: same-fragment reads see
         the current carry, cross-fragment reads the sweep-start state u0
@@ -2081,7 +2146,8 @@ class L4Executable(L4BuiltinsMixin, L4StagingMixin, L4LocalSolveMixin):
         xp_u = self._padded_operand(name, lvl, arr, r)
         xp_u0 = self._padded_operand(name, lvl, u0, r)
         nd = arr.ndim
-        iotas = [_iota(arr.shape, d, self.device) for d in range(nd)]
+        loc = self.fields[name].localization
+        iotas = [self._gidx(arr.shape, d, lvl, loc) for d in range(nd)]
         out = None
         for off, c in st.items():
             sl = tuple(slice(r + o, r + o + n) for o, n in zip(off, arr.shape))
@@ -2160,16 +2226,16 @@ class L4Executable(L4BuiltinsMixin, L4StagingMixin, L4LocalSolveMixin):
                 out |= self._referenced_names(a)
         return out
 
-    def _node_interior_mask(self, loc, shape, true_shape=None, dup_layers=None):
+    def _node_interior_mask(self, loc, shape, level, dup_layers=None):
         """False on physical-boundary planes along node-localized dims
         (None when nothing is excluded, e.g. pure cell fields).  Only
         dims with duplicate layers exclude their boundary planes: the
         reference's IterationOffsets come from the dup-layer bounds, so
         a `duplicateLayers = [0, 0]` layout iterates every point
         (IR_LoopOverPointsInOneFragment.scala:73-101).  `shape` is the
-        loop's shape; bounds come from `true_shape`."""
+        loop's shape; bounds are those of the global grid of `level`."""
         nd = len(shape)
-        true_shape = true_shape or shape
+        true_shape = self._gshape(level, loc)
         if loc == NODE:
             dims = list(range(nd))
         elif loc in FACES:
@@ -2182,26 +2248,26 @@ class L4Executable(L4BuiltinsMixin, L4StagingMixin, L4LocalSolveMixin):
             return None
         m = None
         for d in dims:
-            i = _iota(shape, d, self.device)
+            i = self._gidx(shape, d, level, loc)
             mm = torch.logical_and(i > 0, i < true_shape[d] - 1)
             m = mm if m is None else torch.logical_and(m, mm)
         return m
 
-    def _region_mask(self, s: N.LoopOverField, shape, true_shape=None):
+    def _region_mask(self, s: N.LoopOverField, shape, level, loc):
         region, rdir = s.region
         nd = len(shape)
-        true_shape = true_shape or shape
+        true_shape = self._gshape(level, loc)
         if region == "inner":
             m = torch.ones(shape, dtype=torch.bool, device=self.device)
             for d in range(nd):
-                i = _iota(shape, d, self.device)
+                i = self._gidx(shape, d, level, loc)
                 m = torch.logical_and(m, torch.logical_and(i > 0, i < true_shape[d] - 1))
             return m
         # dup/ghost boundary regions: the outermost plane in direction rdir
         m = torch.ones(shape, dtype=torch.bool, device=self.device)
         if rdir is not None:
             for d, dirval in enumerate(rdir[:nd]):
-                i = _iota(shape, d, self.device)
+                i = self._gidx(shape, d, level, loc)
                 if dirval < 0:
                     m = torch.logical_and(m, i == 0)
                 elif dirval > 0:
@@ -2209,7 +2275,7 @@ class L4Executable(L4BuiltinsMixin, L4StagingMixin, L4LocalSolveMixin):
         else:
             border = torch.zeros(shape, dtype=torch.bool, device=self.device)
             for d in range(nd):
-                i = _iota(shape, d, self.device)
+                i = self._gidx(shape, d, level, loc)
                 border = torch.logical_or(
                     border, torch.logical_or(i == 0, i == true_shape[d] - 1)
                 )

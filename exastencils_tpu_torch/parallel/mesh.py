@@ -89,13 +89,15 @@ def make_domain_mesh(shape: Sequence[int], axis_names: Tuple[str, ...] = None,
 
 def mesh_from_knowledge(knowledge, group=None) -> DomainMesh:
     """Mesh shape from Knowledge: `tpu_mesh_shape`, else the rectangular
-    block counts domain_rect_numBlocks_* over the spatial dims."""
+    block counts domain_rect_numBlocks_* over the spatial dims; axis names
+    from `tpu_mesh_axis_names`."""
     if knowledge.tpu_mesh_shape:
         shape = tuple(knowledge.tpu_mesh_shape)
     else:
         shape = tuple(getattr(knowledge, f"domain_rect_numBlocks_{'xyz'[d]}")
                       for d in range(knowledge.dimensionality))
-    return make_domain_mesh(shape, group=group)
+    return make_domain_mesh(shape, tuple(knowledge.tpu_mesh_axis_names[: len(shape)]),
+                            group=group)
 
 
 # ----------------------------------------------------------------------

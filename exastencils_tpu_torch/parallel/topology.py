@@ -24,6 +24,13 @@ tensors themselves are sent.  `stats` counts the exchanges and the bytes
 they send; with `stats.timed` each exchange also synchronises the card
 before and after itself and adds its host seconds (the instrumentation of
 chip_smoke.py's exchange share).
+
+The sharded DSL (dsl/interp_fragments) lays its fields out otherwise:
+`FieldWindow` is one rank's window of a field instance of any
+localization (possibly unequal runs of a level's cells, unsharded dims
+held whole, windows clipped at the physical boundary, lead and trail
+dims), and `FragmentWindows` exchanges, gathers and reduces such arrays
+over the same transport.
 """
 
 from __future__ import annotations
@@ -361,3 +368,220 @@ def fragments_to_dense(stacked: np.ndarray, topo: ShardTopology, local_cells) ->
         dst = tuple(slice(f * n, f * n + n + 1) for f, n in zip(fidx, local_cells))
         dense[dst] = np.asarray(stacked[src])
     return dense
+
+
+# ----------------------------------------------------------------------
+# DSL fragments: windows of the true grid, of any localization, with
+# unequal fragments, unsharded dims and lead/trail dims
+# ----------------------------------------------------------------------
+
+
+@dataclass
+class DslExchangeStats(ExchangeStats):
+    """ExchangeStats of the sharded DSL: `calls` counts every exchange,
+    `communicate` those of `communicate` statements, `implicit` those
+    before an offset read of a field written since its last exchange;
+    `gathers` counts fields gathered whole (sequential sweeps across a
+    rank border, transfers into a replicated level, field IO) and
+    `seq_gathered` the sequential sweeps run on gathered fields."""
+
+    communicate: int = 0
+    implicit: int = 0
+    gathers: int = 0
+    seq_gathered: int = 0
+
+
+@dataclass(frozen=True)
+class FieldWindow:
+    """The geometry of one field instance (a level and a localization) on
+    one rank.  Along each dim: `n` global points; if `sharded`, the ranks
+    of the mesh axis own contiguous runs starting at `starts` (the last
+    run ends at n), and this rank (mesh coordinate `coords[d]`) holds its
+    run widened by `ghost` points on each side that has a neighbour (the
+    window is clipped at the physical boundary, so the array edge there
+    is the grid edge, as in the dense executor).  A replicated dim is held
+    whole.  Node fields thus hold the shared border plane on both ranks:
+    it is owned by the right one (the first point of its run), as the
+    reference's fragment sweep assigns it."""
+
+    n: Tuple[int, ...]
+    sharded: Tuple[bool, ...]
+    starts: Tuple[Optional[Tuple[int, ...]], ...]
+    coords: Tuple[int, ...]
+    ghost: int
+
+    @property
+    def ndim(self) -> int:
+        return len(self.n)
+
+    def own(self, d: int, c: Optional[int] = None) -> Tuple[int, int]:
+        """Global [start, stop) owned by mesh coordinate c (default: this
+        rank's) along d; the whole dim where replicated."""
+        if not self.sharded[d]:
+            return 0, self.n[d]
+        st = self.starts[d]
+        c = self.coords[d] if c is None else c
+        return st[c], (st[c + 1] if c + 1 < len(st) else self.n[d])
+
+    def bounds(self, d: int) -> Tuple[int, int]:
+        """Global [lo, hi) of the local array along d."""
+        s, e = self.own(d)
+        if not self.sharded[d]:
+            return s, e
+        return max(0, s - self.ghost), min(self.n[d], e + self.ghost)
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        return tuple(b[1] - b[0] for b in (self.bounds(d) for d in range(self.ndim)))
+
+    @property
+    def any_sharded(self) -> bool:
+        return any(self.sharded)
+
+    def owned_local(self, d: int) -> slice:
+        lo = self.bounds(d)[0]
+        s, e = self.own(d)
+        return slice(s - lo, e - lo)
+
+
+class FragmentWindows:
+    """Halo exchange, gathers and reductions of the sharded DSL over one
+    rank mesh.  Each field instance is a local array laid out by its
+    FieldWindow (spatial dims after `lead` leading slot dims, before any
+    trailing matrix dims).
+
+    exchange: along each sharded dim in turn (so edges and corners
+    resolve), the `ghost` owned points next to each border go to the
+    neighbour's ghost points; the owner of a shared node plane sends it
+    too, so after an exchange every ghost point holds its owner's value.
+    gather: every rank gets the whole global array (all_gather of the
+    owned boxes).  Reductions: `all_reduce` over the mesh's group, so
+    every rank gets the same bits.  Transport as ShardTopology: CUDA
+    tensors through pinned host buffers under gloo."""
+
+    def __init__(self, mesh, ghost: int):
+        self.mesh = mesh
+        self.ghost = int(ghost)
+        self.stats = DslExchangeStats()
+        self._topo = ShardTopology(mesh, tuple(mesh.shape), tuple(mesh.axis_names), ghost,
+                                   stats=self.stats)
+
+    def window(self, n, sharded, starts) -> FieldWindow:
+        return FieldWindow(tuple(n), tuple(sharded), tuple(starts), self.mesh.coords,
+                           self.ghost)
+
+    # ---------------- halo exchange ----------------
+    def exchange(self, x: torch.Tensor, w: FieldWindow, lead: int = 0,
+                 kind: str = "implicit") -> torch.Tensor:
+        """A copy of x whose ghost points hold their owners' values."""
+        if not w.any_sharded:
+            return x
+        t0 = self._topo._tic(x)
+        if kind == "communicate":
+            self.stats.communicate += 1
+        else:
+            self.stats.implicit += 1
+        g, nd = self.ghost, x.dim()
+        out = x.clone()
+        c = list(self.mesh.coords)
+        for d in range(w.ndim):
+            if not w.sharded[d]:
+                continue
+            ad = lead + d
+            lo = w.bounds(d)[0]
+            s, e = w.own(d)
+            sends, recvs = [], []
+            tagged = tuple(out.shape)
+            if c[d] > 0:
+                peer = self.mesh.peer(c[:d] + [c[d] - 1] + c[d + 1:])
+                sends.append(((d, -1) + tagged, out[_sl(nd, ad, s - lo, s - lo + g)], peer,
+                              2 * d + 1))
+                recvs.append(((d, +1) + tagged, out[_sl(nd, ad, s - lo - g, s - lo)], peer,
+                              2 * d))
+            if c[d] < self.mesh.shape[d] - 1:
+                peer = self.mesh.peer(c[:d] + [c[d] + 1] + c[d + 1:])
+                sends.append(((d, +1) + tagged, out[_sl(nd, ad, e - lo - g, e - lo)], peer,
+                              2 * d))
+                recvs.append(((d, -1) + tagged, out[_sl(nd, ad, e - lo, e - lo + g)], peer,
+                              2 * d + 1))
+            slabs = self._topo._post(sends, recvs, x.device).result()
+            if (d, +1) + tagged in slabs:
+                out[_sl(nd, ad, s - lo - g, s - lo)] = slabs[(d, +1) + tagged]
+            if (d, -1) + tagged in slabs:
+                out[_sl(nd, ad, e - lo, e - lo + g)] = slabs[(d, -1) + tagged]
+        self._topo._toc(x, t0)
+        return out
+
+    # ---------------- whole arrays ----------------
+    def _box(self, w: FieldWindow, coords) -> Tuple[slice, ...]:
+        return tuple(slice(*w.own(d, coords[d])) for d in range(w.ndim))
+
+    def gather(self, x: torch.Tensor, w: FieldWindow, lead: int = 0) -> torch.Tensor:
+        """The whole global array on every rank (the owned boxes of all
+        ranks, all-gathered)."""
+        if not w.any_sharded:
+            return x
+        self.stats.gathers += 1
+        head, tail = tuple(x.shape[:lead]), tuple(x.shape[lead + w.ndim:])
+        mine = x[(slice(None),) * lead + tuple(w.owned_local(d) for d in range(w.ndim))]
+        boxes = [self._box(w, np.unravel_index(r, self.mesh.shape))
+                 for r in range(self.mesh.size)]
+        sizes = [int(np.prod([b.stop - b.start for b in box])) * int(np.prod(head + tail))
+                 for box in boxes]
+        staged = x.is_cuda and self.mesh.backend == "gloo"
+        dev = torch.device("cpu") if staged else x.device
+        buf = torch.zeros(max(sizes), dtype=x.dtype, device=dev)
+        flat = mine.reshape(-1).to(dev)
+        buf[: flat.numel()] = flat
+        parts = [torch.empty_like(buf) for _ in boxes]
+        dist.all_gather(parts, buf, group=self.mesh.group)
+        full = torch.empty(head + w.n + tail, dtype=x.dtype, device=x.device)
+        for box, size, part in zip(boxes, sizes, parts):
+            shape = head + tuple(b.stop - b.start for b in box) + tail
+            full[(slice(None),) * lead + box] = part[:size].reshape(shape).to(x.device)
+        return full
+
+    @staticmethod
+    def window_of(full: torch.Tensor, w: FieldWindow, lead: int = 0) -> torch.Tensor:
+        """This rank's window of a whole global array."""
+        return full[(slice(None),) * lead
+                    + tuple(slice(*w.bounds(d)) for d in range(w.ndim))].contiguous()
+
+    def broadcast(self, t: torch.Tensor, src: int = 0) -> torch.Tensor:
+        """Rank `src`'s tensor on every rank (same shape and dtype)."""
+        staged = t.is_cuda and self.mesh.backend == "gloo"
+        buf = t.to("cpu") if staged else t.clone()
+        dist.broadcast(buf, self.mesh.peer(np.unravel_index(src, self.mesh.shape)),
+                       group=self.mesh.group)
+        return buf.to(t.device)
+
+    # ---------------- reductions ----------------
+    def owned_mask(self, w: FieldWindow, device) -> Optional[torch.Tensor]:
+        """True on the points this rank counts in a reduction: its owned
+        run along sharded dims; along a replicated dim every point on the
+        ranks at coordinate 0 of that axis and none elsewhere (so a global
+        sum counts each point once).  None when no dim is sharded (every
+        rank then reduces the whole array itself, with no message)."""
+        if not w.any_sharded:
+            return None
+        m = None
+        shape = w.shape
+        for d in range(w.ndim):
+            i = _iota(shape, d, device)
+            if w.sharded[d]:
+                sl = w.owned_local(d)
+                mm = (i >= sl.start) & (i < sl.stop)
+            elif self.mesh.shape[d] > 1 and self.mesh.coords[d] != 0:
+                mm = i < 0
+            else:
+                continue
+            m = mm if m is None else m & mm
+        return torch.ones(shape, dtype=torch.bool, device=device) if m is None \
+            else torch.broadcast_to(m, shape)
+
+    def all_reduce(self, v: torch.Tensor, op: str) -> torch.Tensor:
+        """`op` ("sum", "prod", "min", "max") of a 0-d or small tensor
+        over the mesh's ranks; every rank gets the same bits."""
+        red = {"sum": dist.ReduceOp.SUM, "prod": dist.ReduceOp.PRODUCT,
+               "min": dist.ReduceOp.MIN, "max": dist.ReduceOp.MAX}[op]
+        return self._topo._all_reduce(v, red)

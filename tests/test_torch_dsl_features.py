@@ -9,8 +9,8 @@ reductions, integer arithmetic, count loops, slots with `advance`,
 matrices and vectors, complex scalars, compensated dot products, local
 block solves (collocated and offset unknowns), and cell and face fields
 with their bc and transfers.  Also: automatic timers
-leave the output alone, the layouts equal the JAX ones, and what the port
-does not have yet (the sharded DSL) raises."""
+leave the output alone, the layouts equal the JAX ones, and a
+configuration with a decomposition above 1 runs dense in one process."""
 
 import pytest
 import torch
@@ -323,12 +323,29 @@ def test_io_builtins_raise_not_implemented(call, tmp_path):
         assert torch.equal(ex.get_field("u", 4), ex.get_field("w", 4))
 
 
-def test_sharded_configuration_raises_not_implemented():
-    k = Knowledge(dimensionality=2, minLevel=0, maxLevel=4, tpu_mesh_shape=[2, 1],
-                  tpu_shard_dsl=True).update()
-    src = "Function Application ( ) : Unit {\n  print ( 1 )\n}\n"
-    with pytest.raises(NotImplementedError, match="sharded DSL"):
-        L4Executable(parse_l4(HEAD + src), k, device="cpu", out=lambda s: None)
+def test_sharded_configuration_runs_dense_in_one_process():
+    """`tpu_mesh_shape = [2, 1]` with `tpu_shard_dsl` in one process: the
+    port's mesh is None (one rank), the program runs dense and prints the
+    lines of the JAX package, which shards it over a 2x1 device mesh."""
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), os.pardir,
+                        "examples", "poisson_2d.exa4")
+
+    def k(cls):
+        return cls(dimensionality=2, minLevel=0, maxLevel=4, testing_enabled=True,
+                   tpu_mesh_shape=[2, 1], tpu_shard_dsl=True,
+                   tpu_coarse_replicate_threshold=4).update()
+
+    want = []
+    jex = JaxL4(jax_parse_l4(path), k(JaxKnowledge), out=want.append)
+    assert jex.mesh is not None and dict(jex.mesh.shape) == {"bx": 2, "by": 1}
+    jex.run()
+    got = []
+    ex = L4Executable(parse_l4(path), k(Knowledge), device="cpu", out=got.append)
+    assert ex.mesh is None and ex.frag is None
+    ex.run()
+    assert got == want and len(got) > 3
 
 
 def test_automatic_timers_do_not_change_output():

@@ -20,12 +20,9 @@ from exastencils_tpu_torch.config.knowledge import Knowledge
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
-# Read only by exastencils_tpu/parallel/dslsharding.py (the mesh axis names
-# of the sharded DSL), which the port has not ported yet; ROADMAP Queue 1
-# keeps it.
-NOT_READ_UNTIL_PARALLEL = frozenset({
-    "tpu_mesh_axis_names",
-})
+# Flags the JAX package reads and the port does not (none since the
+# sharded DSL reads `tpu_mesh_axis_names`, parallel/dslsharding.py).
+NOT_READ_UNTIL_PARALLEL = frozenset()
 # Read by the port's sharded backend since it was ported; each changes it
 # (test_sharded_backend_reads_the_flag).
 SHARDED_FLAGS = ("comm_ghostWidth", "tpu_coarse_replicate_threshold",
@@ -63,13 +60,19 @@ def test_every_flag_the_jax_package_reads_is_read_by_the_port():
         f"listed but read now: {sorted(NOT_READ_UNTIL_PARALLEL - unread)}")
 
 
-@pytest.mark.parametrize("flag", sorted(NOT_READ_UNTIL_PARALLEL))
-def test_listed_flag_is_read_by_the_jax_package_only(flag):
-    """Each listed flag is declared by both Knowledges, read by the JAX
-    package (its sharded paths) and by no module of the port."""
-    assert flag in {f.name for f in dataclasses.fields(Knowledge)}
-    assert flag in flags_read("exastencils_tpu")
-    assert flag not in flags_read("exastencils_tpu_torch")
+@pytest.mark.parametrize("names", [None, ("px", "py", "pz")])
+def test_mesh_axis_names_flag_names_the_mesh_axes(names):
+    """`tpu_mesh_axis_names` names the axes of the sharded DSL's mesh (and
+    of mesh_from_knowledge's), as the JAX package's build_dsl_mesh names
+    its mesh; by default ("bx", "by", "bz")."""
+    from exastencils_tpu_torch.parallel.dslsharding import build_dsl_mesh
+
+    flags = {} if names is None else {"tpu_mesh_axis_names": names}
+    k = Knowledge(dimensionality=2, tpu_mesh_shape=(2, 2), **flags).update()
+    mesh = build_dsl_mesh(k, 2, world=4)
+    assert mesh.shape == (2, 2)
+    assert mesh.axis_names == (names or ("bx", "by", "bz"))[:2]
+    assert "tpu_mesh_axis_names" in flags_read("exastencils_tpu_torch")
 
 
 def _sharded_solver(**flags):

@@ -94,7 +94,8 @@ REPO = pathlib.Path(__file__).resolve().parents[1]
     "exastencils_tpu_torch.runtime.vtk", "exastencils_tpu_torch.solver.krylov",
     "exastencils_tpu_torch.solver.synthesis", "exastencils_tpu_torch.dsl.interp_builtins",
     "exastencils_tpu_torch.parallel.mesh", "exastencils_tpu_torch.parallel.topology",
-    "exastencils_tpu_torch.parallel.backend", "exastencils_tpu_torch.parallel.dryrun"])
+    "exastencils_tpu_torch.parallel.backend", "exastencils_tpu_torch.parallel.dryrun",
+    "exastencils_tpu_torch.parallel.dslsharding", "exastencils_tpu_torch.dsl.interp_fragments"])
 def test_import_leaves_jax_out(module):
     """Importing a module of the port, in a fresh interpreter, puts neither
     jax nor the JAX package (exastencils_tpu or any of its submodules)
