@@ -94,16 +94,31 @@ card over gloo:
                the runs left eager; and the program's Solve at maxLevel 6
                in float64, whose lines must be the dense run's by the dry
                run's rule.
+In bfloat16 (csrc/star3d.cuh's rounding contract) it holds every kernel
+to its plain version (bf16_kernel_phases: the sweeps bitwise, the
+transfers within BF16_ULPS bfloat16 ulps; the odd shape with and without
+excl planes, levels 4/5, K7/K8 bitwise K1/K2, K4/K5 with node and cell
+taps, the ghosted K1/K2/K3 on the 273^3 fragment, and 513^3 timed beside
+the bound at itemsize 2) and drives five 513^3 bfloat16 V(3,3) paths
+(bf16_paths), staged bit for bit the eager cycle, launches counted in one
+replay against leg_chain(..., bfloat16), cycle ms and GLUP/s printed:
+  main_path_bf16 (K1/K2), jacobi_path_bf16 (K4/K5), fas_path_bf16 (K3),
+  v1_path_bf16 (K7/K8) and v1_fas_path_bf16 (K6), each first-cycle drop
+  below BF16_DROP_FACTOR times the plain bfloat16 cycle's of its kind
+  (RBGS, Jacobi, FAS: run plain first), and main_path_bf16's cycle within
+  BF16_CYCLE_ULPS of its plain run's.
 The `staging` line sums up the graphs, device loops,
 capture seconds and graph-pool bytes of every staged path.  Every phase
 prints one line; any failure raises and exits non-zero.  The third-to-last line
-is the kernel table as JSON, then the card's name and power limit, the
+is the kernel table as JSON (with each kernel's bfloat16 ms, bound,
+error and launches), then the card's name and power limit, the
 last line `{"ok": true, "device": ...}`.  Exits non-zero without printing
 a result when no CUDA device is present.
 """
 
 import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -116,6 +131,14 @@ TOL = {torch.float64: 1e-12, torch.float32: 1e-5}  # max|got-ref| / max|ref|
 # float32: the plain version restricts and prolongs with banded matmuls,
 # which sum the taps in another order and with FMA (~1 ulp per tap);
 # the RBGS and residual arithmetic itself is bitwise equal (--fmad=false).
+# bfloat16 (csrc/star3d.cuh's rounding contract: float32 inside a node update
+# or tap sum, one rounding where the kernel stores): the sweeps are bitwise
+# the plain versions'; a transfer's output within BF16_ULPS[kernel] bfloat16
+# ulps at the largest |value| (the plain version sums the taps as banded
+# float32 matmuls, in another order, so a rounding tie can flip; K2/K8
+# smooth after such a flip, which can reach a neighbour)
+BF16 = torch.bfloat16
+BF16_ULPS = {"K1": 1, "K2": 2, "K3": 0, "K4": 1, "K5": 1, "K6": 0, "K7": 1, "K8": 2}
 MAIN_LEVEL = 9  # 513^3 nodes, bench.py's Poisson3D size
 K_MAIN = 3  # V(3,3)
 OMEGA = 0.8
@@ -137,7 +160,8 @@ SOURCES = {kk: "exastencils_tpu_torch/csrc/" + ("legs3d.cu" if kk in ("K1", "K2"
 # FLOP/s outside the tensor cores (the kernels use none: TF32 would break
 # the bitwise RBGS)
 PEAK_BYTES_S = 3.35e12
-PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12,
+              BF16: 67e12}  # bfloat16 fields: the arithmetic is float32
 # per staged path: graphs, segments, device loops, capture seconds, pool bytes
 STAGING = {}
 
@@ -177,9 +201,29 @@ def leg_inputs(level, dtype, seed):
     return laplace_stencil(3).bind(grid), field(n), field(n), field(nc), (nc,) * 3
 
 
+def bf16_ulp(ref):
+    """The spacing of bfloat16 numbers at ref's largest |value|."""
+    m = ref.abs().max().float().item()
+    return 2.0 ** (math.floor(math.log2(m)) - 7) if m > 0 else 0.0
+
+
 def rel_err(got, ref):
+    """(max abs error, relative to max|ref|, bfloat16 ulp at max|ref|);
+    bfloat16 compared in float32."""
+    if ref.dtype == BF16:
+        got, ref = got.float(), ref.float()
     d = (got - ref).abs().max().item()
-    return d, d / max(ref.abs().max().item(), 1e-300)
+    return d, d / max(ref.abs().max().item(), 1e-300), bf16_ulp(ref)
+
+
+def tol_ok(kk, e, dtype):
+    """e = rel_err(got, ref) within kernel kk's tolerance: TOL[dtype]
+    relative, or in bfloat16 BF16_ULPS[kk] ulps."""
+    return e[0] <= BF16_ULPS[kk] * e[2] if dtype == BF16 else e[1] <= TOL[dtype]
+
+
+def tol_of(dtype):
+    return "bf16_ulps" if dtype == BF16 else TOL[dtype]
 
 
 def star_inputs(shape, cshape, dtype, seed):
@@ -227,7 +271,7 @@ def compare_legs(level, K, dtype, timed=False, shape=None, excl=None):
     u_ref = s3.prolong_correct_smooth_plain(sol, sol_c, rhs, A, omega, K, pk, P.lo, excl)
     e_s, e_rc, e_u = rel_err(s_got, s_ref), rel_err(rc_got, rc_ref), rel_err(u_got, u_ref)
     k1_abs, k1_rel = max(e_s[0], e_rc[0]), max(e_s[1], e_rc[1])
-    tol = TOL[dtype]
+    tol = tol_of(dtype)
     sol_bitwise = bool(torch.equal(s_got, s_ref))
     comp = {}
     if excl == s3.NO_EXCL:
@@ -239,7 +283,8 @@ def compare_legs(level, K, dtype, timed=False, shape=None, excl=None):
     phase("compare", level=level, shape=tuple(sol.shape), K=K,
           dtype=str(dtype).split(".")[1], excl=excl, k1_rel=f"{k1_rel:.3e}",
           k2_rel=f"{e_u[1]:.3e}", tol=tol, k1_sol_bitwise=sol_bitwise, **comp, launches=launches)
-    if not (sol_bitwise and k1_rel <= tol and e_u[1] <= tol and all(comp.values())):
+    ok = tol_ok("K1", e_s, dtype) and tol_ok("K1", e_rc, dtype) and tol_ok("K2", e_u, dtype)
+    if not (sol_bitwise and ok and all(comp.values())):
         raise AssertionError(f"leg kernel mismatch at {tuple(sol.shape)} K {K} {dtype} excl {excl}")
     if launches != want:
         raise AssertionError(f"legs took {launches} launches, not {want}")
@@ -304,7 +349,7 @@ def compare_sharded_kernels(cells, dims, g, K, dtype, timed=False):
     A, sol, rhs, sol_c, _ = star_inputs(shape, cshape, dtype, seed=sum(cells) + K)
     R, P = node_restriction(3), node_prolongation(3)
     rk, pk = separable_kernels(R), separable_kernels(P)
-    tol, worst, out = TOL[dtype], {"K1": 0.0, "K2": 0.0, "K3": 0.0}, {}
+    tol, worst, out = tol_of(dtype), {"K1": 0.0, "K2": 0.0, "K3": 0.0}, {}
     for topo in topos:
         coords, excl = topo.mesh.coords, _excl_planes(topo, cells)
         n0 = launch_counts()
@@ -329,7 +374,8 @@ def compare_sharded_kernels(cells, dims, g, K, dtype, timed=False):
         worst["K1"] = max(worst["K1"], e_rc[0], rel_err(s_got, s_ref)[0])
         worst["K2"] = max(worst["K2"], e_u[0])
         worst["K3"] = max(worst["K3"], rel_err(m_got, m_ref)[0])
-        if not (bitwise and e_rc[1] <= tol and e_u[1] <= tol and ghosts_zero and launched):
+        if not (bitwise and tol_ok("K1", e_rc, dtype) and tol_ok("K2", e_u, dtype) and ghosts_zero
+                and launched):
             raise AssertionError(
                 f"sharded kernels: cells {cells} ghost {ghost} K {K} {dtype} rank {coords}: "
                 f"rbgs bitwise {bitwise}, K1 coarse {e_rc[1]:.3e}, K2 {e_u[1]:.3e}, "
@@ -456,11 +502,12 @@ def compare_transfers(shape, dtype, cell, seed):
     e5 = rel_err(u, s3.prolong_correct_plain(sol, sol_c, pk, P.lo))
     bitwise = all(torch.equal(s3.res_restrict(sol, rhs, A, rk, R.lo, cshape), rc) and
                   torch.equal(s3.prolong_correct(sol.clone(), sol_c, pk, P.lo), u) for _ in range(2))
-    tol = TOL[dtype]
+    tol = tol_of(dtype)
     phase("compare_transfers", shape=shape, coarse=cshape, taps="cell" if cell else "node",
           dtype=str(dtype).split(".")[1], k4_rel=f"{e4[1]:.3e}", k5_rel=f"{e5[1]:.3e}", tol=tol,
+          **({"k4_ulps": e4[0] / e4[2], "k5_ulps": e5[0] / e5[2]} if dtype == BF16 else {}),
           runs_bitwise=bitwise, launches=launches)
-    if not (e4[1] <= tol and e5[1] <= tol and bitwise):
+    if not (tol_ok("K4", e4, dtype) and tol_ok("K5", e5, dtype) and bitwise):
         raise AssertionError(f"K4/K5 mismatch at {shape} {dtype} cell={cell}")
     if launches != (1, 1):
         raise AssertionError(f"K4/K5 took {launches} launches, not (1, 1)")
@@ -619,14 +666,14 @@ def compare_fused(level, K, dtype, excl=None, timed=False, shape=None, transfers
         u_got = s3.prolong_correct(sol.clone(), sol_c, pk, P.lo)
         errs["K4"] = rel_err(rc_got, s3.res_restrict_plain(sol, rhs, A, rk, R.lo, cshape))
         errs["K5"] = rel_err(u_got, s3.prolong_correct_plain(sol, sol_c, pk, P.lo))
-    tol = TOL[dtype]
+    tol = tol_of(dtype)
     bitwise = bool(torch.equal(s_got, s_ref))
     want = len(s3.leg_chain(s3.LEG_SMOOTH, K, dtype))
     phase("compare_fused", level=level, shape=tuple(sol.shape), K=K,
           dtype=str(dtype).split(".")[1], excl=excl,
           **{f"{kk.lower()}_rel": f"{e[1]:.3e}" for kk, e in errs.items()}, tol=tol,
           k3_bitwise=bitwise, k3_launches=launches)
-    if not (bitwise and all(e[1] <= tol for e in errs.values())):
+    if not (bitwise and all(tol_ok(kk, e, dtype) for kk, e in errs.items())):
         raise AssertionError(f"kernel/plain mismatch at {tuple(sol.shape)} K {K} {dtype} excl {excl}")
     if launches != want:
         raise AssertionError(f"K3 took {launches} launches, not {want}")
@@ -670,9 +717,9 @@ def compare_wavefronts(level, K, dtype, excl=None, timed=False, shape=None):
     r6 = s3.rbgs_wavefront_plain(sol, rhs, A, OMEGA, K, excl)
     r7, rrc7 = s3.smooth_res_restrict_wavefront_plain(sol, rhs, A, OMEGA, K, rk, R.lo, cshape)
     r8 = s3.prolong_correct_smooth_wavefront_plain(sol, sol_c, rhs, A, OMEGA, K, pk, P.lo)
-    errs = {"K6": rel_err(s6, r6), "K7": max(rel_err(s7, r7), rel_err(rc7, rrc7)),
-            "K8": rel_err(s8, r8)}
-    tol = TOL[dtype]
+    e_rc7 = rel_err(rc7, rrc7)
+    errs = {"K6": rel_err(s6, r6), "K7": max(rel_err(s7, r7), e_rc7), "K8": rel_err(s8, r8)}
+    tol = tol_of(dtype)
     bitwise = bool(torch.equal(s6, r6) and torch.equal(s7, r7))
     shapes_bitwise = True
     if excl != s3.NO_EXCL:
@@ -682,7 +729,7 @@ def compare_wavefronts(level, K, dtype, excl=None, timed=False, shape=None):
           dtype=str(dtype).split(".")[1], excl=excl,
           **{f"{kk.lower()}_rel": f"{e[1]:.3e}" for kk, e in errs.items()}, tol=tol,
           k6_k7_sol_bitwise=bitwise, k6_every_cluster_bitwise=shapes_bitwise, launches=launches)
-    if not (bitwise and shapes_bitwise and errs["K7"][1] <= tol and errs["K8"][1] <= tol):
+    if not (bitwise and shapes_bitwise and tol_ok("K7", e_rc7, dtype) and tol_ok("K8", errs["K8"], dtype)):
         raise AssertionError(f"wavefront/plain mismatch at {tuple(sol.shape)} K {K} {dtype} excl {excl}")
     excess = sum(k6_launches(max(K - s3.max_cluster_k(dtype, m), 0), dtype)
                  for m in (s3.LEG_RESTRICT, s3.LEG_PROLONG))
@@ -2013,10 +2060,152 @@ def sharded_phases(device="cuda", kernel_cases=SHARDED_KERNEL_CASES):
     return frag, first
 
 
+# ----------------------------------------------------------------------
+# bfloat16: every kernel in bfloat16 against its plain version, and the
+# five V(3,3) paths at 513^3 with tpu_compute_dtype="bfloat16"
+# ----------------------------------------------------------------------
+
+# The first cycle's residual drop of a bfloat16 kernel path, at most this
+# many times the plain bfloat16 path's of the same cycle kind in the same
+# call: rounding once (the kernels) stalls above the per-operation rounding
+# of the plain ops (`python tests/test_torch_bf16.py`, on the CPU, the
+# kernels' plain versions against the plain ops: RBGS 1.02, 1.04, 1.12
+# times at levels 5, 6, 7, FAS 1.02-1.09, Jacobi 1.0; the DSL fast path's
+# first cycle at maxLevel 4 1.8 times)
+BF16_DROP_FACTOR = 2.0
+# main_path_bf16's one-cycle output against its plain run's, in bfloat16
+# ulps at the largest |value|: the plain ops round every operation, the
+# kernels once per stored value, so the iterates part by the smoother's
+# rounding noise (the same script: 2-4 ulps at levels 5-7)
+BF16_CYCLE_ULPS = 16
+
+
+def bf16_kernel_phases():
+    """K1-K8 in bfloat16 against their plain versions (the sweeps bitwise,
+    the transfers within BF16_ULPS): at the odd shape with excl planes and
+    without, K = 1, 3, 4; on levels 4 and 5; K7/K8 bitwise K1/K2; K4/K5
+    with node and cell taps at odd shapes; the ghosted K1/K2/K3 on the
+    273^3 fragment of 513^3 for the excl planes of each rank of a 2x2x2
+    mesh; and at 513^3, K = 3 (K7/K8 bitwise K1/K2 there too), timed
+    beside the bound at itemsize 2.
+    Returns {kernel: {max_abs_err, ms, plain_ms}} at 513^3."""
+    t0 = time.perf_counter()
+    (odd, excl), n, nc = LEG_CASES[2], 2 ** MAIN_LEVEL + 1, 2 ** (MAIN_LEVEL - 1) + 1
+    for K in (1, 3, 4):
+        compare_legs(None, K, BF16, shape=odd)
+        compare_legs(None, K, BF16, shape=odd, excl=excl)
+        compare_fused(None, K, BF16, excl=excl, shape=odd, transfers=False)
+        compare_wavefronts(None, K, BF16, excl=excl, shape=odd)
+        compare_v1_legs(None, K, BF16, shape=odd)
+    for level, K in ((4, 1), (5, 3)):
+        compare_legs(level, K, BF16)
+        compare_fused(level, K, BF16)
+        compare_wavefronts(level, K, BF16)
+        compare_v1_legs(level, K, BF16)
+    for i, shape in enumerate(((17, 33, 9), (66, 40, 37), (129, 129, 129))):
+        for cell in (False, True):
+            compare_transfers(shape, BF16, cell, seed=i)
+    ghosted = compare_sharded_kernels((256, 256, 256), (2, 2, 2), 8, K_MAIN, BF16, timed=True)
+    full = compare_legs(MAIN_LEVEL, K_MAIN, BF16, timed=True)
+    full.update(compare_fused(MAIN_LEVEL, K_MAIN, BF16, timed=True))
+    full.update(compare_wavefronts(MAIN_LEVEL, K_MAIN, BF16, timed=True))
+    compare_v1_legs(MAIN_LEVEL, K_MAIN, BF16)
+    compare_transfers((n,) * 3, BF16, False, seed=7)
+    for kk in KERNELS:
+        b_ms = bound(kk, n, nc, K_MAIN, BF16)[0]
+        f32_b = bound(kk, n, nc, K_MAIN, torch.float32)[0]
+        phase("bf16_times", kernel=kk, level=MAIN_LEVEL, K=K_MAIN, ms=f"{full[kk]['ms']:.4f}",
+              plain_ms=f"{full[kk]['plain_ms']:.4f}", bound_ms=f"{b_ms:.4f}",
+              share_of_bound=f"{b_ms / full[kk]['ms']:.3f}", f32_bound_ms=f"{f32_b:.4f}",
+              max_abs_err=f"{full[kk]['max_abs_err']:.3e}",
+              **({"ghosted_ms": f"{ghosted[kk + '_ms']:.4f}"} if kk in ("K1", "K2", "K3") else {}))
+    phase("bf16_kernels", seconds=f"{time.perf_counter() - t0:.1f}")
+    return full
+
+
+def drive_bf16_path(tag, use_kernels, drop_bound, expected=None, model_kw=None, **knowledge_kw):
+    """One PoissonMGSolver V(3,3) path at 513^3 in bfloat16 through
+    drive_gen (staged bit for bit the eager cycle, launches counted in one
+    replay against `expected`, the first cycle's drop below `drop_bound`),
+    with its cycle ms and GLUP/s."""
+    from exastencils_tpu_torch.models.poisson import PoissonMGSolver
+
+    k = poisson_knowledge(tpu_use_pallas=use_kernels, tpu_compute_dtype="bfloat16",
+                          **knowledge_kw)
+    solver = PoissonMGSolver(k, device="cuda", omega=OMEGA, n_pre=K_MAIN, n_post=K_MAIN,
+                             **(model_kw or {}))
+    name = tag if use_kernels else f"{tag}_plain"
+    d = drive_gen(name, solver.gen, drop_bound, 10 if use_kernels else 3, idle=use_kernels)
+    if d["eager"].dtype != BF16:
+        raise AssertionError(f"{name}: the cycle ran in {d['eager'].dtype}")
+    d["drop"] = d["r1"] / d["r0"]
+    glups = (2 ** MAIN_LEVEL + 1) ** 3 / (d["ms"] * 1e-3) / 1e9
+    phase(name, kernels=use_kernels, dtype="bfloat16", residual_drop=f"{d['drop']:.4e}",
+          bound=drop_bound if drop_bound is None else f"{drop_bound:.4f}",
+          cycle_ms=f"{d['ms']:.3f}", eager_ms=f"{d['eager_ms']:.3f}", glups=f"{glups:.4f}",
+          **d.get("idle", {}), launches_per_cycle=d["launches"], expected=expected,
+          staged_equals_eager=True, host_reads_per_cycle=d["reads"], **d["stats"])
+    if expected is not None and d["launches"] != expected:
+        raise AssertionError(f"{name}: launches per cycle {d['launches']}, expected {expected}")
+    return d
+
+
+def bf16_paths(none):
+    """The five bfloat16 paths with kernels (main_path_bf16 K1/K2,
+    jacobi_path_bf16 K4/K5, fas_path_bf16 K3, v1_path_bf16 K7/K8,
+    v1_fas_path_bf16 K6), launches as leg_chain(..., bfloat16) gives them;
+    the plain bfloat16 RBGS, Jacobi and FAS cycles first, whose drops bound
+    the kernel paths' (BF16_DROP_FACTOR); main_path_bf16's cycle held to
+    its plain run's within BF16_CYCLE_ULPS.  Returns {kernel: launches}
+    and the paths' cycle ms."""
+    from exastencils_tpu_torch.ops.cuda import stream3d as s3
+
+    t0 = time.perf_counter()
+    levels = MAIN_LEVEL - 1  # levels 2..9
+    chain = {kk: len(s3.leg_chain(m, K_MAIN, BF16, r)) for kk, m, r in (
+        ("K1", s3.LEG_RESTRICT, 1), ("K2", s3.LEG_PROLONG, 0), ("K3", s3.LEG_SMOOTH, 0))}
+    k6 = -(-K_MAIN // s3.max_wavefront_k(BF16))
+    kinds = {"rbgs": ({}, {}), "jacobi": ({"smoother": "Jac"}, {}),
+             "fas": ({}, {"solver_useFAS": True})}
+    drops, plain_out = {}, None
+    for kind, (mk, kk) in kinds.items():
+        d = drive_bf16_path(f"{kind}_bf16", False, None, None, mk, **kk)
+        drops[kind] = d["drop"]
+        if kind == "rbgs":
+            plain_out = d["eager"]
+        del d
+    bounds = {kind: min(BF16_DROP_FACTOR * drop, 0.9) for kind, drop in drops.items()}
+    paths = (("main_path_bf16", "rbgs", False, {"K1": levels * chain["K1"], "K2": levels * chain["K2"]}),
+             ("jacobi_path_bf16", "jacobi", False, {"K4": levels, "K5": levels}),
+             ("fas_path_bf16", "fas", False, {"K3": 2 * levels * chain["K3"]}),
+             ("v1_path_bf16", "rbgs", True, {"K7": levels, "K8": levels}),
+             ("v1_fas_path_bf16", "fas", True, {"K6": 2 * levels * k6}))
+    launches, ms = {}, {}
+    for tag, kind, v1, want in paths:
+        mk, kk = kinds[kind]
+        with v1_schedule() if v1 else contextlib.nullcontext():
+            d = drive_bf16_path(tag, True, bounds[kind], {**none, **want}, mk, **kk)
+        launches.update(want)
+        ms[tag], drops[tag] = d["ms"], d["drop"]
+        if tag == "main_path_bf16":
+            e = rel_err(d["eager"], plain_out)
+        del d
+    phase("main_path_bf16_kernel_vs_plain", max_abs=f"{e[0]:.3e}", ulps=f"{e[0] / e[2]:.2f}",
+          bound_ulps=BF16_CYCLE_ULPS, drop_kernels=f"{drops['main_path_bf16']:.4e}",
+          drop_plain=f"{drops['rbgs']:.4e}")
+    if not e[0] <= BF16_CYCLE_ULPS * e[2]:
+        raise AssertionError(f"main_path_bf16: kernel and plain cycles differ by {e[0] / e[2]:.2f} ulps")
+    phase("bf16_paths", seconds=f"{time.perf_counter() - t0:.1f}",
+          **{f"{k}_drop": f"{v:.4e}" for k, v in drops.items()},
+          **{f"{kind}_drop_bound": f"{b:.4f}" for kind, b in bounds.items()})
+    return launches, ms
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; nothing run", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     from exastencils_tpu_torch.ops.cuda import stream3d as s3
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2137,6 +2326,8 @@ def main():
             "v1_fas_path", {**none, "K6": k3_calls * k6_launches(K_MAIN, torch.float32)}, 0.1,
             solver_useFAS=True)
         launches.update(K6=v1_fas["K6"])
+    bf16 = bf16_kernel_phases()
+    bf16_launches, _ = bf16_paths(none)
 
     solve_both("rbgs")
     solve_both("jacobi", model_kw={"smoother": "Jac"})
@@ -2166,6 +2357,7 @@ def main():
     phase("staging", **{tag: v for tag, v in STAGING.items()})
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
+    phase("script", seconds=f"{time.perf_counter() - t_start:.1f}")
 
     kernels = []
     for kk, (fn, rep) in KERNELS.items():
@@ -2176,7 +2368,12 @@ def main():
                         "plain_ms": full[kk]["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
                         # K4/K5: compositions of library calls (library_transfers); no
                         # PyTorch call computes any of the others
-                        "library_ms": full[kk].get("library_ms")})
+                        "library_ms": full[kk].get("library_ms"),
+                        # bfloat16 (513^3, K=3; launches on its *_bf16 path)
+                        "bf16_ms": bf16[kk]["ms"],
+                        "bf16_bound_ms": bound(kk, n, nc, K_MAIN, BF16)[0],
+                        "bf16_max_abs_err": bf16[kk]["max_abs_err"],
+                        "bf16_launches": bf16_launches[kk]})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -23,7 +23,10 @@
 // tile, cluster or z-chunk edge is no special case; K7/K8 take no excl
 // planes, as their TPU kernels); K7 restricts
 // in K4's order (z innermost, then y, then x), K8 prolongs in K5's
-// (z-sums per plane step, then at most four adds a node).
+// (z-sums per plane step, then at most four adds a node).  Fields are
+// float32, float64 or bfloat16 (star3d.cuh's rounding contract: float32
+// rings, so the halo shared between the blocks of a cluster is float32 too,
+// each stored value rounded once; loads synchronous).
 //
 // Bound: device-memory bytes, as K1/K2: (3N + Nc) values, 1.69 GB at 513^3
 // f32, 0.50 ms at 3.35 TB/s.  The first v1 wavefronts ran 289 chains of 519
@@ -341,34 +344,35 @@ int tiles_for(int n, int nc, bool down) {
 // x.  A tap across an inner edge of the cluster reads the box of the block
 // that owns that fine node (every block's box sits at the same offset).
 template <typename T>
-__device__ void restrict_yx(T* __restrict__ outc, const T* zbox, int cz, int ny, int nx,
+__device__ void restrict_yx(T* __restrict__ outc, const compute_t<T>* zbox, int cz, int ny, int nx,
                             int nyc, int nxc, int reach, int ccx, const Geom& g, const Own& oy,
-                            const Own& ox, const Taps<T>& t) {
+                            const Own& ox, const Taps<compute_t<T>>& t) {
+  using C = compute_t<T>;
   const int rx = kTile + 2 * reach;
   const int ncx = ox.c1 - ox.c0;
   cg::cluster_group cl = cg::this_cluster();
   const int rank = static_cast<int>(cl.block_rank());
   for (int i = threadIdx.x; i < (oy.c1 - oy.c0) * ncx; i += blockDim.x) {
     const int cy = oy.c0 + i / ncx, cx = ox.c0 + i % ncx;
-    T acc_x = T(0);
+    C acc_x = C(0);
 #pragma unroll
     for (int kx = 0; kx < kMaxTaps; ++kx) {
       const int x = 2 * cx + t.lo[2] + kx;
       if (kx >= t.n[2] || x < 0 || x >= nx) continue;
       const int dx = x < g.tx0 && !g.xlo ? -1 : x >= g.tx0 + kTile && !g.xhi ? 1 : 0;
-      T acc_y = T(0);
+      C acc_y = C(0);
 #pragma unroll
       for (int ky = 0; ky < kMaxTaps; ++ky) {
         const int y = 2 * cy + t.lo[1] + ky;
         if (ky >= t.n[1] || y < 0 || y >= ny) continue;
         const int dy = y < g.ty0 && !g.ylo ? -1 : y >= g.ty0 + kTile && !g.yhi ? 1 : 0;
-        const T* src = (dx | dy) ? cl.map_shared_rank(zbox, rank + dx + dy * ccx) : zbox;
+        const C* src = (dx | dy) ? cl.map_shared_rank(zbox, rank + dx + dy * ccx) : zbox;
         acc_y = acc_y + t.w[1][ky] *
                             src[(y - g.ty0 - dy * kTile + reach) * rx + x - g.tx0 - dx * kTile + reach];
       }
       acc_x = acc_x + t.w[2][kx] * acc_y;
     }
-    outc[(static_cast<int64_t>(cz) * nyc + cy) * nxc + cx] = acc_x;
+    outc[(static_cast<int64_t>(cz) * nyc + cy) * nxc + cx] = narrow<T>(acc_x);
   }
 }
 
@@ -384,8 +388,9 @@ template <typename T, int K, int MODE, int NP, bool ALONE>
 __global__ void __launch_bounds__(NP == 1 ? kMaxThreads : kMaxThreads2)
 cluster_leg(T* __restrict__ out, T* __restrict__ outc, const T* __restrict__ sol,
             const T* __restrict__ solc, const T* __restrict__ rhs, int nz, int ny, int nx,
-            int nzc, int nyc, int nxc, Star<T> s, T scale, int reach, int chunk, Taps<T> t,
-            Excl ex, int ccy, int ccx) {
+            int nzc, int nyc, int nxc, Star<compute_t<T>> s, compute_t<T> scale, int reach,
+            int chunk, Taps<compute_t<T>> t, Excl ex, int ccy, int ccx) {
+  using C = compute_t<T>;  // the rings' type (star3d.cuh: the bfloat16 contract)
   constexpr int L = 2 * K;  // half-sweeps
   constexpr bool up = MODE == kProlong, down = MODE == kRestrict, smooth = MODE == kSmooth;
   constexpr int S = L + 2 + down + kAhead;  // ring slots, of sol and of rhs
@@ -398,13 +403,13 @@ cluster_leg(T* __restrict__ out, T* __restrict__ outc, const T* __restrict__ sol
   const int py = ALONE ? 0 : blockIdx.y % ccy, px = ALONE ? 0 : blockIdx.x % ccx;
   const Geom g = geom_for(MODE, K, reach, ALONE ? 1 : ccy, ALONE ? 1 : ccx, py, px, blockIdx.y,
                           blockIdx.x);
-  T* ring = reinterpret_cast<T*>(smem);
-  T* rring = ring + S * g.plane;
-  T* extra = rring + S * g.plane;  // K8: coarse ring; K7: boxes of z-sums
+  C* ring = reinterpret_cast<C*>(smem);
+  C* rring = ring + S * g.plane;
+  C* extra = rring + S * g.plane;  // K8: coarse ring; K7: boxes of z-sums
   // The neighbours' sol rings (y-, y+, x-, x+), where this block has one;
   // the y- neighbour's rows.
   const int rank = static_cast<int>(cl.block_rank());
-  const T* nb[4] = {ring, ring, ring, ring};
+  const C* nb[4] = {ring, ring, ring, ring};
   if (!ALONE) {
     if (!g.ylo) nb[0] = cl.map_shared_rank(ring, rank - ccx);
     if (!g.yhi) nb[1] = cl.map_shared_rank(ring, rank + ccx);
@@ -429,7 +434,7 @@ cluster_leg(T* __restrict__ out, T* __restrict__ outc, const T* __restrict__ sol
   const int cy0 = floor_half(g.wy0 - t.lo[1] - (kMaxTaps - 1));
   const int cx0 = floor_half(g.wx0 - t.lo[2] - (kMaxTaps - 1));
   int cz_next = max(floor_half(lz0 - t.lo[0] - (t.n[0] - 1)), 0);  // first coarse plane not loaded
-  TapPair<T> tpy[NP], tpx0[NP], tpx1[NP];
+  TapPair<C> tpy[NP], tpx0[NP], tpx1[NP];
 #pragma unroll
   for (int k = 0; k < NP; ++k) {
     tpy[k] = tap_pair(pr[k].gy, nyc, t.w[1], t.n[1], t.lo[1]);
@@ -445,13 +450,13 @@ cluster_leg(T* __restrict__ out, T* __restrict__ outc, const T* __restrict__ sol
   const int by0 = g.ty0 - (g.ylo ? reach : 0), by1 = g.ty0 + kTile + (g.yhi ? reach : 0);
   const int bx0 = g.tx0 - (g.xlo ? reach : 0), bx1 = g.tx0 + kTile + (g.xhi ? reach : 0);
   bool box0[NP], box1[NP];
-  T za[NP][2], zb[NP][2];
+  C za[NP][2], zb[NP][2];
 #pragma unroll
   for (int k = 0; k < NP; ++k) {
     const bool row = pr[k].mine && pr[k].gy >= by0 && pr[k].gy < by1;
     box0[k] = row && pr[k].gx >= bx0 && pr[k].gx < bx1;
     box1[k] = row && pr[k].gx + 1 >= bx0 && pr[k].gx + 1 < bx1;
-    za[k][0] = za[k][1] = zb[k][0] = zb[k][1] = T(0);
+    za[k][0] = za[k][1] = zb[k][0] = zb[k][1] = C(0);
   }
   int czw = sp.cz0, czr = sp.cz0;
   auto last_of = [&](int cz) { return min(max(2 * cz + t.lo[0] + t.n[0] - 1, 0), nz - 1); };
@@ -462,25 +467,25 @@ cluster_leg(T* __restrict__ out, T* __restrict__ outc, const T* __restrict__ sol
   auto issue = [&](int pp, int slot) {
     if (pp >= lz0 && pp <= lz1) {
       const int64_t zoff = static_cast<int64_t>(pp) * ny * nx;
-      T* ds = ring + slot * g.plane;
-      T* dr = rring + slot * g.plane;
+      C* ds = ring + slot * g.plane;
+      C* dr = rring + slot * g.plane;
 #pragma unroll
       for (int k = 0; k < NP; ++k) {
         const Pair& c = pr[k];
         if (!c.mine) continue;
-        cp_async(ds + c.e, sol + zoff + c.g0, c.in0);
-        cp_async(ds + odd + c.e, sol + zoff + c.g1, c.in1);
-        cp_async(dr + c.e, rhs + zoff + c.g0, c.in0);
-        cp_async(dr + odd + c.e, rhs + zoff + c.g1, c.in1);
+        load_shared(ds + c.e, sol + zoff + c.g0, c.in0);
+        load_shared(ds + odd + c.e, sol + zoff + c.g1, c.in1);
+        load_shared(dr + c.e, rhs + zoff + c.g0, c.in0);
+        load_shared(dr + odd + c.e, rhs + zoff + c.g1, c.in1);
       }
       if constexpr (up) {
         for (const int hi = min(floor_half(pp + 1 - t.lo[0]), nzc - 1); cz_next <= hi; ++cz_next) {
           const T* src = solc + static_cast<int64_t>(cz_next) * nyc * nxc;
-          T* dst = extra + (cz_next % kCoarseSlots) * cbox;
+          C* dst = extra + (cz_next % kCoarseSlots) * cbox;
           for (int i = threadIdx.x; i < cbox; i += blockDim.x) {
             const int cy = cy0 + i / ce, cx = cx0 + i % ce;
             const bool in = cy >= 0 && cy < nyc && cx >= 0 && cx < nxc;
-            cp_async(dst + i, in ? src + static_cast<int64_t>(cy) * nxc + cx : src, in);
+            load_shared(dst + i, in ? src + static_cast<int64_t>(cy) * nxc + cx : src, in);
           }
         }
       }
@@ -491,14 +496,14 @@ cluster_leg(T* __restrict__ out, T* __restrict__ outc, const T* __restrict__ sol
   // K8: the z-sums of the coarse box for fine plane q (K5's
   // innermost sums, in its order), by all threads, into slot
   // (q - pstart) % 2 of two.
-  T* zsum = extra + kCoarseSlots * cbox;
+  C* zsum = extra + kCoarseSlots * cbox;
   auto coarse_z = [&](int q) {
-    const TapPair<T> pz = tap_pair(q, nzc, t.w[0], t.n[0], t.lo[0]);
-    const T* cza = extra + (pz.c0 & (kCoarseSlots - 1)) * cbox;  // read only where valid
-    const T* czb = extra + ((pz.c0 - 1) & (kCoarseSlots - 1)) * cbox;
-    T* dst = zsum + ((q - pstart) & 1) * cbox;
+    const TapPair<C> pz = tap_pair(q, nzc, t.w[0], t.n[0], t.lo[0]);
+    const C* cza = extra + (pz.c0 & (kCoarseSlots - 1)) * cbox;  // read only where valid
+    const C* czb = extra + ((pz.c0 - 1) & (kCoarseSlots - 1)) * cbox;
+    C* dst = zsum + ((q - pstart) & 1) * cbox;
     for (int i = threadIdx.x; i < cbox; i += blockDim.x) {
-      T acc = T(0);
+      C acc = C(0);
       if (pz.v0) acc = acc + pz.w0 * cza[i];
       if (pz.v1) acc = acc + pz.w1 * czb[i];
       dst[i] = acc;
@@ -511,27 +516,27 @@ cluster_leg(T* __restrict__ out, T* __restrict__ outc, const T* __restrict__ sol
   // copy group.
   auto ingest = [&](int q, int slot) {
     if (q >= lz0 && q <= lz1 && q >= 1 && q <= nz - 2) {
-      const T* zs = zsum + ((q - pstart) & 1) * cbox;
-      T* bq = ring + slot * g.plane;
+      const C* zs = zsum + ((q - pstart) & 1) * cbox;
+      C* bq = ring + slot * g.plane;
 #pragma unroll
       for (int k = 0; k < NP; ++k) {
         const int oy = (tpy[k].c0 - cy0) * ce;
         auto sum_y = [&](int o) {
-          T acc = T(0);
+          C acc = C(0);
           if (tpy[k].v0) acc = acc + tpy[k].w0 * zs[oy + o];
           if (tpy[k].v1) acc = acc + tpy[k].w1 * zs[oy - ce + o];
           return acc;
         };
-        auto sum_x = [&](const TapPair<T>& px) {
+        auto sum_x = [&](const TapPair<C>& px) {
           const int o = px.c0 - cx0;
-          T acc = T(0);
+          C acc = C(0);
           if (px.v0) acc = acc + px.w0 * sum_y(o);
           if (px.v1) acc = acc + px.w1 * sum_y(o - 1);
           return acc;
         };
         const int e = pr[k].e;
-        if (pr[k].ok0) bq[e] = bq[e] + sum_x(tpx0[k]);
-        if (pr[k].ok1) bq[odd + e] = bq[odd + e] + sum_x(tpx1[k]);
+        if (pr[k].ok0) bq[e] = round_stored<T>(bq[e] + sum_x(tpx0[k]));
+        if (pr[k].ok1) bq[odd + e] = round_stored<T>(bq[odd + e] + sum_x(tpx1[k]));
       }
     }
     coarse_z(q + 1);
@@ -551,7 +556,7 @@ cluster_leg(T* __restrict__ out, T* __restrict__ outc, const T* __restrict__ sol
   if (!ALONE) cluster_wait();
   for (int p = pstart, s0 = 0; p <= pend; ++p, s0 = s0 + 1 < S ? s0 + 1 : 0) {
     issue(p + kAhead, s0 + kAhead < S ? s0 + kAhead : s0 + kAhead - S);
-    T* bp = ring + s0 * g.plane;
+    C* bp = ring + s0 * g.plane;
 
     // K7: the coarse planes whose z-sums the step before last completed
     // (published by the last step's barrier).
@@ -577,33 +582,33 @@ cluster_leg(T* __restrict__ out, T* __restrict__ outc, const T* __restrict__ sol
       // The neighbours across inner edges for all 2K half-sweeps, loaded at
       // once: one round trip to the neighbouring blocks a step.
       const bool ryo = c.edge & 3, rxo = c.edge & (a ? 8 : 4);
-      T ryv[L], rxv[L];
+      C ryv[L], rxv[L];
 #pragma unroll
       for (int l = 1; l <= L; ++l) {
         const int o = slot_back(s0, l) * g.plane;
-        ryv[l - 1] = ryo ? remote_y(nb, nry, g, c, a, o) : T(0);
-        rxv[l - 1] = rxo ? remote_x(nb, g, c, a, o) : T(0);
+        ryv[l - 1] = ryo ? remote_y(nb, nry, g, c, a, o) : C(0);
+        rxv[l - 1] = rxo ? remote_x(nb, g, c, a, o) : C(0);
       }
-      T zp = bp[li];
+      C zp = bp[li];
 #pragma unroll
       for (int l = 1; l <= L; ++l) {
         const int q = p - l, o = slot_back(s0, l) * g.plane;
-        const T cen = ring[o + li];
-        T v = cen;
+        const C cen = ring[o + li];
+        C v = cen;
         if (oka && l <= dista && q >= max(zlo + l, 1) && q <= nz - 2 &&
             (!smooth || (q != ex.p[0] && q != ex.p[1]))) {
-          Nbrs<T> n = local_nbrs(ring, g, c, a, o);
+          Nbrs<C> n = local_nbrs(ring, g, c, a, o);
           if (ryo) (c.edge & 1 ? n.ym : n.yp) = ryv[l - 1];
           if (rxo) (a ? n.xp : n.xm) = rxv[l - 1];
-          T au = s.c[0] * cen;
+          C au = s.c[0] * cen;
           au = au + s.c[1] * ring[slot_back(s0, l + 1) * g.plane + li];
           au = au + s.c[2] * zp;
           au = au + s.c[3] * n.ym;
           au = au + s.c[4] * n.yp;
           au = au + s.c[5] * n.xm;
           au = au + s.c[6] * n.xp;
-          const T corr = scale * (rring[o + li] - au);
-          v = cen + corr;
+          const C corr = scale * (rring[o + li] - au);
+          v = round_stored<T>(cen + corr);
           ring[o + li] = v;
         }
         zp = v;
@@ -623,7 +628,7 @@ cluster_leg(T* __restrict__ out, T* __restrict__ outc, const T* __restrict__ sol
     // past the tile from sol).
     const int qo = p - L;
     if (qo >= sp.z0 && qo < sp.z1) {
-      const T* b = ring + slot_back(s0, L) * g.plane;
+      const C* b = ring + slot_back(s0, L) * g.plane;
       const int64_t zoff = static_cast<int64_t>(qo) * ny * nx;
       T* o = out + zoff;
       const int y1 = min(oy.f1, g.ty0 + kTile), x1 = min(ox.f1, g.tx0 + kTile);
@@ -631,8 +636,8 @@ cluster_leg(T* __restrict__ out, T* __restrict__ outc, const T* __restrict__ sol
       for (int k = 0; k < NP; ++k) {
         const Pair& c = pr[k];
         if (!c.mine || c.gy < oy.f0 || c.gy >= y1) continue;
-        if (c.in0 && c.gx >= ox.f0 && c.gx < x1) o[c.g0] = b[c.e];
-        if (c.in1 && c.gx + 1 >= ox.f0 && c.gx + 1 < x1) o[c.g1] = b[odd + c.e];
+        if (c.in0 && c.gx >= ox.f0 && c.gx < x1) o[c.g0] = narrow<T>(b[c.e]);
+        if (c.in1 && c.gx + 1 >= ox.f0 && c.gx + 1 < x1) o[c.g1] = narrow<T>(b[odd + c.e]);
       }
       if (ox.copy)
         for (int y = oy.f0 + threadIdx.x; y < oy.f1; y += blockDim.x)
@@ -652,33 +657,33 @@ cluster_leg(T* __restrict__ out, T* __restrict__ outc, const T* __restrict__ sol
     if (down && qr >= sp.rz0 && qr <= sp.rz1) {
       const bool plane_ok = qr >= 1 && qr <= nz - 2;
       const int sb = slot_back(s0, L + 1);
-      const T* zm = ring + slot_back(s0, L + 2) * g.plane;
-      const T* zq = ring + slot_back(s0, L) * g.plane;
-      const T* b = ring + sb * g.plane;
-      const T* rq = rring + sb * g.plane;
+      const C* zm = ring + slot_back(s0, L + 2) * g.plane;
+      const C* zq = ring + slot_back(s0, L) * g.plane;
+      const C* b = ring + sb * g.plane;
+      const C* rq = rring + sb * g.plane;
       auto residual = [&](bool ok, const Pair& c, int a) {
-        if (!ok) return T(0);
+        if (!ok) return C(0);
         const int li = a ? odd + c.e : c.e;
-        const Nbrs<T> n = nbrs_at(ring, nb, nry, g, c, a, sb);
-        T au = s.c[0] * b[li];
+        const Nbrs<C> n = nbrs_at(ring, nb, nry, g, c, a, sb);
+        C au = s.c[0] * b[li];
         au = au + s.c[1] * zm[li];
         au = au + s.c[2] * zq[li];
         au = au + s.c[3] * n.ym;
         au = au + s.c[4] * n.yp;
         au = au + s.c[5] * n.xm;
         au = au + s.c[6] * n.xp;
-        return rq[li] - au;
+        return round_stored<T>(rq[li] - au);
       };
       const int k0 = (qr - t.lo[0]) & 1, c0 = (qr - t.lo[0] - k0) >> 1;
       const bool tap0 = k0 < t.n[0] && c0 >= sp.cz0 && c0 < sp.cz1;
       const bool tap2 = k0 == 0 && t.n[0] > 2 && c0 - 1 >= sp.cz0 && c0 - 1 < sp.cz1;
-      const T w0 = k0 ? t.w[0][1] : t.w[0][0];
+      const C w0 = k0 ? t.w[0][1] : t.w[0][0];
 #pragma unroll
       for (int k = 0; k < NP; ++k) {
         const Pair& c = pr[k];
-        const T v0 = residual(plane_ok && c.ok0 && box0[k], c, 0);
-        const T v1 = residual(plane_ok && c.ok1 && box1[k], c, 1);
-        auto add = [&](int cz, T w) {
+        const C v0 = residual(plane_ok && c.ok0 && box0[k], c, 0);
+        const C v1 = residual(plane_ok && c.ok1 && box1[k], c, 1);
+        auto add = [&](int cz, C w) {
           if (cz & 1) {
             za[k][1] = za[k][1] + w * v0;
             zb[k][1] = zb[k][1] + w * v1;
@@ -693,16 +698,16 @@ cluster_leg(T* __restrict__ out, T* __restrict__ outc, const T* __restrict__ sol
       for (; czw < sp.cz1 && last_of(czw) == qr; ++czw) {
 #pragma unroll
         for (int k = 0; k < NP; ++k) {
-          T* dst = extra + (czw % kResSlots) * rb * rb + (pr[k].gy - g.ty0 + reach) * rb +
+          C* dst = extra + (czw % kResSlots) * rb * rb + (pr[k].gy - g.ty0 + reach) * rb +
                    pr[k].gx - g.tx0 + reach;
           if (czw & 1) {
             if (box0[k]) dst[0] = za[k][1];
             if (box1[k]) dst[1] = zb[k][1];
-            za[k][1] = zb[k][1] = T(0);
+            za[k][1] = zb[k][1] = C(0);
           } else {
             if (box0[k]) dst[0] = za[k][0];
             if (box1[k]) dst[1] = zb[k][0];
-            za[k][0] = zb[k][0] = T(0);
+            za[k][0] = zb[k][0] = C(0);
           }
         }
       }
@@ -744,8 +749,9 @@ int tiles(int n, int tile) { return (n + tile - 1) / tile; }
 int round_up(int n, int m) { return (n + m - 1) / m * m; }
 
 template <typename T>
-using LegFn = void (*)(T*, T*, const T*, const T*, const T*, int, int, int, int, int, int, Star<T>,
-                       T, int, int, Taps<T>, Excl, int, int);
+using LegFn = void (*)(T*, T*, const T*, const T*, const T*, int, int, int, int, int, int,
+                       Star<compute_t<T>>, compute_t<T>, int, int, Taps<compute_t<T>>, Excl, int,
+                       int);
 
 template <typename T, int MODE, int NP, bool ALONE = false>
 LegFn<T> kernel_for(int K) {
@@ -774,7 +780,7 @@ LegFn<T> prepared(int mode, int K, int reach, int ccy, int ccx, size_t* smem, in
                   cudaError_t* err) {
   *err = cudaErrorInvalidValue;
   if (!valid_launch(mode, K, ccy, ccx)) return nullptr;
-  *smem = cluster_smem(mode, K, reach, ccy, ccx, sizeof(T));
+  *smem = cluster_smem(mode, K, reach, ccy, ccx, sizeof(compute_t<T>));
   *threads = cluster_threads(mode, K, reach, ccy, ccx);
   const int np = pairs_per_thread(launch_geom(mode, K, reach, ccy, ccx));
   if (*threads > (np == 1 ? kMaxThreads : kMaxThreads2)) return nullptr;
@@ -850,11 +856,12 @@ cudaError_t launch(void* out, void* outc, const void* sol, const void* solc, con
   const dim3 grid = grid_for(nz, ny, nx, nzc, nyc, nxc, mode, chunk, ccy, ccx);
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = launch_config(grid, threads, smem, stream, &attr, ccy, ccx);
+  using C = compute_t<T>;
   err = cudaLaunchKernelEx(&cfg, kernel, static_cast<T*>(out), static_cast<T*>(outc),
                            static_cast<const T*>(sol), static_cast<const T*>(solc),
                            static_cast<const T*>(rhs), nz, ny, nx, nzc, nyc, nxc,
-                           make_star<T>(coefs), static_cast<T>(scale), reach, chunk,
-                           make_taps<T>(taps, ntaps, lo), ex, ccy, ccx);
+                           make_star<C>(coefs), static_cast<C>(scale), reach, chunk,
+                           make_taps<C>(taps, ntaps, lo), ex, ccy, ccx);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
@@ -878,8 +885,13 @@ int exa_cluster_constant(int i) {
   return i >= 0 && i < 5 ? c[i] : -1;
 }
 
-long long exa_cluster_smem(int mode, int K, int reach, int ccy, int ccx, int itemsize) {
-  return static_cast<long long>(cluster_smem(mode, K, reach, ccy, ccx, itemsize));
+// Shared memory of one block for fields of dtype code `dtype` (star3d.cuh
+// DType), -1 for an unknown code.
+long long exa_cluster_smem(int mode, int K, int reach, int ccy, int ccx, int dtype) {
+  return with_dtype(dtype, -1LL, [&](auto* z) {
+    using T = std::remove_pointer_t<decltype(z)>;
+    return static_cast<long long>(cluster_smem(mode, K, reach, ccy, ccx, sizeof(compute_t<T>)));
+  });
 }
 
 int exa_cluster_threads(int mode, int K, int reach, int ccy, int ccx) {
@@ -894,22 +906,23 @@ void exa_cluster_grid(int nz, int ny, int nx, int nzc, int nyc, int nxc, int mod
   grid[2] = g.z;
 }
 
-int exa_cluster_occupancy(int mode, int K, int reach, int ccy, int ccx, int is_double, int what) {
-  return is_double ? occupancy<double>(mode, K, reach, ccy, ccx, what)
-                   : occupancy<float>(mode, K, reach, ccy, ccx, what);
+int exa_cluster_occupancy(int mode, int K, int reach, int ccy, int ccx, int dtype, int what) {
+  return with_dtype(dtype, -1, [&](auto* z) {
+    return occupancy<std::remove_pointer_t<decltype(z)>>(mode, K, reach, ccy, ccx, what);
+  });
 }
 
 int exa_cluster_leg(void* out, void* outc, const void* sol, const void* solc, const void* rhs,
                     int nz, int ny, int nx, int nzc, int nyc, int nxc, const double* coefs,
                     double scale, int K, int reach, int mode, int chunk, const double* taps,
                     const int* ntaps, const int* lo, const int* excl, int ccy, int ccx,
-                    int is_double, void* stream) {
+                    int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(
-      is_double ? launch<double>(out, outc, sol, solc, rhs, nz, ny, nx, nzc, nyc, nxc, coefs,
-                                 scale, K, reach, mode, chunk, taps, ntaps, lo, excl, ccy, ccx, st)
-                : launch<float>(out, outc, sol, solc, rhs, nz, ny, nx, nzc, nyc, nxc, coefs,
-                                scale, K, reach, mode, chunk, taps, ntaps, lo, excl, ccy, ccx, st));
+  return with_dtype(dtype, static_cast<int>(cudaErrorInvalidValue), [&](auto* z) {
+    return static_cast<int>(launch<std::remove_pointer_t<decltype(z)>>(
+        out, outc, sol, solc, rhs, nz, ny, nx, nzc, nyc, nxc, coefs, scale, K, reach, mode, chunk,
+        taps, ntaps, lo, excl, ccy, ccx, st));
+  });
 }
 
 }  // extern "C"

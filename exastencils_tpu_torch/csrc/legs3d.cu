@@ -22,7 +22,10 @@
 // K3 + K4 (stream3d.cu restrict_kernel); K2 prolongs with K5's arithmetic
 // (stream3d.cu prolong_kernel: inner, non-excl nodes only, bc not
 // reapplied), so K2 is bitwise K5 + K3.  The transfer taps stay general (Taps<T>, up to kMaxTaps per dim, any
-// lo).
+// lo).  Fields are float32, float64 or bfloat16; a bfloat16 leg keeps
+// star3d.cuh's rounding contract (float32 rings, each stored value rounded
+// once), so its sweeps are the plain version's bitwise and K1/K2 stay
+// bitwise K3 + K4 and K5 + K3; its loads into the rings are synchronous.
 //
 // Bound: device-memory bytes.  A leg must read sol and rhs and write sol
 // once, and read or write the coarse array once: (3N + Nc) values, 1.69 GB
@@ -173,9 +176,10 @@ __device__ __host__ inline int coarse_edge(int R) { return (R + kMaxTaps) / 2 + 
 // innermost ones, then y, then x.  GHOSTED: in K1's aligned indices,
 // written at array index + off inside the write window (Coarse).
 template <bool GHOSTED, typename T>
-__device__ void restrict_yx(T* __restrict__ outc, const T* zbox, int cz, int ny, int nx,
-                            int nyc, int nxc, int reach, const Geom& g, const Taps<T>& t,
-                            const Coarse& cg) {
+__device__ void restrict_yx(T* __restrict__ outc, const compute_t<T>* zbox, int cz, int ny, int nx,
+                            int nyc, int nxc, int reach, const Geom& g,
+                            const Taps<compute_t<T>>& t, const Coarse& cg) {
+  using C = compute_t<T>;
   const int rx = kLegTile + 2 * reach;
   constexpr int ct = kLegTile / 2;  // coarse tile edge
   const int by = g.ty0 - reach, bx = g.tx0 - reach;  // box origin
@@ -196,12 +200,12 @@ __device__ void restrict_yx(T* __restrict__ outc, const T* zbox, int cz, int ny,
     } else {
       if (cy >= nyc || cx >= nxc) continue;
     }
-    T acc_x = T(0);
+    C acc_x = C(0);
 #pragma unroll
     for (int kx = 0; kx < kMaxTaps; ++kx) {
       const int x = 2 * cx + t.lo[2] + kx;
       if (kx >= t.n[2] || x < 0 || x >= nx) continue;
-      T acc_y = T(0);
+      C acc_y = C(0);
 #pragma unroll
       for (int ky = 0; ky < kMaxTaps; ++ky) {
         const int y = 2 * cy + t.lo[1] + ky;
@@ -210,7 +214,7 @@ __device__ void restrict_yx(T* __restrict__ outc, const T* zbox, int cz, int ny,
       }
       acc_x = acc_x + t.w[2][kx] * acc_y;
     }
-    outc[(static_cast<int64_t>(oz) * nyc + oy) * nxc + ox] = acc_x;
+    outc[(static_cast<int64_t>(oz) * nyc + oy) * nxc + ox] = narrow<T>(acc_x);
   }
 }
 
@@ -287,8 +291,9 @@ template <typename T, int K, int MODE, bool GHOSTED>
 __global__ void __launch_bounds__(MODE == kRestrict ? kMaxDownThreads : kMaxUpThreads)
 leg_kernel(T* __restrict__ out, T* __restrict__ outc, const T* __restrict__ sol,
            const T* __restrict__ solc, const T* __restrict__ rhs, int nz, int ny, int nx,
-           int nzc, int nyc, int nxc, Star<T> s, T scale, int reach, int chunk, Taps<T> t,
-           Excl ex, Coarse cg) {
+           int nzc, int nyc, int nxc, Star<compute_t<T>> s, compute_t<T> scale, int reach,
+           int chunk, Taps<compute_t<T>> t, Excl ex, Coarse cg) {
+  using C = compute_t<T>;  // the rings' type (star3d.cuh: the bfloat16 contract)
   constexpr int L = 2 * K;  // half-sweeps
   constexpr bool up = MODE == kProlong, down = MODE == kRestrict;
   constexpr int S = L + 2 + down + kLegAhead;  // ring slots, of sol and of rhs
@@ -297,9 +302,9 @@ leg_kernel(T* __restrict__ out, T* __restrict__ outc, const T* __restrict__ sol,
   const Span sp = span_for(blockIdx.z, chunk, nz, GHOSTED ? cg.n[0] : nzc, down, t);
   if (sp.zf0 > sp.zf1) return;  // block-uniform: nothing to compute
   const Geom g = geom_for(MODE, K, reach, blockIdx.y, blockIdx.x);
-  T* ring = reinterpret_cast<T*>(smem);
-  T* rring = ring + S * g.plane;
-  T* extra = rring + S * g.plane;  // K2: coarse ring; K1: boxes of z-sums
+  C* ring = reinterpret_cast<C*>(smem);
+  C* rring = ring + S * g.plane;
+  C* extra = rring + S * g.plane;  // K2: coarse ring; K1: boxes of z-sums
   const int pstart = sp.zf0 - L, pend = sp.zf1 + L + 2 * down;
   const int lz0 = max(pstart, 0), lz1 = min(sp.zf1 + L, nz - 1);  // planes loaded
   const int zlo = sp.zf0 - L;  // half-sweep l runs on planes >= zlo + l
@@ -314,7 +319,7 @@ leg_kernel(T* __restrict__ out, T* __restrict__ outc, const T* __restrict__ sol,
   const int cy0 = floor_half(g.wy0 - t.lo[1] - (kMaxTaps - 1));
   const int cx0 = floor_half(g.wx0 - t.lo[2] - (kMaxTaps - 1));
   int cz_next = max(floor_half(lz0 - t.lo[0] - (t.n[0] - 1)), 0);  // first coarse plane not loaded
-  TapPair<T> py[NP], px0[NP], px1[NP];
+  TapPair<C> py[NP], px0[NP], px1[NP];
 #pragma unroll
   for (int k = 0; k < NP; ++k) {
     py[k] = tap_pair(pr[k].gy, nyc, t.w[1], t.n[1], t.lo[1]);
@@ -328,14 +333,14 @@ leg_kernel(T* __restrict__ out, T* __restrict__ outc, const T* __restrict__ sol,
   const int rry = kLegTile + 2 * reach, rrx = kLegTile + 2 * reach;
   const int boff = g.halo - reach;
   bool box0[NP], box1[NP];
-  T za[NP][2], zb[NP][2];
+  C za[NP][2], zb[NP][2];
 #pragma unroll
   for (int k = 0; k < NP; ++k) {
     const int iy = pr[k].ly - boff, ix = 2 * pr[k].jx - boff;
     const bool row = pr[k].mine && iy >= 0 && iy < rry;
     box0[k] = row && ix >= 0 && ix < rrx;
     box1[k] = row && ix + 1 >= 0 && ix + 1 < rrx;
-    za[k][0] = za[k][1] = zb[k][0] = zb[k][1] = T(0);
+    za[k][0] = za[k][1] = zb[k][0] = zb[k][1] = C(0);
   }
   int czw = sp.cz0, czr = sp.cz0;
   auto last_of = [&](int cz) { return min(max(2 * cz + t.lo[0] + t.n[0] - 1, 0), nz - 1); };
@@ -347,25 +352,25 @@ leg_kernel(T* __restrict__ out, T* __restrict__ outc, const T* __restrict__ sol,
   auto issue = [&](int pp, int slot) {
     if (pp >= lz0 && pp <= lz1) {
       const int64_t zoff = static_cast<int64_t>(pp) * ny * nx;
-      T* ds = ring + slot * g.plane;
-      T* dr = rring + slot * g.plane;
+      C* ds = ring + slot * g.plane;
+      C* dr = rring + slot * g.plane;
 #pragma unroll
       for (int k = 0; k < NP; ++k) {
         const Pair& c = pr[k];
         if (!c.mine) continue;
-        cp_async(ds + c.e, sol + zoff + c.g0, c.in0);
-        cp_async(ds + odd + c.e, sol + zoff + c.g1, c.in1);
-        cp_async(dr + c.e, rhs + zoff + c.g0, c.in0);
-        cp_async(dr + odd + c.e, rhs + zoff + c.g1, c.in1);
+        load_shared(ds + c.e, sol + zoff + c.g0, c.in0);
+        load_shared(ds + odd + c.e, sol + zoff + c.g1, c.in1);
+        load_shared(dr + c.e, rhs + zoff + c.g0, c.in0);
+        load_shared(dr + odd + c.e, rhs + zoff + c.g1, c.in1);
       }
       if constexpr (up) {
         for (const int hi = min(floor_half(pp + 1 - t.lo[0]), nzc - 1); cz_next <= hi; ++cz_next) {
           const T* src = solc + static_cast<int64_t>(cz_next) * nyc * nxc;
-          T* dst = extra + (cz_next % kCoarseSlots) * cbox;
+          C* dst = extra + (cz_next % kCoarseSlots) * cbox;
           for (int i = threadIdx.x; i < cbox; i += blockDim.x) {
             const int cy = cy0 + i / crx, cx = cx0 + i % crx;
             const bool in = cy >= 0 && cy < nyc && cx >= 0 && cx < nxc;
-            cp_async(dst + i, in ? src + static_cast<int64_t>(cy) * nxc + cx : src, in);
+            load_shared(dst + i, in ? src + static_cast<int64_t>(cy) * nxc + cx : src, in);
           }
         }
       }
@@ -376,14 +381,14 @@ leg_kernel(T* __restrict__ out, T* __restrict__ outc, const T* __restrict__ sol,
   // K2: the z-sums of the coarse box for fine plane q (K5's
   // innermost sums, in its order), by all threads, into the slot
   // (q - pstart) % 2 of two; q's coarse planes must have arrived.
-  T* zsum = extra + kCoarseSlots * cbox;
+  C* zsum = extra + kCoarseSlots * cbox;
   auto coarse_z = [&](int q) {
-    const TapPair<T> pz = tap_pair(q, nzc, t.w[0], t.n[0], t.lo[0]);
-    const T* cza = extra + (pz.c0 & (kCoarseSlots - 1)) * cbox;  // read only where valid
-    const T* czb = extra + ((pz.c0 - 1) & (kCoarseSlots - 1)) * cbox;
-    T* dst = zsum + ((q - pstart) & 1) * cbox;
+    const TapPair<C> pz = tap_pair(q, nzc, t.w[0], t.n[0], t.lo[0]);
+    const C* cza = extra + (pz.c0 & (kCoarseSlots - 1)) * cbox;  // read only where valid
+    const C* czb = extra + ((pz.c0 - 1) & (kCoarseSlots - 1)) * cbox;
+    C* dst = zsum + ((q - pstart) & 1) * cbox;
     for (int i = threadIdx.x; i < cbox; i += blockDim.x) {
-      T acc = T(0);
+      C acc = C(0);
       if (pz.v0) acc = acc + pz.w0 * cza[i];
       if (pz.v1) acc = acc + pz.w1 * czb[i];
       dst[i] = acc;
@@ -400,33 +405,33 @@ leg_kernel(T* __restrict__ out, T* __restrict__ outc, const T* __restrict__ sol,
   }
   for (int p = pstart, s0 = 0; p <= pend; ++p, s0 = s0 + 1 < S ? s0 + 1 : 0) {
     issue(p + kLegAhead, s0 + kLegAhead < S ? s0 + kLegAhead : s0 + kLegAhead - S);
-    T* bp = ring + s0 * g.plane;
+    C* bp = ring + s0 * g.plane;
 
     // K2's ingest: plane p += P sol_c on the thread's inner, non-excl
     // nodes, summed as K5 sums (z innermost, from the z-sums of
     // the last step; then y, then x, taps in increasing order).  Only this
     // thread reads its columns of plane p before the step's end.
     if (up && p >= lz0 && p <= lz1 && p >= 1 && p <= nz - 2 && p != ex.p[0] && p != ex.p[1]) {
-      const T* zs = zsum + ((p - pstart) & 1) * cbox;
+      const C* zs = zsum + ((p - pstart) & 1) * cbox;
 #pragma unroll
       for (int k = 0; k < NP; ++k) {
         const int oy = (py[k].c0 - cy0) * crx;
         auto sum_y = [&](int o) {
-          T acc = T(0);
+          C acc = C(0);
           if (py[k].v0) acc = acc + py[k].w0 * zs[oy + o];
           if (py[k].v1) acc = acc + py[k].w1 * zs[oy - crx + o];
           return acc;
         };
-        auto sum_x = [&](const TapPair<T>& px) {
+        auto sum_x = [&](const TapPair<C>& px) {
           const int o = px.c0 - cx0;
-          T acc = T(0);
+          C acc = C(0);
           if (px.v0) acc = acc + px.w0 * sum_y(o);
           if (px.v1) acc = acc + px.w1 * sum_y(o - 1);
           return acc;
         };
         const int e = pr[k].e;
-        if (pr[k].ok0) bp[e] = bp[e] + sum_x(px0[k]);
-        if (pr[k].ok1) bp[odd + e] = bp[odd + e] + sum_x(px1[k]);
+        if (pr[k].ok0) bp[e] = round_stored<T>(bp[e] + sum_x(px0[k]));
+        if (pr[k].ok1) bp[odd + e] = round_stored<T>(bp[odd + e] + sum_x(px1[k]));
       }
     }
     // The next plane's z-sums, into the slot no thread reads this step
@@ -456,25 +461,25 @@ leg_kernel(T* __restrict__ out, T* __restrict__ outc, const T* __restrict__ sol,
       const int li = a ? odd + c.e : c.e;
       const int xm = a ? c.e : odd + c.e - 1, xp = a ? c.e + 1 : odd + c.e;
       int sq = s0;  // slot of plane q + 1
-      T zp = bp[li];
+      C zp = bp[li];
 #pragma unroll
       for (int l = 1; l <= L; ++l) {
         const int q = p - l;
         const int sl = slot_back(sq, 1), sm = slot_back(sq, 2);
-        T* b = ring + sl * g.plane;
-        const T cen = b[li];
-        T v = cen;
+        C* b = ring + sl * g.plane;
+        const C cen = b[li];
+        C v = cen;
         if (oka && l <= dista && q >= max(zlo + l, 1) && q <= nz - 2 && q != ex.p[0] &&
             q != ex.p[1]) {
-          T au = s.c[0] * cen;
+          C au = s.c[0] * cen;
           au = au + s.c[1] * ring[sm * g.plane + li];
           au = au + s.c[2] * zp;
           au = au + s.c[3] * b[li - g.RH];
           au = au + s.c[4] * b[li + g.RH];
           au = au + s.c[5] * b[xm];
           au = au + s.c[6] * b[xp];
-          const T corr = scale * (rring[sl * g.plane + li] - au);
-          v = cen + corr;
+          const C corr = scale * (rring[sl * g.plane + li] - au);
+          v = round_stored<T>(cen + corr);
           b[li] = v;
         }
         zp = v;
@@ -485,15 +490,16 @@ leg_kernel(T* __restrict__ out, T* __restrict__ outc, const T* __restrict__ sol,
     // Plane p - 2K is final: the tile's nodes to out.
     const int qo = p - L;
     if (qo >= sp.z0 && qo < sp.z1) {
-      const T* b = ring + slot_back(s0, L) * g.plane;
+      const C* b = ring + slot_back(s0, L) * g.plane;
       T* o = out + static_cast<int64_t>(qo) * ny * nx;
 #pragma unroll
       for (int k = 0; k < NP; ++k) {
         const Pair& c = pr[k];
         if (!c.mine || c.ly < g.halo || c.ly >= g.halo + kLegTile) continue;
         const int lx = 2 * c.jx;
-        if (c.in0 && lx >= g.halo && lx < g.halo + kLegTile) o[c.g0] = b[c.e];
-        if (c.in1 && lx + 1 >= g.halo && lx + 1 < g.halo + kLegTile) o[c.g1] = b[odd + c.e];
+        if (c.in0 && lx >= g.halo && lx < g.halo + kLegTile) o[c.g0] = narrow<T>(b[c.e]);
+        if (c.in1 && lx + 1 >= g.halo && lx + 1 < g.halo + kLegTile)
+          o[c.g1] = narrow<T>(b[odd + c.e]);
       }
     }
 
@@ -504,31 +510,31 @@ leg_kernel(T* __restrict__ out, T* __restrict__ outc, const T* __restrict__ sol,
     const int qr = p - L - 1;
     if (down && qr >= sp.rz0 && qr <= sp.rz1) {
       const bool plane_ok = qr >= 1 && qr <= nz - 2 && qr != ex.p[0] && qr != ex.p[1];
-      const T* zm = ring + slot_back(s0, L + 2) * g.plane;
-      const T* b = ring + slot_back(s0, L + 1) * g.plane;
-      const T* zq = ring + slot_back(s0, L) * g.plane;
-      const T* rq = rring + slot_back(s0, L + 1) * g.plane;
+      const C* zm = ring + slot_back(s0, L + 2) * g.plane;
+      const C* b = ring + slot_back(s0, L + 1) * g.plane;
+      const C* zq = ring + slot_back(s0, L) * g.plane;
+      const C* rq = rring + slot_back(s0, L + 1) * g.plane;
       auto residual = [&](bool ok, int li, int xm, int xp) {
-        if (!ok) return T(0);
-        T au = s.c[0] * b[li];
+        if (!ok) return C(0);
+        C au = s.c[0] * b[li];
         au = au + s.c[1] * zm[li];
         au = au + s.c[2] * zq[li];
         au = au + s.c[3] * b[li - g.RH];
         au = au + s.c[4] * b[li + g.RH];
         au = au + s.c[5] * b[xm];
         au = au + s.c[6] * b[xp];
-        return rq[li] - au;
+        return round_stored<T>(rq[li] - au);
       };
       const int k0 = (qr - t.lo[0]) & 1, c0 = (qr - t.lo[0] - k0) >> 1;
       const bool tap0 = k0 < t.n[0] && c0 >= sp.cz0 && c0 < sp.cz1;
       const bool tap2 = k0 == 0 && t.n[0] > 2 && c0 - 1 >= sp.cz0 && c0 - 1 < sp.cz1;
-      const T w0 = k0 ? t.w[0][1] : t.w[0][0];
+      const C w0 = k0 ? t.w[0][1] : t.w[0][0];
 #pragma unroll
       for (int k = 0; k < NP; ++k) {
         const Pair& c = pr[k];
-        const T v0 = residual(plane_ok && c.ok0 && box0[k], c.e, odd + c.e - 1, odd + c.e);
-        const T v1 = residual(plane_ok && c.ok1 && box1[k], odd + c.e, c.e, c.e + 1);
-        auto add = [&](int cz, T w) {
+        const C v0 = residual(plane_ok && c.ok0 && box0[k], c.e, odd + c.e - 1, odd + c.e);
+        const C v1 = residual(plane_ok && c.ok1 && box1[k], odd + c.e, c.e, c.e + 1);
+        auto add = [&](int cz, C w) {
           if (cz & 1) {
             za[k][1] = za[k][1] + w * v0;
             zb[k][1] = zb[k][1] + w * v1;
@@ -543,16 +549,16 @@ leg_kernel(T* __restrict__ out, T* __restrict__ outc, const T* __restrict__ sol,
       for (; czw < sp.cz1 && last_of(czw) == qr; ++czw) {
 #pragma unroll
         for (int k = 0; k < NP; ++k) {
-          T* dst = extra + (czw % kResSlots) * rry * rrx + (pr[k].ly - boff) * rrx +
+          C* dst = extra + (czw % kResSlots) * rry * rrx + (pr[k].ly - boff) * rrx +
                    2 * pr[k].jx - boff;
           if (czw & 1) {
             if (box0[k]) dst[0] = za[k][1];
             if (box1[k]) dst[1] = zb[k][1];
-            za[k][1] = zb[k][1] = T(0);
+            za[k][1] = zb[k][1] = C(0);
           } else {
             if (box0[k]) dst[0] = za[k][0];
             if (box1[k]) dst[1] = zb[k][0];
-            za[k][0] = zb[k][0] = T(0);
+            za[k][0] = zb[k][0] = C(0);
           }
         }
       }
@@ -606,7 +612,7 @@ auto leg_kernel_for(int K, int mode, bool ghosted = false) {
 template <typename T>
 int leg_occupancy(int mode, int K, int reach) {
   if (K < 1 || K > kMaxLegK) return -1;
-  const size_t smem = leg_smem(mode, K, reach, sizeof(T));
+  const size_t smem = leg_smem(mode, K, reach, sizeof(compute_t<T>));
   auto kernel = leg_kernel_for<T>(K, mode);
   int blocks = -1;
   if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -624,7 +630,7 @@ cudaError_t launch_leg(void* out, void* outc, const void* sol, const void* solc,
                        int chunk, const double* taps, const int* ntaps, const int* lo,
                        const int* excl, const int* coarse, cudaStream_t stream) {
   if (K < 1 || K > kMaxLegK || chunk < 2 || chunk % 2) return cudaErrorInvalidValue;
-  const size_t smem = leg_smem(mode, K, reach, sizeof(T));
+  const size_t smem = leg_smem(mode, K, reach, sizeof(compute_t<T>));
   const int threads = leg_threads(mode, K, reach);
   if (threads > (mode == kRestrict ? kMaxDownThreads : kMaxUpThreads)) return cudaErrorInvalidValue;
   if (mode < kSmooth || mode > kRestrict) return cudaErrorInvalidValue;
@@ -639,10 +645,11 @@ cudaError_t launch_leg(void* out, void* outc, const void* sol, const void* solc,
     grid.y = std::max<int>(grid.y, tiles(cg.n[1], kLegTile / 2));
     grid.z = std::max<int>(grid.z, tiles(cg.n[0], chunk / 2));
   }
+  using C = compute_t<T>;
   kernel<<<grid, threads, smem, stream>>>(
       static_cast<T*>(out), static_cast<T*>(outc), static_cast<const T*>(sol),
       static_cast<const T*>(solc), static_cast<const T*>(rhs), nz, ny, nx, nzc, nyc, nxc,
-      make_star<T>(coefs), static_cast<T>(scale), reach, chunk, make_taps<T>(taps, ntaps, lo),
+      make_star<C>(coefs), static_cast<C>(scale), reach, chunk, make_taps<C>(taps, ntaps, lo),
       make_excl(excl), cg);
   return cudaGetLastError();
 }
@@ -666,26 +673,31 @@ int exa_leg_constant(int i) {
   return i >= 0 && i < 4 ? c[i] : -1;
 }
 
-long long exa_leg_smem(int mode, int K, int reach, int itemsize) {
-  return static_cast<long long>(leg_smem(mode, K, reach, itemsize));
+// Shared memory of one block for fields of dtype code `dtype` (star3d.cuh
+// DType), -1 for an unknown code.
+long long exa_leg_smem(int mode, int K, int reach, int dtype) {
+  return with_dtype(dtype, -1LL, [&](auto* z) {
+    using T = std::remove_pointer_t<decltype(z)>;
+    return static_cast<long long>(leg_smem(mode, K, reach, sizeof(compute_t<T>)));
+  });
 }
 
-int exa_leg_occupancy(int mode, int K, int reach, int is_double) {
-  return is_double ? leg_occupancy<double>(mode, K, reach) : leg_occupancy<float>(mode, K, reach);
+int exa_leg_occupancy(int mode, int K, int reach, int dtype) {
+  return with_dtype(dtype, -1, [&](auto* z) {
+    return leg_occupancy<std::remove_pointer_t<decltype(z)>>(mode, K, reach);
+  });
 }
 
 int exa_leg(void* out, void* outc, const void* sol, const void* solc, const void* rhs, int nz,
             int ny, int nx, int nzc, int nyc, int nxc, const double* coefs, double scale, int K,
             int reach, int mode, int chunk, const double* taps, const int* ntaps,
-            const int* lo, const int* excl, const int* coarse, int is_double, void* stream) {
+            const int* lo, const int* excl, const int* coarse, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(
-      is_double ? launch_leg<double>(out, outc, sol, solc, rhs, nz, ny, nx, nzc, nyc, nxc, coefs,
-                                     scale, K, reach, mode, chunk, taps, ntaps, lo, excl, coarse,
-                                     st)
-                : launch_leg<float>(out, outc, sol, solc, rhs, nz, ny, nx, nzc, nyc, nxc, coefs,
-                                    scale, K, reach, mode, chunk, taps, ntaps, lo, excl, coarse,
-                                    st));
+  return with_dtype(dtype, static_cast<int>(cudaErrorInvalidValue), [&](auto* z) {
+    return static_cast<int>(launch_leg<std::remove_pointer_t<decltype(z)>>(
+        out, outc, sol, solc, rhs, nz, ny, nx, nzc, nyc, nxc, coefs, scale, K, reach, mode, chunk,
+        taps, ntaps, lo, excl, coarse, st));
+  });
 }
 
 }  // extern "C"

@@ -1,14 +1,88 @@
 // Device helpers shared by the 3D radius-1 star-stencil kernels
 // (stream3d.cu, legs3d.cu, cluster_legs3d.cu):
-// launch-parameter structs, the coarse taps of one fine index and the
-// asynchronous copies into shared memory.
+// launch-parameter structs, the coarse taps of one fine index, the
+// asynchronous copies into shared memory, and the field types.
+//
+// Field types: float32, float64 and bfloat16 (dtype codes 0, 1, 2 in every
+// exa_* entry, which rejects any other).  The bfloat16 rounding contract,
+// which the plain versions in ops/cuda/stream3d.py keep too:
+// - storage is bfloat16 (T = __nv_bfloat16);
+// - inside one node update (the star stencil, the residual, a transfer tap
+//   sum) the arithmetic is float32 (compute_t<T>), built with --fmad=false
+//   as the float32 kernels are;
+// - a value is rounded to bfloat16 (to nearest even, as torch's
+//   .to(torch.bfloat16)) once, where the kernel stores it: each
+//   half-sweep's new value, each residual value, each coarse value and each
+//   corrected fine value.  The z-sums of a transfer stay float32.
+// The shared-memory rings hold the compute type: a value stored there is
+// rounded and widened back (round_stored), a value from device memory
+// widened on the way in (load_shared: a synchronous load, since cp.async
+// copies 4, 8 or 16 bytes and a 4-byte pair of bfloat16 nodes straddles the
+// two colours of a colour-split plane, unaligned at odd row lengths).  So a
+// bfloat16 launch takes float32's shared memory and chains.  For float and
+// double the compute type is the storage type and every conversion is the
+// identity: those kernels compute what they did before bfloat16 existed.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace exa {
+
+enum DType { kFloat32 = 0, kFloat64 = 1, kBFloat16 = 2 };
+
+template <typename T>
+struct Compute {
+  using type = T;
+};
+template <>
+struct Compute<__nv_bfloat16> {
+  using type = float;
+};
+template <typename T>
+using compute_t = typename Compute<T>::type;
+
+// Calls f(static_cast<T*>(nullptr)) for the storage type T of dtype code
+// `dtype` and returns its result; `bad` for an unknown code.
+template <typename R, typename F>
+R with_dtype(int dtype, R bad, F f) {
+  switch (dtype) {
+    case kFloat32:
+      return f(static_cast<float*>(nullptr));
+    case kFloat64:
+      return f(static_cast<double*>(nullptr));
+    case kBFloat16:
+      return f(static_cast<__nv_bfloat16*>(nullptr));
+    default:
+      return bad;
+  }
+}
+
+// A stored value in the compute type (exact).
+__device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ double widen(double v) { return v; }
+
+// A compute-type value in the storage type: rounded to nearest even for
+// bfloat16, unchanged otherwise.
+template <typename T>
+__device__ __forceinline__ T narrow(compute_t<T> v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// A value rounded where it is stored, kept in the compute type.
+template <typename T>
+__device__ __forceinline__ compute_t<T> round_stored(compute_t<T> v) {
+  return widen(narrow<T>(v));
+}
 
 // Transfer taps per dim.  The loops over them are unrolled to this bound so
 // that the weights are read from the parameter bank: a loop with a runtime
@@ -41,6 +115,17 @@ __device__ __forceinline__ void cp_async(T* dst, const T* src, bool valid) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d), "l"(src),
                "n"(sizeof(T)), "r"(valid ? static_cast<int>(sizeof(T)) : 0));
+}
+
+// One value of a field into a compute-type slot of shared memory:
+// cp_async where the two types agree, else a synchronous load, widened (an
+// invalid source gives zero).
+template <typename T>
+__device__ __forceinline__ void load_shared(compute_t<T>* dst, const T* src, bool valid) {
+  if constexpr (std::is_same_v<T, compute_t<T>>)
+    cp_async(dst, src, valid);
+  else
+    *dst = valid ? widen(*src) : compute_t<T>(0);
 }
 
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }

@@ -20,7 +20,9 @@
 // same order).  Built with --fmad=false, the residual arithmetic is
 // bitwise that of the plain PyTorch path; only the order of the transfer
 // sums differs from its banded matmuls.  The taps stay general (Taps<T>,
-// up to kMaxTaps per dim, any lo).
+// up to kMaxTaps per dim, any lo).  Fields are float32, float64 or
+// bfloat16 (star3d.cuh's rounding contract: float32 rings and sums, the
+// residual and every output value rounded once; loads synchronous).
 //
 // Bound: device-memory bytes.  Each kernel must read two fine arrays (K4:
 // sol, rhs; K5: sol, and write it back) and one coarse one: (2N + Nc)
@@ -127,7 +129,7 @@ __device__ inline Range own_range(int b, int t, int n) {
 // covered, from node 1.
 __device__ __host__ inline int inner_tiles(int n, int t) { return (n - 2 + t - 1) / t; }
 
-template <typename T>
+template <typename C>
 struct Vec2;
 template <>
 struct Vec2<float> {
@@ -139,13 +141,15 @@ struct Vec2<double> {
 };
 
 // prolong_kernel: K5.  sol += P sol_c on the inner nodes of the block's
-// tile and z-chunk, summed in the per-node order.
+// tile and z-chunk, summed in the per-node order (bfloat16: in float32,
+// each corrected value rounded once).
 template <typename T>
 __global__ void __launch_bounds__(kTransferThreads)
 prolong_kernel(T* __restrict__ sol, const T* __restrict__ solc, int nz, int ny, int nx, int nzc,
-               int nyc, int nxc, int chunk, Taps<T> t) {
-  __shared__ T cring[kCoarseSlots * kUpBox];  // coarse boxes, by coarse plane % kCoarseSlots
-  __shared__ T zsum[2 * kUpBox];              // their z-sums, by fine plane parity in the chunk
+               int nyc, int nxc, int chunk, Taps<compute_t<T>> t) {
+  using C = compute_t<T>;
+  __shared__ C cring[kCoarseSlots * kUpBox];  // coarse boxes, by coarse plane % kCoarseSlots
+  __shared__ C zsum[2 * kUpBox];              // their z-sums, by fine plane parity in the chunk
   const int z0 = 1 + blockIdx.z * chunk, z1 = min(z0 + chunk, nz - 1);
   if (z0 >= z1) return;  // block-uniform
   const int ty0 = 1 + blockIdx.y * kUpTileY, tx0 = 1 + blockIdx.x * kUpTileX;
@@ -155,7 +159,7 @@ prolong_kernel(T* __restrict__ sol, const T* __restrict__ solc, int nz, int ny, 
 
   // The thread's rows and columns: inner or not, their y and x taps, their
   // offsets in the box and in a plane of sol.
-  TapPair<T> py[kUpRows], px[kUpCols];
+  TapPair<C> py[kUpRows], px[kUpCols];
   bool rok[kUpRows], cok[kUpCols];
   int oy[kUpRows], ox[kUpCols], gy[kUpRows], gx[kUpCols];
 #pragma unroll
@@ -193,11 +197,11 @@ prolong_kernel(T* __restrict__ sol, const T* __restrict__ solc, int nz, int ny, 
     if (z < z1) {
       for (const int hi = min(floor_half(z - t.lo[0]), nzc - 1); cz_next <= hi; ++cz_next) {
         const T* src = solc + cz_next * cplane;
-        T* dst = cring + (cz_next & (kCoarseSlots - 1)) * kUpBox;
+        C* dst = cring + (cz_next & (kCoarseSlots - 1)) * kUpBox;
 #pragma unroll
         for (int k = 0; k < kUpBoxPer; ++k) {
           const int i = threadIdx.x + k * kTransferThreads;
-          if (i < kUpBox) cp_async(dst + i, src + coff[k], cin[k]);
+          if (i < kUpBox) load_shared(dst + i, src + coff[k], cin[k]);
         }
       }
     }
@@ -205,25 +209,25 @@ prolong_kernel(T* __restrict__ sol, const T* __restrict__ solc, int nz, int ny, 
   };
   // The z-sums of the box for fine plane z (the innermost sums, in their
   // order) into dst; z's coarse planes must have arrived.
-  auto coarse_z = [&](int z, T* dst) {
-    const TapPair<T> pz = tap_pair(z, nzc, t.w[0], t.n[0], t.lo[0]);
-    const T* ca = cring + (pz.c0 & (kCoarseSlots - 1)) * kUpBox;  // read only where valid
-    const T* cb = cring + ((pz.c0 - 1) & (kCoarseSlots - 1)) * kUpBox;
+  auto coarse_z = [&](int z, C* dst) {
+    const TapPair<C> pz = tap_pair(z, nzc, t.w[0], t.n[0], t.lo[0]);
+    const C* ca = cring + (pz.c0 & (kCoarseSlots - 1)) * kUpBox;  // read only where valid
+    const C* cb = cring + ((pz.c0 - 1) & (kCoarseSlots - 1)) * kUpBox;
     for (int i = threadIdx.x; i < kUpBox; i += kTransferThreads) {
-      T acc = T(0);
+      C acc = C(0);
       if (pz.v0) acc = acc + pz.w0 * ca[i];
       if (pz.v1) acc = acc + pz.w1 * cb[i];
       dst[i] = acc;
     }
   };
-  T v[kUpRows][kUpCols], nv[kUpRows][kUpCols];
-  auto load = [&](int z, T (&dst)[kUpRows][kUpCols]) {
+  C v[kUpRows][kUpCols], nv[kUpRows][kUpCols];
+  auto load = [&](int z, C (&dst)[kUpRows][kUpCols]) {
     const T* src = sol + z * plane;
 #pragma unroll
     for (int r = 0; r < kUpRows; ++r)
 #pragma unroll
       for (int c = 0; c < kUpCols; ++c)
-        if (rok[r] && cok[c]) dst[r][c] = src[gy[r] + gx[c]];
+        if (rok[r] && cok[c]) dst[r][c] = widen(src[gy[r] + gx[c]]);
   };
 
   issue_upto(z0);
@@ -241,12 +245,12 @@ prolong_kernel(T* __restrict__ sol, const T* __restrict__ solc, int nz, int ny, 
     // that z + 1's go to.
     __syncthreads();
     if (z + 1 < z1) coarse_z(z + 1, zsum + (s ^ 1) * kUpBox);
-    const T* zs = zsum + s * kUpBox;
+    const C* zs = zsum + s * kUpBox;
     T* dst = sol + z * plane;
 #pragma unroll
     for (int r = 0; r < kUpRows; ++r) {
       auto sum_y = [&](int o) {
-        T acc = T(0);
+        C acc = C(0);
         if (py[r].v0) acc = acc + py[r].w0 * zs[oy[r] + o];
         if (py[r].v1) acc = acc + py[r].w1 * zs[oy[r] - kUpBoxX + o];
         return acc;
@@ -254,10 +258,10 @@ prolong_kernel(T* __restrict__ sol, const T* __restrict__ solc, int nz, int ny, 
 #pragma unroll
       for (int c = 0; c < kUpCols; ++c) {
         if (!(rok[r] && cok[c])) continue;
-        T acc = T(0);
+        C acc = C(0);
         if (px[c].v0) acc = acc + px[c].w0 * sum_y(ox[c]);
         if (px[c].v1) acc = acc + px[c].w1 * sum_y(ox[c] - 1);
-        dst[gy[r] + gx[c]] = v[r][c] + acc;
+        dst[gy[r] + gx[c]] = narrow<T>(v[r][c] + acc);
         v[r][c] = nv[r][c];
       }
     }
@@ -266,18 +270,22 @@ prolong_kernel(T* __restrict__ sol, const T* __restrict__ solc, int nz, int ny, 
 
 // restrict_kernel: K4.  The coarse rhs of the block's coarse tile and
 // z-chunk: the residual (zero off the inner nodes) restricted, its taps
-// summed z innermost, then y, then x.  Registers capped so that an SM holds
-// four f32 blocks, as their shared memory allows (f64: two).
+// summed z innermost, then y, then x (bfloat16: in float32, each residual
+// and each coarse value rounded once).  Registers capped so that an SM
+// holds four f32 blocks, as their shared memory allows (f64: two; bf16's
+// rings are f32's).
 template <typename T>
-__global__ void __launch_bounds__(kTransferThreads, sizeof(T) == 4 ? 4 : 2)
+__global__ void __launch_bounds__(kTransferThreads, sizeof(compute_t<T>) == 4 ? 4 : 2)
 restrict_kernel(const T* __restrict__ sol, const T* __restrict__ rhs, T* __restrict__ outc, int nz,
-                int ny, int nx, int nzc, int nyc, int nxc, int chunk, Star<T> s, Taps<T> t) {
-  using V2 = typename Vec2<T>::type;
+                int ny, int nx, int nzc, int nyc, int nxc, int chunk, Star<compute_t<T>> s,
+                Taps<compute_t<T>> t) {
+  using C = compute_t<T>;
+  using V2 = typename Vec2<C>::type;
   constexpr int S = kStride;
   extern __shared__ __align__(16) unsigned char smem[];
-  T* sring = reinterpret_cast<T*>(smem);
-  T* rring = sring + kDownSlots * kSolPlane;
-  T* zacc = rring + kDownSlots * kResPlane;
+  C* sring = reinterpret_cast<C*>(smem);
+  C* rring = sring + kDownSlots * kSolPlane;
+  C* zacc = rring + kDownSlots * kResPlane;
   const Range cz = own_range(blockIdx.z, chunk / 2, nzc);
   if (cz.c0 >= cz.c1) return;
   const Range cy = own_range(blockIdx.y, kDownTileY, nyc), cx = own_range(blockIdx.x, kDownTileX, nxc);
@@ -340,23 +348,23 @@ restrict_kernel(const T* __restrict__ sol, const T* __restrict__ rhs, T* __restr
   auto issue = [&](int p, int slot) {
     if (p >= 0 && p < nz && p <= plast) {
       const T* src = sol + p * plane;
-      T* ds = sring + slot * kSolPlane;
+      C* ds = sring + slot * kSolPlane;
 #pragma unroll
       for (int k = 0; k < kPairsPer; ++k) {
         if (!(fl[k] & 16)) continue;
-        cp_async(ds + os[k], (fl[k] & 1) ? src + go[k] : src, fl[k] & 1);
-        cp_async(ds + os[k] + 1, (fl[k] & 2) ? src + go[k] + 1 : src, fl[k] & 2);
+        load_shared(ds + os[k], (fl[k] & 1) ? src + go[k] : src, fl[k] & 1);
+        load_shared(ds + os[k] + 1, (fl[k] & 2) ? src + go[k] + 1 : src, fl[k] & 2);
       }
 #pragma unroll
       for (int k = 0; k < kHaloPer; ++k)
-        if (hmine[k]) cp_async(ds + hs[k], src + hg[k], hin[k]);
+        if (hmine[k]) load_shared(ds + hs[k], src + hg[k], hin[k]);
       if (p >= rz0 && p <= rz1) {
         const T* rs = rhs + p * plane;
-        T* dr = rring + slot * kResPlane - S;  // a rhs plane has no halo row
+        C* dr = rring + slot * kResPlane - S;  // a rhs plane has no halo row
 #pragma unroll
         for (int k = 0; k < kPairsPer; ++k) {
-          if (fl[k] & 4) cp_async(dr + os[k], rs + go[k], true);
-          if (fl[k] & 8) cp_async(dr + os[k] + 1, rs + go[k] + 1, true);
+          if (fl[k] & 4) load_shared(dr + os[k], rs + go[k], true);
+          if (fl[k] & 8) load_shared(dr + os[k] + 1, rs + go[k] + 1, true);
         }
       }
     }
@@ -365,17 +373,17 @@ restrict_kernel(const T* __restrict__ sol, const T* __restrict__ rhs, T* __restr
   auto slot_back = [](int slot, int n) { return slot - n < 0 ? slot - n + kDownSlots : slot - n; };
   auto last_of = [&](int c) { return min(max(2 * c + t.lo[0] + t.n[0] - 1, 0), nz - 1); };
   auto restrict_yx = [&](int c) {
-    const T* zb = zacc + (c & 1) * kResPlane + 2;
+    const C* zb = zacc + (c & 1) * kResPlane + 2;
     const int nyt = cy.c1 - cy.c0, nxt = cx.c1 - cx.c0;
     for (int i = threadIdx.x; i < nyt * nxt; i += kTransferThreads) {
       const int ly = i / nxt, lx = i - ly * nxt;
       const int cyy = cy.c0 + ly, cxx = cx.c0 + lx;
-      T acc_x = T(0);
+      C acc_x = C(0);
 #pragma unroll
       for (int kx = 0; kx < kMaxTaps; ++kx) {
         const int x = 2 * cxx + t.lo[2] + kx;
         if (kx >= t.n[2] || x < 0 || x >= nx) continue;
-        T acc_y = T(0);
+        C acc_y = C(0);
 #pragma unroll
         for (int ky = 0; ky < kMaxTaps; ++ky) {
           const int y = 2 * cyy + t.lo[1] + ky;
@@ -384,7 +392,7 @@ restrict_kernel(const T* __restrict__ sol, const T* __restrict__ rhs, T* __restr
         }
         acc_x = acc_x + t.w[2][kx] * acc_y;
       }
-      outc[(static_cast<int64_t>(c) * nyc + cyy) * nxc + cxx] = acc_x;
+      outc[(static_cast<int64_t>(c) * nyc + cyy) * nxc + cxx] = narrow<T>(acc_x);
     }
   };
 
@@ -399,14 +407,14 @@ restrict_kernel(const T* __restrict__ sol, const T* __restrict__ rhs, T* __restr
     const int q = p - 1;
     if (q >= rz0 && q <= rz1) {
       const bool plane_ok = q >= 1 && q <= nz - 2;
-      const T* zm = sring + slot_back(s0, 2) * kSolPlane;
-      const T* b = sring + slot_back(s0, 1) * kSolPlane;
-      const T* zp = sring + s0 * kSolPlane;
-      const T* rq = rring + slot_back(s0, 1) * kResPlane - S;
+      const C* zm = sring + slot_back(s0, 2) * kSolPlane;
+      const C* b = sring + slot_back(s0, 1) * kSolPlane;
+      const C* zp = sring + s0 * kSolPlane;
+      const C* rq = rring + slot_back(s0, 1) * kResPlane - S;
       const int k0 = (q - t.lo[0]) & 1, c0 = (q - t.lo[0] - k0) >> 1;
       const bool tap0 = k0 < t.n[0] && c0 >= cz.c0 && c0 < cz.c1;
       const bool tap2 = k0 == 0 && t.n[0] > 2 && c0 - 1 >= cz.c0 && c0 - 1 < cz.c1;
-      const T w0 = k0 ? t.w[0][1] : t.w[0][0];
+      const C w0 = k0 ? t.w[0][1] : t.w[0][0];
       const bool first0 = q == max(2 * c0 + t.lo[0], 0);  // q is c0's first tap in the array
       const bool first2 = q == max(2 * (c0 - 1) + t.lo[0], 0);
 #pragma unroll
@@ -419,34 +427,34 @@ restrict_kernel(const T* __restrict__ sol, const T* __restrict__ rhs, T* __restr
         const V2 dm = *reinterpret_cast<const V2*>(zm + o);
         const V2 dp = *reinterpret_cast<const V2*>(zp + o);
         const V2 rr = *reinterpret_cast<const V2*>(rq + o);
-        const T xl = b[o - 1], xr = b[o + 2];
-        T ra = T(0), rb = T(0);
+        const C xl = b[o - 1], xr = b[o + 2];
+        C ra = C(0), rb = C(0);
         if (plane_ok && (fl[k] & 4)) {
-          T au = s.c[0] * c.x;
+          C au = s.c[0] * c.x;
           au = au + s.c[1] * dm.x;
           au = au + s.c[2] * dp.x;
           au = au + s.c[3] * ym.x;
           au = au + s.c[4] * yp.x;
           au = au + s.c[5] * xl;
           au = au + s.c[6] * c.y;
-          ra = rr.x - au;
+          ra = round_stored<T>(rr.x - au);
         }
         if (plane_ok && (fl[k] & 8)) {
-          T au = s.c[0] * c.y;
+          C au = s.c[0] * c.y;
           au = au + s.c[1] * dm.y;
           au = au + s.c[2] * dp.y;
           au = au + s.c[3] * ym.y;
           au = au + s.c[4] * yp.y;
           au = au + s.c[5] * c.x;
           au = au + s.c[6] * xr;
-          rb = rr.y - au;
+          rb = round_stored<T>(rr.y - au);
         }
         // The running z-sums in shared memory, by coarse plane parity; a
         // plane's first tap starts its sum from zero.
-        auto add = [&](int cc, T w, bool first) {
+        auto add = [&](int cc, C w, bool first) {
           V2* z = reinterpret_cast<V2*>(zacc + (cc & 1) * kResPlane - S + o);
           V2 v = *z;
-          if (first) v.x = v.y = T(0);
+          if (first) v.x = v.y = C(0);
           v.x = v.x + w * ra;
           v.y = v.y + w * rb;
           *z = v;
@@ -472,7 +480,8 @@ cudaError_t launch_restrict(const void* sol, const void* rhs, void* out, int nz,
                             int nzc, int nyc, int nxc, const double* coefs, const double* taps,
                             const int* ntaps, const int* lo, int chunk, cudaStream_t stream) {
   if (chunk < 2 || chunk % 2) return cudaErrorInvalidValue;
-  const size_t smem = restrict_smem(sizeof(T));
+  using C = compute_t<T>;
+  const size_t smem = restrict_smem(sizeof(C));
   cudaError_t err = cudaFuncSetAttribute(restrict_kernel<T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
@@ -480,7 +489,7 @@ cudaError_t launch_restrict(const void* sol, const void* rhs, void* out, int nz,
   const dim3 grid(own_tiles(nxc, kDownTileX), own_tiles(nyc, kDownTileY), own_tiles(nzc, chunk / 2));
   restrict_kernel<T><<<grid, kTransferThreads, smem, stream>>>(
       static_cast<const T*>(sol), static_cast<const T*>(rhs), static_cast<T*>(out), nz, ny, nx,
-      nzc, nyc, nxc, chunk, make_star<T>(coefs), make_taps<T>(taps, ntaps, lo));
+      nzc, nyc, nxc, chunk, make_star<C>(coefs), make_taps<C>(taps, ntaps, lo));
   return cudaGetLastError();
 }
 
@@ -492,7 +501,7 @@ cudaError_t launch_prolong(void* sol, const void* solc, int nz, int ny, int nx, 
   const dim3 grid(inner_tiles(nx, kUpTileX), inner_tiles(ny, kUpTileY), inner_tiles(nz, chunk));
   prolong_kernel<T><<<grid, kTransferThreads, 0, stream>>>(
       static_cast<T*>(sol), static_cast<const T*>(solc), nz, ny, nx, nzc, nyc, nxc, chunk,
-      make_taps<T>(taps, ntaps, lo));
+      make_taps<compute_t<T>>(taps, ntaps, lo));
   return cudaGetLastError();
 }
 
@@ -501,7 +510,8 @@ cudaError_t launch_prolong(void* sol, const void* solc, int nz, int ny, int nx, 
 // Plain C interface for ctypes.  Pointers are device pointers except
 // coefs[7], taps[3*kMaxTaps], ntaps[3] and lo[3], which are host arrays
 // copied into the launch parameters; `chunk` is the fine z-planes of one
-// block (K4: even).  Each entry launches on `stream` without
+// block (K4: even); `dtype` the fields' dtype code (star3d.cuh DType; an
+// unknown one is cudaErrorInvalidValue).  Each entry launches on `stream` without
 // synchronising and returns cudaGetLastError().
 extern "C" {
 
@@ -522,25 +532,22 @@ int exa_transfer_constant(int i) {
 
 int exa_residual_restrict(const void* sol, const void* rhs, void* out, int nz, int ny, int nx,
                           int nzc, int nyc, int nxc, const double* coefs, const double* taps,
-                          const int* ntaps, const int* lo, int chunk, int is_double,
-                          void* stream) {
+                          const int* ntaps, const int* lo, int chunk, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(
-      is_double ? launch_restrict<double>(sol, rhs, out, nz, ny, nx, nzc, nyc, nxc, coefs, taps,
-                                          ntaps, lo, chunk, s)
-                : launch_restrict<float>(sol, rhs, out, nz, ny, nx, nzc, nyc, nxc, coefs, taps,
-                                         ntaps, lo, chunk, s));
+  return with_dtype(dtype, static_cast<int>(cudaErrorInvalidValue), [&](auto* z) {
+    return static_cast<int>(launch_restrict<std::remove_pointer_t<decltype(z)>>(
+        sol, rhs, out, nz, ny, nx, nzc, nyc, nxc, coefs, taps, ntaps, lo, chunk, s));
+  });
 }
 
 int exa_prolong_correct(void* sol, const void* solc, int nz, int ny, int nx, int nzc, int nyc,
                         int nxc, const double* taps, const int* ntaps, const int* lo, int chunk,
-                        int is_double, void* stream) {
+                        int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(
-      is_double ? launch_prolong<double>(sol, solc, nz, ny, nx, nzc, nyc, nxc, taps, ntaps, lo,
-                                         chunk, s)
-                : launch_prolong<float>(sol, solc, nz, ny, nx, nzc, nyc, nxc, taps, ntaps, lo,
-                                        chunk, s));
+  return with_dtype(dtype, static_cast<int>(cudaErrorInvalidValue), [&](auto* z) {
+    return static_cast<int>(launch_prolong<std::remove_pointer_t<decltype(z)>>(
+        sol, solc, nz, ny, nx, nzc, nyc, nxc, taps, ntaps, lo, chunk, s));
+  });
 }
 
 }  // extern "C"

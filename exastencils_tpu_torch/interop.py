@@ -25,10 +25,20 @@ def from_jax_state(sol_np, rhs_np, device, dtype: torch.dtype):
     return tuple(array_from_jax(a, device, dtype) for a in (sol_np, rhs_np))
 
 
+def _host_array(a_np) -> np.ndarray:
+    """A numpy copy torch can take: an `ml_dtypes.bfloat16` array (JAX's
+    bfloat16, a dtype torch.from_numpy rejects) as float32, which holds
+    every bfloat16 value exactly."""
+    a = np.array(a_np)
+    return a.astype(np.float32) if a.dtype.name == "bfloat16" else a
+
+
 def array_from_jax(a_np, device, dtype: torch.dtype) -> torch.Tensor:
     """One field array of the JAX package (converted to numpy by the
-    caller) as a contiguous tensor on `device`."""
-    return torch.from_numpy(np.array(a_np)).to(device=check_device(device), dtype=dtype).contiguous()
+    caller) as a contiguous tensor on `device`; a bfloat16 array converts
+    exactly (through float32 on the host)."""
+    return torch.from_numpy(_host_array(a_np)).to(device=check_device(device),
+                                                  dtype=dtype).contiguous()
 
 
 def positions_from_jax(grid):
@@ -67,12 +77,13 @@ def dsl_state_from_jax(state_np, device, dtype: torch.dtype):
     the caller converted to numpy: {(field, level): tensor on `device`},
     slots included (a slotted field keeps its leading slot dim).  Real
     arrays become `dtype`, complex arrays its complex counterpart, other
-    arrays keep their dtype.  The caller copies `slot_index` as is."""
+    arrays keep their dtype; bfloat16 arrays convert exactly.  The caller
+    copies `slot_index` as is."""
     device = check_device(device)
     cdtype = torch.complex128 if dtype == torch.float64 else torch.complex64
     out = {}
     for key, a in state_np.items():
-        t = torch.from_numpy(np.array(a))
+        t = torch.from_numpy(_host_array(a))
         if t.dtype.is_complex:
             t = t.to(cdtype)
         elif t.dtype.is_floating_point:

@@ -39,6 +39,14 @@ place and return it, where the JAX version relied on the donated
 iterate: K1-K3's blocks run concurrently on overlapping windows, so their
 kernel writes a second tensor, which the wrapper copies back into `sol`.
 K6-K8 write a new tensor and return it.
+
+Fields are float32, float64 or bfloat16 (DTYPE_CODES; any other dtype
+raises on the CUDA path).  In bfloat16 the kernels and the plain versions
+keep csrc/star3d.cuh's rounding contract: float32 arithmetic inside a node
+update or transfer sum, one rounding to bfloat16 where a kernel stores, so
+the kernels' sweeps are the plain versions' bitwise and their transfers
+within a rounding of them.  The float32 and float64 paths are as they
+were.
 """
 
 from __future__ import annotations
@@ -66,6 +74,9 @@ from exastencils_tpu_torch.ops.transfer import (
 from exastencils_tpu_torch.runtime.staging import count_launch
 
 NO_EXCL = (-1,) * 6  # per-dim lo/hi planes excluded from updates; -1 = none
+# The field dtypes the kernels take, by their code in the C interface
+# (csrc/star3d.cuh DType); bfloat16 under the rounding contract stated there
+DTYPE_CODES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
 NO_GHOST = (0, 0, 0)  # per-dim ghost width of a halo-extended fragment (K1/K2)
 MAX_TAPS = 3  # transfer taps per dim the kernels take (kMaxTaps)
 
@@ -230,21 +241,28 @@ def load_library() -> ctypes.CDLL:
     leg = tuple(lib.exa_leg_constant(k) for k in range(4))
     if leg != (LEG_TILE, LEG_CHUNK, LEG_AHEAD, MAX_LEG_K):
         raise RuntimeError(f"{so}: legs3d.cu's layout constants {leg} differ from the wrapper's")
-    for args in itertools.product((LEG_SMOOTH, LEG_PROLONG, LEG_RESTRICT),
-                                  range(1, MAX_LEG_K + 1), (0, 1), (4, 8)):
-        if lib.exa_leg_smem(*args) != _leg_smem(*args):
-            raise RuntimeError(f"{so}: legs3d.cu's leg_smem{args} differs from the wrapper's")
+    for mode, k, reach, dtype in itertools.product((LEG_SMOOTH, LEG_PROLONG, LEG_RESTRICT),
+                                                   range(1, MAX_LEG_K + 1), (0, 1), DTYPE_CODES):
+        if (lib.exa_leg_smem(mode, k, reach, DTYPE_CODES[dtype])
+                != _leg_smem(mode, k, reach, smem_itemsize(dtype))):
+            raise RuntimeError(f"{so}: legs3d.cu's leg_smem{(mode, k, reach, dtype)} differs"
+                               " from the wrapper's")
     const = tuple(lib.exa_cluster_constant(k) for k in range(5))
     if const != (CLUSTER_TILE, CLUSTER_AHEAD, MAX_CLUSTER_K, MAX_CLUSTER_X, CLUSTER_THREADS):
         raise RuntimeError(f"{so}: cluster_legs3d.cu's constants {const} differ from the wrapper's")
-    for mode, k, reach, cluster in itertools.product(
+    for mode, k, reach, cluster, dtype in itertools.product(
             (LEG_SMOOTH, LEG_PROLONG, LEG_RESTRICT), range(1, MAX_CLUSTER_K + 1), (0, 1),
-            CLUSTER_SHAPES):
-        if (lib.exa_cluster_smem(mode, k, reach, *cluster, 4) != _cluster_smem(mode, k, reach, 4, cluster)
+            CLUSTER_SHAPES, DTYPE_CODES):
+        if (lib.exa_cluster_smem(mode, k, reach, *cluster, DTYPE_CODES[dtype])
+                != _cluster_smem(mode, k, reach, smem_itemsize(dtype), cluster)
                 or lib.exa_cluster_threads(mode, k, reach, *cluster)
                 != _cluster_threads(mode, k, reach, cluster)):
-            raise RuntimeError(f"{so}: cluster_legs3d.cu's launch shape of {(mode, k, reach, cluster)}"
-                               " differs from the wrapper's")
+            raise RuntimeError(f"{so}: cluster_legs3d.cu's launch shape of"
+                               f" {(mode, k, reach, cluster, dtype)} differs from the wrapper's")
+    bad = max(DTYPE_CODES.values()) + 1
+    if lib.exa_leg_smem(LEG_SMOOTH, 1, 0, bad) != -1 or lib.exa_cluster_smem(
+            LEG_SMOOTH, 1, 0, 1, 1, bad) != -1:
+        raise RuntimeError(f"{so}: an unknown dtype code is not rejected")
     return lib
 
 
@@ -264,8 +282,8 @@ def _device_type(*tensors) -> str:
 
 
 def _check_cuda_fields(sol: torch.Tensor, *others: torch.Tensor):
-    if sol.dtype not in (torch.float32, torch.float64):
-        raise ValueError(f"kernels take float32 or float64, not {sol.dtype}")
+    if sol.dtype not in DTYPE_CODES:
+        raise ValueError(f"kernels take float32, float64 or bfloat16, not {sol.dtype}")
     for t in (sol, *others):
         if t.dtype != sol.dtype:
             raise ValueError(f"dtype mismatch: {t.dtype} vs {sol.dtype}")
@@ -314,8 +332,10 @@ def _check(lib, err: int, name: str):
         raise RuntimeError(f"{name}: CUDA error {err} ({lib.exa_error_string(err).decode()})")
 
 
-def _is_double(t: torch.Tensor) -> int:
-    return int(t.dtype == torch.float64)
+def smem_itemsize(dtype: torch.dtype) -> int:
+    """Bytes of one value in a kernel's shared memory: its compute type's
+    (csrc/star3d.cuh), so 4 for bfloat16, whose rings are float32."""
+    return 4 if dtype == torch.bfloat16 else torch.empty((), dtype=dtype).element_size()
 
 
 def _stream():
@@ -338,7 +358,7 @@ def _residual_restrict(lib, sol, rhs, A, r_kernels, r_lo, coarse_shape, chunk):
     out = torch.empty((nzc, nyc, nxc), dtype=sol.dtype, device=sol.device)
     err = lib.exa_residual_restrict(
         sol.data_ptr(), rhs.data_ptr(), out.data_ptr(), nz, ny, nx,
-        nzc, nyc, nxc, coefs, taps, ntaps, lo, chunk, _is_double(sol), _stream())
+        nzc, nyc, nxc, coefs, taps, ntaps, lo, chunk, DTYPE_CODES[sol.dtype], _stream())
     _check(lib, err, "residual_restrict")
     return out
 
@@ -350,7 +370,7 @@ def _prolong_correct(lib, sol, sol_c, p_kernels, p_lo, chunk):
     nzc, nyc, nxc = sol_c.shape
     err = lib.exa_prolong_correct(
         sol.data_ptr(), sol_c.data_ptr(), nz, ny, nx, nzc, nyc, nxc,
-        taps, ntaps, lo, chunk, _is_double(sol), _stream())
+        taps, ntaps, lo, chunk, DTYPE_CODES[sol.dtype], _stream())
     _check(lib, err, "prolong_correct")
 
 
@@ -370,12 +390,29 @@ def _inner_mask(shape, excl, device) -> torch.Tensor:
     return m
 
 
+# bfloat16 (csrc/star3d.cuh's contract): the plain versions upcast, run the
+# float32 arithmetic and round where a kernel stores (each half-sweep's new
+# values, each residual, each coarse value, each corrected fine value).
+
+
+def _compute(t: torch.Tensor) -> torch.Tensor:
+    """A field in its compute type: float32 for bfloat16, else itself."""
+    return t.float() if t.dtype == torch.bfloat16 else t
+
+
+def _stored(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A compute-type value rounded where a kernel stores it (to nearest
+    even, kept in the compute type); a no-op unless `dtype` is bfloat16."""
+    return t.to(dtype).float() if dtype == torch.bfloat16 else t
+
+
 def _rbgs_plain(sol, rhs, A, omega, K, inner):
     masks = [color_mask(sol.shape, c, sol.device) & inner for c in (0, 1)]
+    dtype, sol, rhs = sol.dtype, _compute(sol), _compute(rhs)
     for _ in range(K):
         for m in masks:
-            sol = jacobi_update(sol, rhs, A, omega, m)
-    return sol
+            sol = _stored(jacobi_update(sol, rhs, A, omega, m), dtype)
+    return sol.to(dtype)
 
 
 def coarse_window(coarse_shape, ghost=NO_GHOST):
@@ -391,18 +428,20 @@ def _res_restrict_plain(sol, rhs, A, r_kernels, r_lo, coarse_shape, inner, ghost
     """The residual on `inner` nodes, restricted: coarse node c of the
     write window (coarse_window) takes the fine nodes 2c + lo - ghost + k
     (zero elsewhere)."""
-    res = torch.where(inner, rhs - apply_stencil(A, sol), 0.0)
+    dtype, sol, rhs = sol.dtype, _compute(sol), _compute(rhs)
+    res = _stored(torch.where(inner, rhs - apply_stencil(A, sol), 0.0), dtype)
     mats = []
     for d, (w0, w1) in enumerate(coarse_window(coarse_shape, ghost)):
         mats.append(restriction_matrix_1d(r_kernels[d], r_lo[d] - ghost[d] + 2 * w0, w1 - w0 + 1,
                                           sol.shape[d], coarse_shape[d], 0, w0))
-    return apply_separable(mats, res)
+    return apply_separable(mats, res).to(dtype)
 
 
 def _prolong_correct_plain(sol, sol_c, p_kernels, p_lo, inner, ghost=NO_GHOST):
     mats = [prolongation_matrix_full_ghosted(p_kernels[d], p_lo[d], sol_c.shape[d],
                                              sol.shape[d], ghost[d]) for d in range(3)]
-    return torch.where(inner, sol + apply_separable(mats, sol_c), sol)
+    new = _compute(sol) + apply_separable(mats, _compute(sol_c))
+    return torch.where(inner, new.to(sol.dtype), sol)
 
 
 def rbgs_fused_plain(sol, rhs, A: BoundStencil, omega: float, K: int, excl=NO_EXCL):
@@ -480,9 +519,9 @@ def _leg_threads(mode: int, K: int, reach: int) -> int:
 def max_leg_k(dtype: torch.dtype, mode: int, reach: int = 1) -> int:
     """The deepest K that one K1-K3 launch of `mode` holds: at most
     MAX_LEG_K, its shared memory within one block's 227 KB and its threads
-    within 1024 (K1: 768).  With the node restriction: 3 in float32; in
-    float64 K2 and K3 2, K1 1."""
-    itemsize = torch.empty((), dtype=dtype).element_size()
+    within 1024 (K1: 768).  With the node restriction: 3 in float32 and
+    bfloat16 (float32 rings); in float64 K2 and K3 2, K1 1."""
+    itemsize = smem_itemsize(dtype)
     limit = 768 if mode == LEG_RESTRICT else 1024
     k = 0
     while (k < MAX_LEG_K and _leg_smem(mode, k + 1, reach, itemsize) <= SMEM_LIMIT
@@ -580,7 +619,7 @@ def _leg_launches(sol, rhs, A, omega, K, mode, kernels, lo, excl, counted,
             spare.data_ptr(), (out_c if out_c is not None else spare).data_ptr(),
             cur.data_ptr(), (sol_c if sol_c is not None else cur).data_ptr(), rhs.data_ptr(),
             nz, ny, nx, nzc, nyc, nxc, coefs, omega / c0, k, reach, m, chunk, taps, ntaps, tlo,
-            excl_c, geom_c, _is_double(sol), _stream())
+            excl_c, geom_c, DTYPE_CODES[sol.dtype], _stream())
         _check(lib, err, "leg_kernel")
         count_launch(counted)
         cur, spare = spare, cur
@@ -784,10 +823,10 @@ def max_cluster_k(dtype: torch.dtype, mode: int, reach: int = 1, cluster=None) -
     (LEG_PROLONG) launch on clusters of `cluster` blocks (default
     CLUSTER[mode]) holds: at most MAX_CLUSTER_K, its shared memory within
     one block's 227 KB.  With the node restriction, for every shape of
-    CLUSTER_SHAPES: 3 in float32; in float64 K8 2 and K7 1, K6 2 (on 2 x 2
-    and 4 x 2 clusters 3)."""
+    CLUSTER_SHAPES: 3 in float32 and bfloat16 (float32 rings); in float64 K8
+    2 and K7 1, K6 2 (on 2 x 2 and 4 x 2 clusters 3)."""
     cluster = CLUSTER[mode] if cluster is None else cluster
-    itemsize = torch.empty((), dtype=dtype).element_size()
+    itemsize = smem_itemsize(dtype)
     reach = reach if mode == LEG_RESTRICT else 0
     k = 0
     while k < MAX_CLUSTER_K and _cluster_smem(mode, k + 1, reach, itemsize, cluster) <= SMEM_LIMIT:
@@ -871,7 +910,7 @@ def _cluster_leg_launch(mode, sol, rhs, A, omega, K, kernels, lo, cluster, sol_c
             out.data_ptr(), (out_c if out_c is not None else out).data_ptr(), sol.data_ptr(),
             (sol_c if sol_c is not None else sol).data_ptr(), rhs.data_ptr(), nz, ny, nx,
             nzc, nyc, nxc, coefs, omega / c0, K, reach, mode, chunk, taps, ntaps, tlo, excl_c,
-            int(cluster[0]), int(cluster[1]), _is_double(sol), _stream())
+            int(cluster[0]), int(cluster[1]), DTYPE_CODES[sol.dtype], _stream())
         _check(lib, err, "cluster_leg")
     return out, out_c
 

@@ -8,6 +8,7 @@ it runs on its own:
     python -m pytest --noconftest tests/test_torch_cuda.py -m cuda
 """
 
+import math
 import os
 
 import numpy as np
@@ -1014,3 +1015,245 @@ def test_sharded_solve_on_cuda_prints_the_dense_lines(cuda):
     for lines, launches in run_ranks(sharded_solve_rank, 8, device="cuda", timeout_s=300):
         assert lines == want
         assert all(n > 0 for n in launches)
+
+
+# ----------------------------------------------------------------------
+# bfloat16 (csrc/star3d.cuh's rounding contract: float32 inside a node
+# update or tap sum, one rounding where the kernel stores): every sweep
+# bitwise the plain version's; a transfer's output within BF16_ULPS[kernel]
+# bfloat16 ulps at the largest |value| (the plain version sums the taps as
+# banded float32 matmuls, in another order: a rounding tie can flip; K2/K8
+# smooth after such a flip, which can reach one neighbour more)
+# ----------------------------------------------------------------------
+
+BF16 = torch.bfloat16
+BF16_ULPS = {"K1": 1, "K2": 2, "K4": 1, "K5": 1, "K7": 1, "K8": 2}
+
+
+def bf16_ulp(ref):
+    """The spacing of bfloat16 numbers at ref's largest |value|."""
+    m = ref.abs().max().float().item()
+    return 2.0 ** (math.floor(math.log2(m)) - 7) if m > 0 else 0.0
+
+
+def assert_bf16_close(got, ref, kernel):
+    assert got.dtype == ref.dtype == BF16
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err <= BF16_ULPS[kernel] * bf16_ulp(ref), (kernel, err, bf16_ulp(ref))
+
+
+@pytest.mark.parametrize("level,K", [(4, 1), (5, 3), (5, 4)])
+def test_bf16_legs_match_plain(cuda, level, K):
+    """K1/K2 in bfloat16: the launches of leg_chain(..., bfloat16); K1's
+    sol bitwise the plain version's, its coarse rhs and K2 bitwise the
+    bfloat16 compositions K3+K4 and K5+K3 and within BF16_ULPS of the plain
+    versions."""
+    rng = np.random.default_rng(level * 10 + K)
+    n, nc = 2 ** level + 1, 2 ** (level - 1) + 1
+    sol, rhs = (torch.from_numpy(rng.standard_normal((n,) * 3)).to(cuda, BF16) for _ in range(2))
+    sol_c = torch.from_numpy(rng.standard_normal((nc,) * 3)).to(cuda, BF16)
+    A = laplacian(level, BF16, cuda)
+    R, P = node_restriction(3), node_prolongation(3)
+    rk, pk = separable_kernels(R), separable_kernels(P)
+    n0 = (s3.smooth_res_restrict.launches, s3.prolong_correct_smooth.launches)
+    s_got, rc_got = s3.smooth_res_restrict(sol.clone(), rhs, A, OMEGA, K, rk, R.lo, (nc,) * 3)
+    u_got = s3.prolong_correct_smooth(sol.clone(), sol_c, rhs, A, OMEGA, K, pk, P.lo)
+    torch.cuda.synchronize()
+    assert (s3.smooth_res_restrict.launches - n0[0],
+            s3.prolong_correct_smooth.launches - n0[1]) == (
+        leg_launches(s3.LEG_RESTRICT, K, BF16), leg_launches(s3.LEG_PROLONG, K, BF16))
+    s_ref, rc_ref = s3.smooth_res_restrict_plain(sol, rhs, A, OMEGA, K, rk, R.lo, (nc,) * 3)
+    assert torch.equal(s_got, s_ref)
+    assert torch.equal(rc_got, s3.res_restrict(s3.rbgs_fused(sol.clone(), rhs, A, OMEGA, K),
+                                               rhs, A, rk, R.lo, (nc,) * 3))
+    assert torch.equal(u_got, s3.rbgs_fused(s3.prolong_correct(sol.clone(), sol_c, pk, P.lo),
+                                            rhs, A, OMEGA, K))
+    assert_bf16_close(rc_got, rc_ref, "K1")
+    assert_bf16_close(u_got, s3.prolong_correct_smooth_plain(sol, sol_c, rhs, A, OMEGA, K, pk,
+                                                             P.lo), "K2")
+
+
+@pytest.mark.parametrize("level,K", [(4, 1), (5, 3)])
+def test_bf16_fused_kernels_match_plain(cuda, level, K):
+    """K3 in bfloat16 bitwise (with and without excl planes), K4 and K5
+    within BF16_ULPS; one launch per transfer."""
+    rng = np.random.default_rng(level * 10 + K + 1)
+    n, nc = 2 ** level + 1, 2 ** (level - 1) + 1
+    sol, rhs = (torch.from_numpy(rng.standard_normal((n,) * 3)).to(cuda, BF16) for _ in range(2))
+    sol_c = torch.from_numpy(rng.standard_normal((nc,) * 3)).to(cuda, BF16)
+    A = laplacian(level, BF16, cuda)
+    R, P = node_restriction(3), node_prolongation(3)
+    rk, pk = separable_kernels(R), separable_kernels(P)
+    excl = (2, n - 3, -1, 5, 1, -1)
+    n0 = (s3.rbgs_fused.launches, s3.res_restrict.launches, s3.prolong_correct.launches)
+    s_got = s3.rbgs_fused(sol.clone(), rhs, A, OMEGA, K)
+    e_got = s3.rbgs_fused(sol.clone(), rhs, A, OMEGA, K, excl)
+    rc_got = s3.res_restrict(sol, rhs, A, rk, R.lo, (nc,) * 3)
+    u_got = s3.prolong_correct(sol.clone(), sol_c, pk, P.lo)
+    torch.cuda.synchronize()
+    assert (s3.rbgs_fused.launches - n0[0], s3.res_restrict.launches - n0[1],
+            s3.prolong_correct.launches - n0[2]) == (2 * leg_launches(s3.LEG_SMOOTH, K, BF16), 1, 1)
+    assert torch.equal(s_got, s3.rbgs_fused_plain(sol, rhs, A, OMEGA, K))
+    assert torch.equal(e_got, s3.rbgs_fused_plain(sol, rhs, A, OMEGA, K, excl))
+    assert_bf16_close(rc_got, s3.res_restrict_plain(sol, rhs, A, rk, R.lo, (nc,) * 3), "K4")
+    assert_bf16_close(u_got, s3.prolong_correct_plain(sol, sol_c, pk, P.lo), "K5")
+
+
+@pytest.mark.parametrize("level,K", [(4, 1), (5, 3), (5, 4)])
+def test_bf16_wavefronts_match_plain(cuda, level, K):
+    """K6 (with and without excl planes) and K7's sol bitwise the plain
+    versions in bfloat16, K7's coarse rhs and K8 bitwise K1's and K2's and
+    within BF16_ULPS of the plain versions; the launches as float32's."""
+    rng = np.random.default_rng(level * 10 + K + 2)
+    n, nc = 2 ** level + 1, 2 ** (level - 1) + 1
+    sol, rhs = (torch.from_numpy(rng.standard_normal((n,) * 3)).to(cuda, BF16) for _ in range(2))
+    sol_c = torch.from_numpy(rng.standard_normal((nc,) * 3)).to(cuda, BF16)
+    A = laplacian(level, BF16, cuda)
+    R, P = node_restriction(3), node_prolongation(3)
+    rk, pk = separable_kernels(R), separable_kernels(P)
+    excl = (2, n - 3, -1, 5, 1, -1)
+    counters = (s3.rbgs_wavefront, s3.smooth_res_restrict_wavefront,
+                s3.prolong_correct_smooth_wavefront)
+    n0 = [fn.launches for fn in counters]
+    s6 = s3.rbgs_wavefront(sol, rhs, A, OMEGA, K)
+    e6 = s3.rbgs_wavefront(sol, rhs, A, OMEGA, K, excl)
+    s7, rc7 = s3.smooth_res_restrict_wavefront(sol, rhs, A, OMEGA, K, rk, R.lo, (nc,) * 3)
+    s8 = s3.prolong_correct_smooth_wavefront(sol, sol_c, rhs, A, OMEGA, K, pk, P.lo)
+    torch.cuda.synchronize()
+    k6 = 2 * k6_launches(K, BF16) + k6_excess(K, BF16)
+    assert [fn.launches - k for fn, k in zip(counters, n0)] == [k6, 1, 1]
+    assert k6 == 2 * k6_launches(K, torch.float32) + k6_excess(K, torch.float32)
+    assert torch.equal(s6, s3.rbgs_wavefront_plain(sol, rhs, A, OMEGA, K))
+    assert torch.equal(e6, s3.rbgs_wavefront_plain(sol, rhs, A, OMEGA, K, excl))
+    r7, rrc7 = s3.smooth_res_restrict_wavefront_plain(sol, rhs, A, OMEGA, K, rk, R.lo, (nc,) * 3)
+    assert torch.equal(s7, r7)
+    s1, rc1 = s3.smooth_res_restrict(sol.clone(), rhs, A, OMEGA, K, rk, R.lo, (nc,) * 3)
+    assert torch.equal(rc7, rc1)
+    assert torch.equal(s8, s3.prolong_correct_smooth(sol.clone(), sol_c, rhs, A, OMEGA, K, pk, P.lo))
+    assert_bf16_close(rc7, rrc7, "K7")
+    assert_bf16_close(s8, s3.prolong_correct_smooth_wavefront_plain(sol, sol_c, rhs, A, OMEGA, K,
+                                                                    pk, P.lo), "K8")
+
+
+def test_bf16_smoothers_match_plain_at_odd_shapes(cuda):
+    """K3 and K6 (every cluster shape) in bfloat16 bitwise rbgs_fused_plain
+    at the odd shapes, with and without excl planes on tile, cluster and
+    z-chunk edges, K = 1..4."""
+    for shape, excl in SMOOTHER_CASES:
+        for K in (1, 2, 3, 4):
+            A, sol, rhs = star_inputs(shape, BF16, cuda, K)
+            for ex in (s3.NO_EXCL, excl):
+                want = s3.rbgs_fused_plain(sol, rhs, A, OMEGA, K, ex)
+                assert torch.equal(s3.rbgs_fused(sol.clone(), rhs, A, OMEGA, K, ex), want)
+                for cluster in s3.CLUSTER_SHAPES:
+                    got = s3.rbgs_wavefront(sol, rhs, A, OMEGA, K, ex, cluster=cluster)
+                    assert torch.equal(got, want), (shape, K, ex, cluster)
+
+
+@pytest.mark.parametrize("cell", [False, True])
+def test_bf16_transfers_match_plain(cuda, cell):
+    """K4 and K5 in bfloat16 at odd shapes, 129^3 and 513^3 with node and
+    cell taps: within BF16_ULPS of the plain versions, two runs bitwise
+    alike."""
+    R, P, rk, pk = transfer_ops(cell)
+    for i, shape in enumerate(TRANSFER_CASES):
+        cshape = tuple(m // 2 if cell else (m - 1) // 2 + 1 for m in shape)
+        A, sol, rhs, sol_c = star_fields(shape, cshape, BF16, cuda, i)
+        rc = s3.res_restrict(sol, rhs, A, rk, R.lo, cshape)
+        u = s3.prolong_correct(sol.clone(), sol_c, pk, P.lo)
+        assert torch.equal(s3.res_restrict(sol, rhs, A, rk, R.lo, cshape), rc)
+        assert torch.equal(s3.prolong_correct(sol.clone(), sol_c, pk, P.lo), u)
+        assert_bf16_close(rc, s3.res_restrict_plain(sol, rhs, A, rk, R.lo, cshape), "K4")
+        assert_bf16_close(u, s3.prolong_correct_plain(sol, sol_c, pk, P.lo), "K5")
+
+
+@pytest.mark.parametrize("cells,dims,g,K", GHOSTED)
+def test_bf16_ghosted_legs_and_smoother_match_plain(cuda, cells, dims, g, K):
+    """The ghosted K1/K2/K3 in bfloat16 for the excl planes of every rank
+    of the mesh (all eight patterns of a 2x2x2 mesh): the sweeps bitwise,
+    K1's coarse rhs and K2 within BF16_ULPS, the y/x coarse ghost rows
+    zero."""
+    from exastencils_tpu_torch.core.stencil import BoundStencil
+    from exastencils_tpu_torch.ops.cuda import _excl_planes
+    from exastencils_tpu_torch.parallel.mesh import AXIS_NAMES, DomainMesh
+    from exastencils_tpu_torch.parallel.topology import ShardTopology
+
+    topos = [ShardTopology(DomainMesh(dims, rank=r), dims, AXIS_NAMES, g)
+             for r in range(int(np.prod(dims)))]
+    ghost = topos[0].ghosts
+    shape, cshape = topos[0].local_shape(cells), topos[0].local_shape(tuple(n // 2 for n in cells))
+    rng = np.random.default_rng(sum(cells) + K)
+    sol, rhs = (torch.from_numpy(rng.standard_normal(shape)).to(cuda, BF16) for _ in range(2))
+    sol_c = torch.from_numpy(rng.standard_normal(cshape)).to(cuda, BF16)
+    offs = ((0, 0, 0), (-1, 0, 0), (1, 0, 0), (0, -1, 0), (0, 1, 0), (0, 0, -1), (0, 0, 1))
+    A = BoundStencil("A", offs, (6.5, -0.9, -1.1, -0.7, -1.3, -0.95, -1.05))
+    R, P = node_restriction(3), node_prolongation(3)
+    rk, pk = separable_kernels(R), separable_kernels(P)
+    for topo in topos:
+        excl = _excl_planes(topo, cells)
+        s_got, rc_got = s3.smooth_res_restrict(sol.clone(), rhs, A, OMEGA, K, rk, R.lo, cshape,
+                                               excl, ghost=ghost)
+        u_got = s3.prolong_correct_smooth(sol.clone(), sol_c, rhs, A, OMEGA, K, pk, P.lo, excl,
+                                          ghost=ghost)
+        m_got = s3.rbgs_fused(sol.clone(), rhs, A, OMEGA, K, excl)
+        s_ref, rc_ref = s3.smooth_res_restrict_plain(sol, rhs, A, OMEGA, K, rk, R.lo, cshape,
+                                                     excl, ghost=ghost)
+        assert torch.equal(s_got, s_ref)
+        assert torch.equal(m_got, s3.rbgs_fused_plain(sol, rhs, A, OMEGA, K, excl))
+        assert_bf16_close(rc_got, rc_ref, "K1")
+        assert_bf16_close(u_got, s3.prolong_correct_smooth_plain(
+            sol, sol_c, rhs, A, OMEGA, K, pk, P.lo, excl, ghost=ghost), "K2")
+        for d in (1, 2):
+            assert not rc_got.narrow(d, 0, ghost[d]).any()
+            assert not rc_got.narrow(d, cshape[d] - ghost[d], ghost[d]).any()
+
+
+@pytest.mark.parametrize("v1", [False, True])
+def test_bf16_main_path_launches(cuda, monkeypatch, v1):
+    """A bfloat16 RBGS V(3,3) cycle at maxLevel 5 with kernels: K1/K2 (v1:
+    K7/K8) launch leg_chain(..., bfloat16) times on each of levels 2..5,
+    the cycle's output is finite and of the level's shape, and its
+    residual drops below 0.2 of the initial one."""
+    if v1:
+        monkeypatch.setenv("EXA_STREAM_V1", "1")
+    k = Knowledge(dimensionality=3, minLevel=0, maxLevel=5, tpu_compute_dtype="bfloat16").update()
+    solver = PoissonMGSolver(k, device="cuda", omega=OMEGA, n_pre=3, n_post=3)
+    sol, rhs = solver.init_state()
+    assert sol.dtype == BF16
+    r0 = float(solver._res_norm(sol, rhs))
+    counters = ((s3.smooth_res_restrict_wavefront, s3.prolong_correct_smooth_wavefront) if v1
+                else (s3.smooth_res_restrict, s3.prolong_correct_smooth))
+    n0 = [fn.launches for fn in counters]
+    out = solver.mg.cycle(sol.clone(), rhs)
+    torch.cuda.synchronize()
+    per = (1, 1) if v1 else (leg_launches(s3.LEG_RESTRICT, 3, BF16),
+                             leg_launches(s3.LEG_PROLONG, 3, BF16))
+    assert [fn.launches - k for fn, k in zip(counters, n0)] == [4 * p for p in per]
+    assert out.shape == sol.shape and torch.isfinite(out.float()).all()
+    assert float(solver._res_norm(out, rhs)) < 0.2 * r0
+
+
+def test_float16_rejected(cuda):
+    """float16 fields raise on every wrapper's CUDA path with a message
+    naming the dtypes the kernels take; nothing launches."""
+    A = laplacian(3, torch.float32, cuda)
+    R, P = node_restriction(3), node_prolongation(3)
+    rk, pk = separable_kernels(R), separable_kernels(P)
+    t, c = (torch.zeros(s, dtype=torch.float16, device=cuda) for s in ((9, 9, 9), (5, 5, 5)))
+    counters = [getattr(s3, fn) for fn in (
+        "smooth_res_restrict", "prolong_correct_smooth", "rbgs_fused", "res_restrict",
+        "prolong_correct", "rbgs_wavefront", "smooth_res_restrict_wavefront",
+        "prolong_correct_smooth_wavefront")]
+    n0 = [fn.launches for fn in counters]
+    calls = (lambda: s3.smooth_res_restrict(t, t, A, OMEGA, 1, rk, R.lo, (5, 5, 5)),
+             lambda: s3.prolong_correct_smooth(t, c, t, A, OMEGA, 1, pk, P.lo),
+             lambda: s3.rbgs_fused(t, t, A, OMEGA, 1),
+             lambda: s3.res_restrict(t, t, A, rk, R.lo, (5, 5, 5)),
+             lambda: s3.prolong_correct(t, c, pk, P.lo),
+             lambda: s3.rbgs_wavefront(t, t, A, OMEGA, 1),
+             lambda: s3.smooth_res_restrict_wavefront(t, t, A, OMEGA, 1, rk, R.lo, (5, 5, 5)),
+             lambda: s3.prolong_correct_smooth_wavefront(t, c, t, A, OMEGA, 1, pk, P.lo))
+    for call in calls:
+        with pytest.raises(ValueError, match="float32, float64 or bfloat16, not torch.float16"):
+            call()
+    assert [fn.launches for fn in counters] == n0
