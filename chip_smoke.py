@@ -93,7 +93,18 @@ card over gloo:
                a synchronised run, the sharded and replicated levels and
                the runs left eager; and the program's Solve at maxLevel 6
                in float64, whose lines must be the dense run's by the dry
-               run's rule.
+               run's rule;
+  sharded_dsl_forms  the bench program in two more forms (forms_program),
+               at 513^3 float32 on 2x2x2 ranks, each Solve cut to 4
+               cycles: "blocks" smooths with 2-point x-block `solve
+               locally relax 0.8` (blocks anchored in the ghost layers
+               write owned points), "stretched" runs on a linearFct grid
+               (windows of the stretched positions); each Solve's lines
+               against the dense plain executor's on the card by
+               sharded_dsl_path's rule (its F), the first drop below
+               FORM_DROP_BOUND, ms per MGCycle@finest on rank 0 and
+               exchanges per rank and cycle, then at maxLevel 6 in
+               float64 by the dry run's rule.
 In bfloat16 (csrc/star3d.cuh's rounding contract) it holds every kernel
 to its plain version (bf16_kernel_phases: the sweeps bitwise, the
 transfers within BF16_ULPS bfloat16 ulps; the odd shape with and without
@@ -166,7 +177,11 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12,
 STAGING = {}
 
 
+T_IMPORT = time.perf_counter()
+
+
 def phase(tag, **fields):
+    fields["t"] = f"{time.perf_counter() - T_IMPORT:.1f}"  # seconds since the import
     print(f"[{tag}] " + " ".join(f"{k}={v}" for k, v in fields.items()), flush=True)
 
 
@@ -1810,12 +1825,35 @@ def world1_rank(device, level):
 SHARDED_DSL_TIMED, SHARDED_DSL_LINES_LEVEL = 2, 6
 
 
-def sharded_dsl_knowledge(level, f64=False):
+def sharded_dsl_knowledge(level, f64=False, **kw):
     from exastencils_tpu_torch import Knowledge
 
     return Knowledge(dimensionality=3, minLevel=1, maxLevel=level, useDblPrecision=f64,
                      tpu_compute_dtype="" if f64 else "float32", tpu_mesh_shape=SHARD_DIMS,
-                     tpu_shard_dsl=True, tpu_dsl_fastpath=False).update()
+                     tpu_shard_dsl=True, tpu_dsl_fastpath=False, **kw).update()
+
+
+def timed_cycles(ex, device, n=SHARDED_DSL_TIMED):
+    """ms per MGCycle@finest of a sharded executable over n cycles (CUDA
+    events between barriers on the card, the host clock on the CPU) and
+    the wall seconds of the n cycles."""
+    import torch.distributed as dist
+
+    dist.barrier()
+    _sync(device)
+    cuda = device.type == "cuda"
+    if cuda:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        ex.call_function(ex.functions[("MGCycle", ex.hi)], ex.hi, [])
+    if cuda:
+        end.record()
+    _sync(device)
+    wall = time.perf_counter() - t0
+    dist.barrier()
+    return (start.elapsed_time(end) if cuda else wall * 1e3) / n, wall
 
 
 def sharded_dsl_rank(device, level, lines_level):
@@ -1834,38 +1872,15 @@ def sharded_dsl_rank(device, level, lines_level):
     ex = L4Executable(parse_l4(BENCH_EXA4), sharded_dsl_knowledge(level), device=device,
                       out=res.append, jit_functions=True)
     ex.run()
-    fin = ex.hi
-
-    def cycle():
-        ex.call_function(ex.functions[("MGCycle", fin)], fin, [])
-
-    u = ex.get_field("U", fin)
+    u = ex.get_field("U", ex.hi)
     finite = bool(torch.isfinite(u).all()) and u.dtype == torch.float32
     stats = ex.frag.stats
-
-    def timed_cycles():
-        dist.barrier()
-        _sync(device)
-        cuda = device.type == "cuda"
-        if cuda:
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-        t0 = time.perf_counter()
-        for _ in range(SHARDED_DSL_TIMED):
-            cycle()
-        if cuda:
-            end.record()
-        _sync(device)
-        wall = time.perf_counter() - t0
-        dist.barrier()
-        return (start.elapsed_time(end) if cuda else wall * 1e3) / SHARDED_DSL_TIMED, wall
-
     before = (stats.communicate, stats.implicit, stats.bytes_sent, stats.gathers)
-    cycle_ms, _ = timed_cycles()
+    cycle_ms, _ = timed_cycles(ex, device)
     per_cycle = [(a - b) / SHARDED_DSL_TIMED for a, b in zip(
         (stats.communicate, stats.implicit, stats.bytes_sent, stats.gathers), before)]
     stats.timed, stats.seconds = True, 0.0
-    timed_ms, wall = timed_cycles()
+    timed_ms, wall = timed_cycles(ex, device)
     stats.timed = False
     levels = {lvl: ex._window(lvl, "Node").sharded for lvl in range(ex.lo, ex.hi + 1)}
     staging = ex.staging_stats()
@@ -1955,7 +1970,175 @@ def sharded_dsl_path(device="cuda", level=None, lines_level=SHARDED_DSL_LINES_LE
     phase("sharded_dsl_path_lines", level=lines_level, dtype="float64", lines=len(lines),
           rule="abs 1e-6 or rel 1e-9", identical=lines == dense_lines, last=lines[-2],
           cycles=lines[-1], seconds=f"{time.perf_counter() - t0:.1f}")
-    return first
+    return {**first, "floor": floor}
+
+
+# sharded_dsl_forms: the bench program in two more forms the sharded DSL
+# takes, each Solve cut to FORMS_CYCLES cycles (the program's cap is
+# 20); "blocks": its smoother 2-point x-block local solves, the offset
+# unknown U@[1,0,0] written by blocks anchored in the ghost layers;
+# "stretched": its own RBGS on a linearFct grid, the stencil constant (the
+# JAX package refuses vf_gridWidth in a stencil coefficient there: the
+# 7-point stencil in index space, so the restricted residual is scaled by
+# 4 for the coarse rhs), the rhs from vf_nodePos_* as in the bench program
+FORMS = ("blocks", "stretched")
+FORMS_CYCLES = 4
+# first-cycle residual drops (on the CPU at level 6: blocks 0.1921,
+# stretched 0.1610)
+FORM_DROP_BOUND = {"blocks": 0.3, "stretched": DSL_DROP_BOUND}
+BLOCK_RELAX = """Function Relax@all {
+	repeat 3 times {
+		communicate U@current
+		loop over U@current stepping [2, 1, 1] {
+			solve locally relax 0.8 {
+				U@current@[0, 0, 0] => A@current * U@current@[0, 0, 0] == F@current@[0, 0, 0]
+				U@current@[1, 0, 0] => A@current * U@current@[1, 0, 0] == F@current@[1, 0, 0]
+			}
+		}
+		apply bc to U@current
+	}
+}
+
+"""
+LINEAR_FCT = {"grid_spacingModel": "linearFct", "grid_isUniform": False}
+
+
+def forms_program(form, cycles=FORMS_CYCLES):
+    """The bench program in one of FORMS, its Solve cut to `cycles`."""
+    with open(BENCH_EXA4) as f:
+        src = f.read()
+    if form == "blocks":
+        src = (src[:src.index("Function Relax@all {")] + BLOCK_RELAX
+               + src[src.index("Function CalcRes@all {"):])
+    else:
+        head, rest = src.split("Stencil A@all {", 1)
+        body, tail = rest.split("}", 1)
+        coefs = ["6.0" if i == 0 else "-1.0" for i in range(len(body.strip().splitlines()))]
+        body = "".join(f"\n\t{ln.split('=>')[0].strip()} => {c}"
+                       for ln, c in zip(body.strip().splitlines(), coefs))
+        src = head + "Stencil A@all {" + body + "\n}" + tail
+        # the stencil in index space: a coarse level's rhs is (2h)^2 f
+        src = src.replace("F@coarser = Down@current * Res@current",
+                          "F@coarser = 4.0 * ( Down@current * Res@current )")
+    return src.replace("( it >= 20 )", f"( it >= {cycles} )")
+
+
+def forms_knowledge(form, level, f64=False):
+    return sharded_dsl_knowledge(level, f64, **(LINEAR_FCT if form == "stretched" else {}))
+
+
+def sharded_dsl_forms_rank(device, level, lines_level):
+    """One rank of sharded_dsl_forms: each form at `level` float32 on its
+    2x2x2 fragment (its Solve's lines, then SHARDED_DSL_TIMED cycles timed
+    on rank 0 with CUDA events between barriers), then at `lines_level`
+    in float64."""
+    import torch.distributed as dist
+
+    from exastencils_tpu_torch.dsl.interpreter import L4Executable
+    from exastencils_tpu_torch.dsl.parser import parse_l4
+
+    out = {"rank": dist.get_rank()}
+    for form in FORMS:
+        res = []
+        ex = L4Executable(parse_l4(forms_program(form)), forms_knowledge(form, level),
+                          device=device, out=res.append)
+        ex.run()
+        stats = ex.frag.stats
+        u = ex.get_field("U", ex.hi)
+        finite = bool(torch.isfinite(u).all()) and u.dtype == torch.float32
+        before = (stats.communicate, stats.implicit, stats.bytes_sent, stats.gathers)
+        cycle_ms, _ = timed_cycles(ex, device)
+        per_cycle = [(a - b) / SHARDED_DSL_TIMED for a, b in zip(
+            (stats.communicate, stats.implicit, stats.bytes_sent, stats.gathers), before)]
+        levels = {lvl: ex._window(lvl, "Node").sharded for lvl in range(ex.lo, ex.hi + 1)}
+        ghost = ex.frag.ghost
+        del ex, u
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        lines = []
+        small = L4Executable(parse_l4(forms_program(form)),
+                             forms_knowledge(form, lines_level, f64=True), device=device,
+                             out=lines.append)
+        small.run()
+        out[form] = {"res": res, "finite": finite, "ghost": ghost,
+                     "cycle_ms": cycle_ms,
+                     "communicate": per_cycle[0], "implicit": per_cycle[1],
+                     "mb_sent": per_cycle[2] / 1e6, "gathers": per_cycle[3],
+                     "sharded": [lvl for lvl, sh in levels.items() if all(sh)],
+                     "lines": lines, "lines_sharded": small.frag is not None}
+        del small
+    out["jax"] = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "exastencils_tpu"))
+    return out
+
+
+def sharded_dsl_forms(device="cuda", level=None, lines_level=SHARDED_DSL_LINES_LEVEL, floor=0.0):
+    """sharded_dsl_forms (see the module docstring): the dense plain
+    references on `device` first, then the ranks.  `floor` is
+    sharded_dsl_path's F (its dense fast and plain Solves apart)."""
+    import gc
+
+    from exastencils_tpu_torch.dsl.interpreter import L4Executable
+    from exastencils_tpu_torch.dsl.parser import parse_l4
+    from exastencils_tpu_torch.parallel.dryrun import _line_ok
+    from exastencils_tpu_torch.parallel.mesh import run_ranks
+
+    level = MAIN_LEVEL if level is None else level
+    t0 = time.perf_counter()
+    dense = {}
+    for form in FORMS:
+        for tag, lvl, f64 in (("f32", level, False), ("f64", lines_level, True)):
+            k = forms_knowledge(form, lvl, f64)
+            k.tpu_shard_dsl = False
+            lines = []
+            L4Executable(parse_l4(forms_program(form)), k, device=device,
+                         out=lines.append, jit_functions=False).run()
+            dense[form, tag] = lines
+            gc.collect()
+            if device == "cuda":
+                torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    n_ranks = int(np.prod(SHARD_DIMS))
+    ranks = run_ranks(sharded_dsl_forms_rank, n_ranks, level, lines_level, device=device)
+    spawn_s = time.perf_counter() - t1
+    for r in ranks:
+        bad = [f for f in FORMS if (r[f]["res"] == []) == (r["rank"] == 0) or not r[f]["finite"]]
+        if bad or r["jax"]:
+            raise AssertionError(f"sharded_dsl_forms rank {r['rank']}: forms {bad} (rank 0 "
+                                 f"prints, finite fields), imported {r['jax']}")
+    for form in FORMS:
+        first = ranks[0][form]
+        got, want = first["res"], dense[form, "f32"]
+        pairs = [(float(a), float(b)) for a, b in zip(got[:-1], want[:-1])]
+        errs = [abs(a - b) / abs(b) for a, b in pairs]
+        ok = len(got) == len(want) and got[-1] == want[-1] and all(
+            abs(a - b) <= max(1e-5 * abs(b), 2 * floor) for a, b in pairs)
+        drop = float(got[1]) / float(got[0])
+        phase(f"sharded_dsl_forms_{form}", ranks=n_ranks, mesh="x".join(map(str, SHARD_DIMS)),
+              level=level, dtype="float32", transport="gloo", grid=(
+                  "linearFct" if form == "stretched" else "uniform"), ghost=first["ghost"],
+              solve_cycles=got[-1], lines=got, dense_plain=want,
+              max_rel_to_dense=f"{max(errs):.3e}", floor_F=f"{floor:.3e}",
+              first_drop=f"{drop:.4e}", drop_bound=FORM_DROP_BOUND[form],
+              cycle_ms_rank0=f"{first['cycle_ms']:.3f}",
+              communicate_per_cycle=first["communicate"], implicit_per_cycle=first["implicit"],
+              mb_sent_per_cycle=f"{first['mb_sent']:.3f}", gathers_per_cycle=first["gathers"],
+              sharded_levels=first["sharded"])
+        if not ok or not drop < FORM_DROP_BOUND[form]:
+            raise AssertionError(f"sharded_dsl_forms {form}: lines {got} against the dense "
+                                 f"plain {want} (F {floor}), first drop {drop}")
+        if not first["sharded"] or not first["communicate"] + first["implicit"]:
+            raise AssertionError(f"sharded_dsl_forms {form}: sharded levels {first['sharded']}, "
+                                 f"exchanges {first['communicate']} + {first['implicit']}")
+        lines, dense_lines = first["lines"], dense[form, "f64"]
+        if not (first["lines_sharded"] and len(lines) == len(dense_lines)
+                and all(map(_line_ok, lines, dense_lines))):
+            raise AssertionError(f"sharded_dsl_forms {form}: level-{lines_level} f64 lines "
+                                 f"differ:\n{lines}\n{dense_lines}")
+        phase(f"sharded_dsl_forms_{form}_lines", level=lines_level, dtype="float64",
+              lines=len(lines), rule="abs 1e-6 or rel 1e-9", identical=lines == dense_lines,
+              last=lines[-2], cycles=lines[-1])
+    phase("sharded_dsl_forms", spawn_and_run_s=f"{spawn_s:.1f}",
+          seconds=f"{time.perf_counter() - t0:.1f}")
 
 
 def sharded_phases(device="cuda", kernel_cases=SHARDED_KERNEL_CASES):
@@ -2055,7 +2238,8 @@ def sharded_phases(device="cuda", kernel_cases=SHARDED_KERNEL_CASES):
           dsl_sharded_instances=dsl["sharded_instances"], dsl_lines=len(dsl["lines"]),
           dsl_residual=f"{dsl['res_first']:.3e}->{dsl['res_last']:.3e}",
           dsl_digit_equal_to_dense=True)
-    sharded_dsl_path(device)
+    dsl = sharded_dsl_path(device)
+    sharded_dsl_forms(device, floor=dsl["floor"])
     phase("sharded_phases", seconds=f"{time.perf_counter() - t0:.1f}")
     return frag, first
 

@@ -96,10 +96,10 @@ class LevelGrid:
         p = self._positions[dim]
         return p[1:] - p[:-1]
 
-    def width_b(self, dim: int):
+    def width_b(self, dim: int, localization: str = NODE):
         """vf_gridWidth as an expression operand: a scalar on uniform
         grids, a per-cell tensor broadcastable along `dim` on non-uniform
-        ones."""
+        ones (a WindowGrid keeps the cells of the `localization` window)."""
         if self.is_uniform:
             return self.grid_width(dim)
         w = self.cell_widths_1d(dim)
@@ -111,13 +111,13 @@ class LevelGrid:
     def widths(self) -> Tuple[float, ...]:
         return tuple(self.grid_width(d) for d in range(self.ndim))
 
-    @property
-    def cell_volume(self):
+    def volume_b(self, localization: str = NODE):
+        """vf_cellVolume as an expression operand (width_b's product)."""
         if self.is_uniform:
             return math.prod(self.widths)
         vol = 1.0
         for d in range(self.ndim):
-            vol = vol * self.width_b(d)
+            vol = vol * self.width_b(d, localization)
         return vol
 
     def node_pos_1d(self, dim: int) -> torch.Tensor:
@@ -180,17 +180,27 @@ class LevelGrid:
 @dataclass(frozen=True)
 class WindowGrid(LevelGrid):
     """One rank's window of a level of the sharded DSL: the geometry of
-    the global grid (widths, volumes, domain), with the shapes and the
-    coordinates of the window's points.  `windows[loc][d]` is the global
-    [lo, hi) along d of the local array of localization `loc`
-    (parallel/topology.FieldWindow.bounds); only the localizations it
-    names have a window."""
+    the global grid (domain, mean widths), with the shapes, coordinates
+    and (on a non-uniform grid) cell widths of the window's points.
+    `windows[loc][d]` is the global [lo, hi) along d of the local array
+    of localization `loc` (parallel/topology.FieldWindow.bounds); only
+    the localizations it names have a window."""
 
     windows: dict = dc_field(default=None, compare=False, repr=False)
 
     def coords_1d(self, localization: str, dim: int) -> torch.Tensor:
         lo, hi = self._bounds(localization)[dim]
         return super().coords_1d(localization, dim)[lo:hi]
+
+    def width_b(self, dim: int, localization: str = NODE):
+        """The widths of the window's cells along `dim`: those of its
+        `localization` points, clipped to the grid's cells (the dense
+        run edge-pads the last node's, _fit_coord)."""
+        w = super().width_b(dim)
+        if self.is_uniform:
+            return w
+        lo, hi = self._bounds(localization)[dim]
+        return w.narrow(dim, lo, min(hi, self.cells[dim]) - lo)
 
     def shape_of(self, localization: str) -> Tuple[int, ...]:
         return tuple(hi - lo for lo, hi in self._bounds(localization))

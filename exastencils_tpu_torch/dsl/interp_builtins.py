@@ -89,6 +89,7 @@ class L4BuiltinsMixin:
                 return 1.0 / st[1].diag()
             raise ValueError("diag_inv() expects a stencil")
         if name in ("transpose", "transposed"):
+            self._fresh_coefficients(e.args[0], fr.level)  # a transpose shifts coefficients
             v = self.eval_expr(e.args[0], fr, loop)
             if _is_stencil(v):
                 return ("__stencil__", v[1].transposed(), v[2])

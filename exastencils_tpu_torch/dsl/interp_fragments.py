@@ -19,17 +19,29 @@ FieldWindow), and the executor moves halo data itself:
 Every statement computes on the whole local array.  Owned points are
 exact; ghost points may hold values computed from a partial neighbourhood
 and are refreshed by the next exchange (a write makes the field stale).
-Masks, coordinates and colours use global indices (`_gidx`, the level's
-WindowGrid); reductions count each point on its owner and all-reduce, so
-every rank reads the same bits and takes the same branch; inter-grid
-operators take their rows and columns of the global transfer matrices,
-all-gathering the source where a window does not hold what its owned rows
-read (a transfer into a replicated level); a lexicographic sweep whose
-rank borders are reference-fragment borders runs locally (cross-fragment
-reads are frozen at the sweep's start, as in the reference), any other is
-run on fields gathered whole, exactly; field IO gathers to rank 0, which
-writes the dense run's bytes, and reads scatter from rank 0.  A program
-form this executor cannot take raises NotImplementedError naming it.
+The ghost layers cover the widest stencil, counted from the declared
+offsets where a stencil expression has field-valued operands (their
+products shift coefficients across rank borders, so the fields those
+coefficients read are exchanged first), plus the largest access offset.
+One placement serves every localization of a level: a dim is split where
+each of the level's field kinds keeps the coarse-replication threshold
+per rank and each rank at least the ghost layers, else the level holds
+it whole.  Masks, coordinates, stretched-grid positions and cell widths
+use global indices (`_gidx`, the level's WindowGrid); reductions count
+each point on its owner and all-reduce, so every rank reads the same
+bits and takes the same branch; inter-grid operators take their rows and
+columns of the global transfer matrices, all-gathering the source where a
+window does not hold what its owned rows read (a transfer into a
+replicated level); `solve locally` on offset unknowns also solves the
+blocks anchored in the ghost layers that write owned points, from
+exchanged reads (`_block_zone`); a lexicographic sweep whose rank borders
+are reference-fragment borders runs locally (cross-fragment reads are
+frozen at the sweep's start, as in the reference), any other is run on
+fields gathered whole, with their ghost-rule planes, exactly; field IO
+gathers to rank 0, which writes the dense run's bytes, and reads scatter
+from rank 0.  Staggered programs run dense (dsl/interpreter).  A read
+beyond the ghost layers, which no known program form makes, raises
+NotImplementedError naming it.
 """
 
 from __future__ import annotations
@@ -44,7 +56,7 @@ import torch.distributed as dist
 
 from exastencils_tpu_torch.core.grid import CELL, NODE, window_grid
 from exastencils_tpu_torch.dsl import nodes as N
-from exastencils_tpu_torch.dsl.interp_base import _iota
+from exastencils_tpu_torch.dsl.interp_base import Frame, _and, _iota
 from exastencils_tpu_torch.ops.transfer import (
     apply_separable,
     build_prolong_mats,
@@ -69,65 +81,190 @@ def _walk_value(v):
         yield from _walk(v)
 
 
+def _children(node):
+    """The AST nodes directly under `node`."""
+    if dataclasses.is_dataclass(node) and not isinstance(node, type):
+        for f in dataclasses.fields(node):
+            v = getattr(node, f.name)
+            for x in (v if isinstance(v, (list, tuple)) else (v,)):
+                if dataclasses.is_dataclass(x) and not isinstance(x, type):
+                    yield x
+
+
+def _int_offset(off):
+    """The integer components of an access offset (others count 0)."""
+    return tuple(o if isinstance(o, int) else 0 for o in off or ())
+
+
 class L4FragmentMixin:
     """The sharded DSL's part of L4Executable.  `self.frag` is the
     FragmentWindows of a sharded run, None on a dense one."""
 
     def _setup_fragments(self, mesh) -> None:
-        """Windows and window grids of every level over `mesh`."""
-        k = self.k
-        if not all(g.is_uniform for g in self._base_grids.values()):
-            raise NotImplementedError("the sharded DSL on a non-uniform grid "
-                                      "(grid_spacingModel != uniform)")
+        """Placement, windows and window grids of every level over `mesh`."""
         self.frag = FragmentWindows(mesh, self._halo_width())
-        thr = k.tpu_coarse_replicate_threshold
-        # first level whose nodes are sharded along d: the splits of every
-        # finer level double its borders (parallel/dslsharding.split_starts)
-        self._split_base = {}
-        for d in range(k.dimensionality):
-            for lvl in range(self.lo, self.hi + 1):
-                n = self._base_grids[lvl].shape_of(NODE)
-                if sharded_dims(mesh.shape, n, thr)[d]:
-                    self._split_base[d] = lvl
-                    break
         used = {}
         for info in self.fields.values():
             for lvl in info.levels:
                 used.setdefault(lvl, set()).add(info.localization)
-        for lvl, locs in used.items():
-            if len({self._window(lvl, loc).sharded for loc in locs}) > 1:
-                raise NotImplementedError(
-                    f"the sharded DSL with node and cell fields on level {lvl} sharded "
-                    f"along different dims (tpu_coarse_replicate_threshold {thr})")
+        self._placement = self._place_levels(mesh, used)
         self.grids = {
             lvl: window_grid(g, {loc: tuple(self._window(lvl, loc).bounds(d)
                                             for d in range(g.ndim))
                                  for loc in (NODE, CELL)})
             for lvl, g in self._base_grids.items()}
 
+    def _place_levels(self, mesh, used) -> dict:
+        """level -> (sharded, starts) per dim, one placement for every
+        localization of the level.  A dim is split where each of the
+        level's localizations (`used`) keeps at least the threshold per
+        rank (the JAX package's field_spec) and each rank at least the
+        ghost layers (the exchange reaches the next rank only); else the
+        level holds it whole.  The splits of the first split level (the
+        base) double on every finer one (parallel/dslsharding.split_starts)."""
+        thr = self.k.tpu_coarse_replicate_threshold
+        base, placement = {}, {}
+        for lvl in range(self.lo, self.hi + 1):
+            grid = self._base_grids[lvl]
+            shapes = [grid.shape_of(loc) for loc in sorted(used.get(lvl, {NODE}))]
+            sharded, starts = [], []
+            for d in range(grid.ndim):
+                st = None
+                if all(sharded_dims(mesh.shape, n, thr)[d] for n in shapes):
+                    p = mesh.shape[d]
+                    cells = [self._base_grids[lv].cells[d]
+                             for lv in range(base.get(d, lvl), lvl + 1)]
+                    st = split_starts(cells, p) if cells[0] >= p else None
+                    if st is not None and min(e - s for n in shapes for s, e in
+                                              zip(st, st[1:] + (n[d],))) < self.frag.ghost:
+                        st = None
+                    if st is not None:
+                        base.setdefault(d, lvl)
+                sharded.append(st is not None)
+                starts.append(st)
+            placement[lvl] = (tuple(sharded), tuple(starts))
+        return placement
+
     def _halo_width(self) -> int:
-        """Ghost layers of every sharded field: the reach of the widest
-        declared stencil plus the largest access offset (one statement
-        can apply a stencil to an offset access), at least 1."""
-        r_st = 0
-        for name, per_level in self.stencils.items():
-            for lvl, entry in per_level.items():
-                if isinstance(entry, tuple) and entry and entry[0] == "__decl__":
-                    for e in entry[1].entries:
-                        r_st = max([r_st] + [abs(int(self._eval_const(o))) for o in e.offsets])
-                elif isinstance(entry, tuple) and entry and entry[0] == "__sexpr__":
-                    try:  # stencil algebra: the radius of the bound product
-                        st = self._stencil_at(name, lvl)
-                    except (ValueError, KeyError):
-                        continue  # field-valued: its reach is checked when applied
-                    r_st = max(r_st, getattr(st, "radius", 0))
-        for st in self.stencil_templates.values():
-            r_st = max([r_st] + [abs(int(o)) for off in st.offsets for o in off])
-        r_off = 0
+        """Ghost layers of every sharded field, at least 1: the widest
+        stencil's radius plus the largest access offset (one statement
+        can apply a stencil to an offset access), and no less than what
+        an expression reads (_expr_reach: stencils applied in a row,
+        inline products) or a block of a `solve locally` anchored in the
+        ghosts reads (_block_zone)."""
+        r_st = max([0] + [self._stencil_radius(nm) for nm in self.stencils]
+                   + [self._stencil_radius(nm) for nm in self.stencil_templates])
+        r_off = r_blk = r_expr = 0
         for node in _walk(self.prog):
             if isinstance(node, N.Access) and node.offset:
-                r_off = max([r_off] + [abs(o) for o in node.offset if isinstance(o, int)])
-        return max(1, r_st + r_off)
+                r_off = max([r_off] + [abs(o) for o in _int_offset(node.offset)])
+            if isinstance(node, N.BinOp):
+                r_expr = max(r_expr, self._expr_reach(node))
+            if isinstance(node, N.SolveLocally) and any(u.offset for u in node.unknowns):
+                # a block anchored one unknown offset into the ghosts reads
+                # its equations' offsets from there
+                unk = [_int_offset(u.offset) for u in node.unknowns]
+                reads = [_int_offset(a.offset) for a in _walk_value(node.equations)
+                         if isinstance(a, N.Access)]
+                r_blk = max([r_blk] + [abs(f - u) for fo in reads for uo in unk
+                                       for f, u in zip(fo or (0,) * len(uo), uo)])
+        return max(1, r_st + r_off, r_st + r_blk, r_expr)
+
+    def _stencil_radius(self, name: str) -> int:
+        """A same-level stencil's radius over its levels (0 for a
+        transfer): a declaration's or stencil field's offsets; a stencil
+        expression's bound product, or where its operands are
+        field-valued (no field holds values yet) the radius counted from
+        their declarations (_sexpr_radius)."""
+        if name in self.stencil_templates:
+            return max(abs(int(o)) for off in self.stencil_templates[name].offsets for o in off)
+        r = 0
+        for lvl, entry in self.stencils[name].items():
+            if isinstance(entry, tuple) and entry and entry[0] == "__decl__":
+                r = max([r] + [abs(int(self._eval_const(o)))
+                               for en in entry[1].entries for o in en.offsets])
+            elif isinstance(entry, tuple) and entry and entry[0] == "__sexpr__":
+                try:
+                    r = max(r, getattr(self._stencil_at(name, lvl), "radius", 0))
+                except (ValueError, KeyError):
+                    r = max(r, self._sexpr_radius(entry[1].expr))
+        return r
+
+    def _sexpr_radius(self, e) -> int:
+        """The radius of a stencil-valued expression from its operands'
+        declarations: a product adds its factors' radii, a sum takes the
+        larger, a transfer counts 1 (the default ones)."""
+        if isinstance(e, N.Access):
+            if e.name in self.stencils and all(
+                    not isinstance(en, tuple) for en in self.stencils[e.name].values()):
+                return 1
+            return self._stencil_radius(e.name) if self._stencil_valued(e) else 0
+        if isinstance(e, N.Call) and e.name in ("transpose", "transposed"):
+            return self._sexpr_radius(e.args[0])
+        if isinstance(e, N.UnOp):
+            return self._sexpr_radius(e.operand)
+        if isinstance(e, N.BinOp):
+            a, b = self._sexpr_radius(e.lhs), self._sexpr_radius(e.rhs)
+            return a + b if e.op == "*" else max(a, b)
+        return 0
+
+    def _stencil_valued(self, e) -> bool:
+        """Whether an expression evaluates to a stencil (a declared one,
+        a stencil field, their sums, scalings, products and transposes)
+        rather than to values at points (a stencil applied to an
+        operand that reads points)."""
+        if isinstance(e, N.Access):
+            return e.name in self.stencils or (e.name in self.stencil_templates
+                                               and e.sten_entry is None)
+        if isinstance(e, N.BinOp):
+            if e.op == "*":
+                return self._stencil_valued(e.rhs) or (
+                    self._stencil_valued(e.lhs) and not any(
+                        isinstance(a, N.Access) and (a.name in self.fields
+                                                     or a.name.startswith("vf_"))
+                        for a in _walk(e.rhs)))
+            if e.op == "/":
+                return self._stencil_valued(e.lhs)
+            return e.op in ("+", "-") and (self._stencil_valued(e.lhs)
+                                           or self._stencil_valued(e.rhs))
+        if isinstance(e, N.UnOp):
+            return self._stencil_valued(e.operand)
+        return isinstance(e, N.Call) and e.name in ("transpose", "transposed")
+
+    def _expr_reach(self, e) -> int:
+        """How far from its point an expression reads fields: an access
+        its offset, a stencil applied to an operand its radius plus the
+        operand's reach, anything else the farthest of its parts."""
+        if isinstance(e, N.BinOp) and e.op == "*" and self._stencil_valued(e.lhs) \
+                and not self._stencil_valued(e.rhs):
+            return self._sexpr_radius(e.lhs) + self._expr_reach(e.rhs)
+        if isinstance(e, N.Access):
+            return max([0] + [abs(o) for o in _int_offset(e.offset)])
+        return max([0] + [self._expr_reach(c) for c in _children(e)])
+
+    def _fresh_coefficients(self, e, level: int) -> None:
+        """Exchange the stale fields that the coefficients of the stencils
+        in a stencil expression read (stencil fields: their coefficient
+        arrays): the product and the transpose shift coefficients, so
+        owned points read them at ghost points."""
+        if self.frag is None:
+            return
+        for node in _walk(e):
+            if not (isinstance(node, N.Access) and (node.name in self.stencils
+                                                    or node.name in self.stencil_templates)):
+                continue
+            lvl = level if node.level is None else node.level.resolve(self.lo, self.hi, level)[0]
+            if node.name in self.stencil_templates:
+                self._offset_read(node.name, lvl)
+                continue
+            entry = self.stencils[node.name][lvl]
+            if isinstance(entry, tuple) and entry and entry[0] == "__sexpr__":
+                self._fresh_coefficients(entry[1].expr, lvl)
+            elif isinstance(entry, tuple) and entry and entry[0] == "__decl__":
+                for a in _walk_value([en.coef for en in entry[1].entries]):
+                    if isinstance(a, N.Access) and a.name in self.fields:
+                        self._offset_read(a.name, self._resolve_level(a.level, Frame({}, lvl)),
+                                          a.slot)
 
     # ---------------- geometry ----------------
     def _window(self, level: int, loc: str) -> Optional[FieldWindow]:
@@ -139,24 +276,8 @@ class L4FragmentMixin:
         w = self._windows.get(key)
         if w is not None:
             return w
-        mesh = self.frag.mesh
-        n = self._base_grids[level].shape_of(loc)
-        sharded = sharded_dims(mesh.shape, n, self.k.tpu_coarse_replicate_threshold)
-        starts = []
-        for d, on in enumerate(sharded):
-            if not on:
-                starts.append(None)
-                continue
-            base = self._split_base[d]
-            cells = [self._base_grids[lv].cells[d] for lv in range(base, level + 1)]
-            st = split_starts(cells, mesh.shape[d])
-            runs = [e - s for s, e in zip(st, st[1:] + (n[d],))]
-            if min(runs) < self.frag.ghost:
-                raise NotImplementedError(
-                    f"the sharded DSL with a fragment of {min(runs)} points along dim {d} "
-                    f"on level {level}, fewer than its {self.frag.ghost} ghost layers")
-            starts.append(st)
-        w = self.frag.window(n, sharded, starts)
+        sharded, starts = self._placement[level]
+        w = self.frag.window(self._base_grids[level].shape_of(loc), sharded, starts)
         self._windows[key] = w
         return w
 
@@ -199,6 +320,34 @@ class L4FragmentMixin:
             mm = (i == 0) | (i == n[d] - 1)
             m = mm if m is None else m | mm
         return m
+
+    # ---------------- local solves ----------------
+    def _block_zone(self, s: N.SolveLocally, unknowns, fr, loop) -> Optional[torch.Tensor]:
+        """The anchors of a `solve locally` on offset unknowns whose block
+        writes an owned point: the owned box shifted back by each
+        unknown's offset, ghost anchors included (None on a dense run, on
+        a level held whole, and without offset unknowns, where each block
+        writes its own anchor).  Every field the equations read is
+        exchanged first, so these blocks solve the dense run's systems
+        (_halo_width counts their reach)."""
+        if self.frag is None or not any(any(off) for _, _, off in unknowns):
+            return None
+        w = self._window(loop.level, loop.localization)
+        if w is None or not w.any_sharded:
+            return None
+        for a in _walk_value(s.equations):
+            if isinstance(a, N.Access) and a.name in self.fields:
+                self._offset_read(a.name, self._resolve_level(a.level, fr), a.slot)
+        zone = None
+        for _, _, off in unknowns:
+            m = None
+            for d in range(w.ndim):
+                if w.sharded[d]:
+                    s0, s1 = w.own(d)
+                    i = self._gidx(loop.shape, d, loop.level, loop.localization) + off[d]
+                    m = _and(m, (i >= s0) & (i < s1))
+            zone = m if zone is None else zone | m
+        return zone
 
     # ---------------- halo state ----------------
     def _halo_key(self, name: str, level: int, slot=None):
@@ -261,17 +410,19 @@ class L4FragmentMixin:
     def _gathered_level(self, level: int, names, keep: str):
         """Run a block with the fields `names` of `level` gathered whole
         and the level dense; afterwards `keep` takes its window of the
-        result and the others return unchanged."""
-        for nm in names:
-            if (nm, level) in self._ghost_rules:
-                raise NotImplementedError(
-                    f"the sharded DSL gathering {nm}@{level}, which has ghost rules")
-        saved = {}
+        result and the others return unchanged.  A field's ghost-rule
+        planes are gathered with it: each from the ranks on its side."""
+        saved, planes = {}, {}
         for nm in names:
             w = self._field_window(nm, level)
             lead = 1 if self.fields[nm].num_slots > 1 else 0
             saved[nm] = (self.state[(nm, level)], w, lead)
             self.state[(nm, level)] = self.frag.gather(self.state[(nm, level)], w, lead)
+            for d, side in self._ghost_rules.get((nm, level), ()):
+                key = (self._ghost_key(nm, d, side), level)
+                if key in self.state:
+                    planes[key] = self.state[key]
+                    self.state[key] = self._gather_plane(self.state[key], w, d, side)
         grid = self.grids[level]
         self.grids[level] = self._base_grids[level]
         self._dense_levels.add(level)
@@ -280,6 +431,7 @@ class L4FragmentMixin:
         finally:
             self._dense_levels.discard(level)
             self.grids[level] = grid
+            self.state.update(planes)
             for nm, (arr, w, lead) in saved.items():
                 if nm == keep:
                     self.state[(nm, level)] = FragmentWindows.window_of(
@@ -288,6 +440,16 @@ class L4FragmentMixin:
                     self.state[(nm, level)] = arr
         for key in [k for k in self._halo_stale if k[0] == keep and k[1] == level]:
             self._halo_stale.discard(key)  # windows of whole fields hold exact ghosts
+
+    def _gather_plane(self, plane: torch.Tensor, w: FieldWindow, d: int, side: int):
+        """A ghost-rule plane (one point along d) of a field laid out by w,
+        whole: the owned boxes of the ranks on the global grid's `side`
+        of d (rank coordinate 0 or the last), the only ones whose plane
+        lies on the boundary."""
+        last = 0 if side < 0 else self.frag.mesh.shape[d] - 1
+        pw = dataclasses.replace(w, n=w.n[:d] + (1,) + w.n[d + 1:],
+                                 sharded=w.sharded[:d] + (False,) + w.sharded[d + 1:])
+        return self.frag.gather(plane, pw, keep=lambda c: c[d] == last)
 
     # ---------------- reductions ----------------
     def _value_window(self, exprs, fr, loop) -> Optional[FieldWindow]:

@@ -50,11 +50,9 @@ class L4LocalSolveMixin:
             for u in s.unknowns
         ]
         n = len(unknowns)
-        if self.frag is not None and any(any(off) for _, _, off in unknowns):
-            # a ghost point's block would write its garbage into an owned
-            # neighbour: the reference's embed_add needs halo-wide blocks
-            raise NotImplementedError("the sharded DSL with `solve locally` on "
-                                      "offset unknowns")
+        # on a fragment, blocks anchored in the ghost layers write owned
+        # points: solve them too, from exchanged reads (None: every block)
+        zone = self._block_zone(s, unknowns, fr, loop)
         relax = float(self.eval_expr(s.relax, fr, loop)) if s.relax is not None else 1.0
         dtype = self.dtype
         if any(self.fields[nm].is_complex for nm, _, _ in unknowns):
@@ -80,6 +78,14 @@ class L4LocalSolveMixin:
             for jj in range(n):
                 ident = 1.0 if jj == j else 0.0
                 Dm[j][jj] = torch.where(valid, Dm[j][jj], ident)
+
+        if zone is not None:
+            # blocks that write no owned point read partial ghosts: an
+            # identity system keeps their (discarded) solve regular
+            for j in range(n):
+                rows[j] = torch.where(zone, rows[j], 0.0)
+                for jj in range(n):
+                    Dm[j][jj] = torch.where(zone, Dm[j][jj], 1.0 if jj == j else 0.0)
 
         D = torch.stack([torch.stack(row, dim=-1) for row in Dm], dim=-2)  # (..., eq, unk)
         rv = torch.stack(rows, dim=-1)[..., None]  # (..., eq, 1)

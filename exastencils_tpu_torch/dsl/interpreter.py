@@ -608,6 +608,7 @@ class L4Executable(L4BuiltinsMixin, L4StagingMixin, L4LocalSolveMixin, L4Fragmen
         if isinstance(entry, tuple) and entry and entry[0] == "__sexpr__":
             key = (name, level)
             if key not in self._stencil_cache:
+                self._fresh_coefficients(entry[1].expr, level)
                 self._stencil_cache[key] = self._eval_stencil_expr(entry[1].expr, level)
             return self._stencil_cache[key]
         if not (isinstance(entry, tuple) and entry and entry[0] == "__decl__"):
@@ -624,7 +625,7 @@ class L4Executable(L4BuiltinsMixin, L4StagingMixin, L4LocalSolveMixin, L4Fragmen
             ax = "xyz"[d]
             env[f"vf_gridWidth_{ax}"] = grid.grid_width(d)
             env[f"vf_cellWidth_{ax}"] = grid.grid_width(d)
-        env["vf_cellVolume"] = grid.cell_volume
+        env["vf_cellVolume"] = grid.volume_b()
         if not grid.is_uniform and any(
             self._referenced_names(e.coef) & set(env) for e in sd.entries
         ):
@@ -1135,14 +1136,14 @@ class L4Executable(L4BuiltinsMixin, L4StagingMixin, L4LocalSolveMixin, L4Fragmen
             # staggered CV volume == cell volume on uniform interior grids
             # (grid/ir/IR_VF_StagCellVolume; boundary half-CVs carry
             # Dirichlet DOFs and are never assembled)
-            return grid.cell_volume
+            return grid.volume_b(loc)
         if base in ("vf_gridWidth", "vf_cellWidth", "vf_stagCVWidth"):
-            w = grid.width_b(d)  # scalar (uniform) | per-cell tensor
+            w = grid.width_b(d, loc)  # scalar (uniform) | per-cell tensor
             if isinstance(w, torch.Tensor) and w.dim():
                 return self._fit_coord(w, d, loop)
             return w
         if base == "vf_cellVolume":
-            return grid.cell_volume
+            return grid.volume_b(loc)
         if base in ("vf_nodePosition", "vf_nodePos"):
             coords = grid.coord_mesh(NODE if loc == NODE else loc)
             return self._fit_coord(coords[d], d, loop)
@@ -1241,6 +1242,9 @@ class L4Executable(L4BuiltinsMixin, L4StagingMixin, L4LocalSolveMixin, L4Fragmen
         return xp
 
     def _eval_binop(self, e: N.BinOp, fr: Frame, loop):
+        if self.frag is not None and e.op == "*" and self._stencil_valued(e.lhs) \
+                and self._stencil_valued(e.rhs):
+            self._fresh_coefficients(e, fr.level)  # a product shifts coefficients
         lhs = self.eval_expr(e.lhs, fr, loop)
         if e.op == "*" and _is_stencil(lhs):
             _, st, st_level = lhs

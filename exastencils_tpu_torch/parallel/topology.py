@@ -516,10 +516,12 @@ class FragmentWindows:
     def _box(self, w: FieldWindow, coords) -> Tuple[slice, ...]:
         return tuple(slice(*w.own(d, coords[d])) for d in range(w.ndim))
 
-    def gather(self, x: torch.Tensor, w: FieldWindow, lead: int = 0) -> torch.Tensor:
+    def gather(self, x: torch.Tensor, w: FieldWindow, lead: int = 0,
+               keep=None) -> torch.Tensor:
         """The whole global array on every rank (the owned boxes of all
-        ranks, all-gathered)."""
-        if not w.any_sharded:
+        ranks, all-gathered; with `keep`, a predicate on mesh coordinates,
+        those of the ranks it keeps, in rank order)."""
+        if not w.any_sharded and keep is None:
             return x
         self.stats.gathers += 1
         head, tail = tuple(x.shape[:lead]), tuple(x.shape[lead + w.ndim:])
@@ -536,7 +538,9 @@ class FragmentWindows:
         parts = [torch.empty_like(buf) for _ in boxes]
         dist.all_gather(parts, buf, group=self.mesh.group)
         full = torch.empty(head + w.n + tail, dtype=x.dtype, device=x.device)
-        for box, size, part in zip(boxes, sizes, parts):
+        for r, (box, size, part) in enumerate(zip(boxes, sizes, parts)):
+            if keep is not None and not keep(np.unravel_index(r, self.mesh.shape)):
+                continue
             shape = head + tuple(b.stop - b.start for b in box) + tail
             full[(slice(None),) * lead + box] = part[:size].reshape(shape).to(x.device)
         return full
