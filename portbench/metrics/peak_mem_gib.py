@@ -1,0 +1,3 @@
+"""The device memory peak over set-up and window."""
+
+from portbench.readers import peak_mem_gib as read  # noqa: F401
