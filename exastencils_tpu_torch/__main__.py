@@ -6,7 +6,10 @@ on the CPU with --cpu; there is no fallback: without a CUDA device the
 run fails unless --cpu is given.  As in the reference, fields are float32
 unless --f64 is given (JAX computes in float32 unless x64 is enabled).
 --check diffs the printed lines against a golden .results file;
---trace-dir writes a torch.profiler trace of the run (chrome JSON).
+--trace-dir writes a torch.profiler trace of the run (chrome JSON,
+trace.json) and the program's spans beside it (spans.json: each span's
+kind, name, parent, solve, host times, device ms, host reads and graph
+launches; runtime/timers).
 
 Under `torchrun --nproc-per-node N -m exastencils_tpu_torch ...` every
 rank joins torchrun's process group (parallel/mesh.init_from_env) and the
@@ -40,7 +43,8 @@ def main(argv=None):
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU (plain PyTorch) instead of the GPU")
     ap.add_argument("--trace-dir", default=None,
-                    help="write a torch.profiler trace (trace.json) to this directory")
+                    help="write a torch.profiler trace (trace.json) and the program's "
+                         "spans (spans.json) to this directory")
     ap.add_argument("--check", default=None, metavar="GOLDEN.results",
                     help="diff the program output against a golden .results "
                          "file: exit 0 on match, 1 with the first differing "
@@ -105,10 +109,13 @@ def _run(args, device):
         from torch.profiler import ProfilerActivity, profile
 
         acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device == "cuda" else [])
+        from exastencils_tpu_torch.runtime import timers
+
         with profile(activities=acts) as prof:
             ex.run(args.function)
         os.makedirs(args.trace_dir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(args.trace_dir, "trace.json"))
+        timers.dump(os.path.join(args.trace_dir, "spans.json"))
     else:
         ex.run(args.function)
 

@@ -290,7 +290,8 @@ class L4BuiltinsMixin:
             return self._resolve_level(e.level, fr)
         if name == "print":
             vals = [self.eval_expr(a, fr, loop) for a in e.args]
-            self.emit(" ".join(_fmt(v, self._cout_precision) for v in vals))
+            self.emit(self._host_read(
+                lambda vs: " ".join(_fmt(v, self._cout_precision) for v in vs), vals, "print"))
             return None
         if name == "buildString":
             # buildString(dest, parts...) concatenates into the string
@@ -379,7 +380,7 @@ class L4BuiltinsMixin:
                     self._cout_precision = int(m.group(1))
             return None
         if name == "printWithReducedPrec":
-            v = float(self.eval_expr(e.args[0], fr, loop))
+            v = self._host_read(float, self.eval_expr(e.args[0], fr, loop), "print")
             self.emit(reduced_prec_str(v, self.k.testing_maxPrecision, self.k.testing_zeroThreshold))
             return None
         if name in ("startTimer", "benchmarkStart"):

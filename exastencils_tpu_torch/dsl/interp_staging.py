@@ -638,6 +638,13 @@ class L4StagingMixin:
         out["io_calls"] = self._io_calls
         return out
 
+    def _recording_name(self, what: str, fr: Frame) -> str:
+        """`<function>[@level].<what><n>`: the recording's name in its spans,
+        n counting the recordings of the executable."""
+        fn = self._calls[-1][0].name if self._calls else "main"
+        at = "" if fr.level is None else f"@{fr.level}"
+        return f"{fn}{at}.{what}{self.stage_stats.captures}"
+
     def _leave_eager(self, key0, what: str, err: BaseException):
         """A run (or early-exit loop) whose warm-up read a device value on
         the host or wrote an unscanned state key stays eager from now on,
@@ -920,7 +927,7 @@ class L4StagingMixin:
                     buf.copy_(v)  # write back into the static state
             out.update(vars=var_out, globs=glob_out, ghosts=ghost_out)
 
-        rec = Recording(run, self.device, self.stage_stats)
+        rec = Recording(run, self.device, self.stage_stats, self._recording_name("run", fr))
         rec.capture()
         entry.update(rec=rec, static=static, vars_in=vars_in, out=out)
         return entry
@@ -983,7 +990,7 @@ class L4StagingMixin:
                     self._load_value(buf, v)
                 out.update(it=it_out, done=done)
 
-            rec = Recording(run, self.device, self.stage_stats)
+            rec = Recording(run, self.device, self.stage_stats, self._recording_name("loop", fr))
             rec.capture()
             entry = {"rec": rec, "static": static, "vars_in": vars_in, "out": out}
             self._stage_cache[key] = entry

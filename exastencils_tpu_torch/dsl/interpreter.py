@@ -38,6 +38,8 @@ Differences from the reference, by design:
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import logging
 import math
 from typing import Dict, List, Optional, Tuple
@@ -63,6 +65,7 @@ from exastencils_tpu_torch.ops.transfer import (
     build_prolong_mats,
     build_restrict_mats,
 )
+from exastencils_tpu_torch.runtime import timers
 from exastencils_tpu_torch.runtime.timers import TimerRegistry
 from exastencils_tpu_torch.solver.synthesis import default_transfer_ops
 
@@ -177,6 +180,8 @@ class L4Executable(L4BuiltinsMixin, L4StagingMixin, L4LocalSolveMixin, L4Fragmen
         self._gridcall_cache: Dict[int, N.Expr] = {}
         self._refs_memo: Dict[Tuple, frozenset] = {}
         self._frames: List[Frame] = []  # the active call frames, innermost last
+        self._calls: List[Tuple[N.FunctionDecl, Optional[int]]] = []  # (function, level) called
+        self._span_roles = None  # (cycle function names, solve drivers): _span_kinds
 
         # --- domain & grids ---
         if program.domains:
@@ -1381,15 +1386,84 @@ class L4Executable(L4BuiltinsMixin, L4StagingMixin, L4LocalSolveMixin, L4Fragmen
 
     # ------------------------------------------------------------------
     def call_function(self, fn: N.FunctionDecl, level: Optional[int], args):
+        if not timers.active():
+            return self._call(fn, level, args)
+        with contextlib.ExitStack() as spans:
+            for kind in self._span_kinds(fn, level):
+                spans.enter_context(timers.span(kind, fn.name, level))
+            return self._call(fn, level, args)
+
+    def _call(self, fn: N.FunctionDecl, level: Optional[int], args):
         fr = Frame(dict(zip((p[0] for p in fn.params), args)), level)
         self._frames.append(fr)
+        self._calls.append((fn, level))
         try:
             self.exec_block(fn.body, fr)
         except _Return as r:
             return r.value
         finally:
             self._frames.pop()
+            self._calls.pop()
         return None
+
+    def _span_kinds(self, fn: N.FunctionDecl, level: Optional[int]) -> List[str]:
+        """The spans (runtime/timers) a call opens, outermost first: `solve`
+        for a call from the host; `cycle` and `level` for the program's
+        cycle function (one that calls itself on a coarser level) on the
+        finest level, `level` below it; `check` for any other call on the
+        finest level made by a solve driver (a function that calls the
+        cycle function on the finest level)."""
+        if self._span_roles is None:
+            self._span_roles = self._find_span_roles()
+        cycles, drivers = self._span_roles
+        kinds = [] if self._calls else ["solve"]
+        if fn.name in cycles:
+            kinds += ["cycle", "level"] if level == self.hi else ["level"]
+        elif level == self.hi and self._calls \
+                and (id(self._calls[-1][0]), self._calls[-1][1]) in drivers:
+            kinds.append("check")
+        return kinds
+
+    def _find_span_roles(self):
+        """(names of cycle functions, (id, level) of solve drivers), from
+        the calls in the functions' bodies."""
+        def calls(node):
+            stack = [node]
+            while stack:
+                x = stack.pop()
+                if isinstance(x, (list, tuple)):
+                    stack.extend(x)
+                elif dataclasses.is_dataclass(x) and not isinstance(x, type):
+                    if isinstance(x, N.Call):
+                        yield x
+                    stack.extend(getattr(x, f.name) for f in dataclasses.fields(x))
+
+        def levels(c, current):
+            if c.level is None:
+                return [current]
+            try:
+                return c.level.resolve(self.lo, self.hi, current)
+            except ValueError:  # a relative level where the caller has none
+                return []
+
+        made = {key: list(calls(fn.body)) for key, fn in self.functions.items()}
+        cycles = {name for (name, lvl), cs in made.items() if lvl is not None
+                  and any(c.name == name and min(levels(c, lvl), default=lvl) < lvl for c in cs)}
+        drivers = {(id(self.functions[key]), key[1]) for key, cs in made.items()
+                   if any(c.name in cycles and self.hi in levels(c, key[1]) for c in cs)}
+        return cycles, drivers
+
+    def _host_read(self, conv, v, what: str):
+        """conv(v), where each tensor or matrix in `v` (a value or a list) is
+        a host read outside a staged run, counted in
+        `StageStats.eager_reads` and a `host_read` span."""
+        n = sum(isinstance(x, torch.Tensor) or is_mat(x)
+                for x in (v if isinstance(v, list) else [v]))
+        if not n:
+            return conv(v)
+        self.stage_stats.eager_reads += n
+        with timers.host_read(what, n):
+            return conv(v)
 
     # ------------------------------------------------------------------
     def emit(self, text: str, newline: bool = True):
@@ -1524,7 +1598,7 @@ class L4Executable(L4BuiltinsMixin, L4StagingMixin, L4LocalSolveMixin, L4Fragmen
                     loop.mask = nm if base is None else torch.logical_and(base, nm)
                     self.exec_block(s.else_body, fr, loop)
                 loop.mask = base
-            elif bool(cond):
+            elif self._host_read(bool, cond, "if"):
                 self.exec_block(s.then_body, fr, loop)
             else:
                 self.exec_block(s.else_body, fr, loop)
@@ -1564,7 +1638,7 @@ class L4Executable(L4BuiltinsMixin, L4StagingMixin, L4LocalSolveMixin, L4Fragmen
                     fr.vars[s.count_var] = it + 1
         elif isinstance(s, N.RepeatUntil):
             while True:
-                cond = bool(self.eval_expr(s.cond, fr, loop))
+                cond = self._host_read(bool, self.eval_expr(s.cond, fr, loop), "repeat until")
                 if s.is_while and not cond:
                     break
                 if (not s.is_while) and cond:

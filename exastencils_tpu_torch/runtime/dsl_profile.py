@@ -12,17 +12,20 @@ path, `jit_functions=False`) and `plain` (no fast path, eager).  For each:
                           5 chained cycles, 2 for `plain` (the spread of a
                           host-bound cycle), and one more block after the
                           per-level breakdown (`cycle_ms_after`);
-  exclusive_ms_by_level   (eager variants) CUDA events around every
-                          `MGCycle@L` call during full cycles: inclusive
-                          time per level and cycle, minus the next coarser
-                          level's.  They sum to `levels_cycle_ms`, the
-                          finest level's inclusive time in those same
-                          cycles, which is a cycle time of its own: the
-                          events around every level add host work, and the
-                          host-bound cycle drifts within a process, so it
-                          is compared with the blocks and not summed
-                          against them.  A staged cycle is one replay:
-                          no level is timed apart;
+  exclusive_ms_by_level   the device ms of the `level` spans
+                          (runtime/timers) of full cycles run under a
+                          host-only torch.profiler session, which turns the
+                          spans on: inclusive time per level and cycle,
+                          minus the next coarser level's.  Eager, each span
+                          records CUDA events around its `MGCycle@L` call;
+                          staged, the levels inside the replayed graphs are
+                          timed by the event nodes captured with them.  They
+                          sum to `levels_cycle_ms`, the finest level's
+                          inclusive time in those same cycles, which is a
+                          cycle time of its own: the spans add host work,
+                          and the host-bound cycle drifts within a process,
+                          so it is compared with the blocks and not summed
+                          against them;
   device_busy_ms_per_cycle, idle_share
                           the union of device activity in a torch.profiler
                           trace of two cycles (after a cycle and a marker
@@ -50,6 +53,8 @@ import os
 import pstats
 
 import torch
+
+from exastencils_tpu_torch.runtime import timers
 
 MAX_LEVEL = 9  # 513^3 nodes
 BENCH_EXA4 = os.path.join(os.path.dirname(os.path.abspath(__file__)), os.pardir, os.pardir,
@@ -138,31 +143,21 @@ def busy_ms(fn, reps: int):
 
 def per_level_ms(ex, reps: int):
     """(exclusive ms per level and cycle, the finest level's inclusive ms
-    per cycle): CUDA events around every `MGCycle@L` call during `reps`
-    full cycles, inclusive time of level L minus that of L-1; the
-    exclusive times sum to the inclusive one."""
+    per cycle): the `level` spans (`MGCycle@L`) of `reps` full cycles,
+    inclusive time of level L minus that of L-1; the exclusive times sum to
+    the inclusive one."""
+    from torch.profiler import ProfilerActivity, profile
+
     fin = ex.hi
-    orig = ex.call_function
-    ev = {}
-
-    def timed(fn, level, args):
-        if fn.name != "MGCycle":
-            return orig(fn, level, args)
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        r = orig(fn, level, args)
-        b.record()
-        ev.setdefault(level, []).append((a, b))
-        return r
-
-    ex.call_function = timed
-    try:
+    timers.drain()
+    with profile(activities=[ProfilerActivity.CPU]):
         for _ in range(reps):
             ex.call_function(ex.functions[("MGCycle", fin)], fin, [])
-        torch.cuda.synchronize()
-    finally:
-        ex.call_function = orig
-    incl = {lvl: sum(a.elapsed_time(b) for a, b in v) / reps for lvl, v in ev.items()}
+    incl = {}
+    for s in timers.drain():
+        if s.kind == "level":
+            lvl = int(s.name.rsplit("@", 1)[1])
+            incl[lvl] = incl.get(lvl, 0.0) + s.device_ms / reps
     excl = {lvl: round(incl[lvl] - incl.get(lvl - 1, 0.0), 3) for lvl in sorted(incl)}
     return excl, round(incl[fin], 3)
 
@@ -186,9 +181,8 @@ def profile_variant(max_level: int, variant: str, reps: int, out_dir=None) -> di
     blocks = [round(events_ms(run, reps), 3) for _ in range(4)]
     st1 = ex.staging_stats()
     r = {"variant": variant, "staged": ex.jit_functions, "cycle_ms_by_block": blocks}
-    if not ex.jit_functions:
-        r["exclusive_ms_by_level"], r["levels_cycle_ms"] = per_level_ms(ex, reps)
-        r["levels_sum_ms"] = round(sum(r["exclusive_ms_by_level"].values()), 3)
+    r["exclusive_ms_by_level"], r["levels_cycle_ms"] = per_level_ms(ex, reps)
+    r["levels_sum_ms"] = round(sum(r["exclusive_ms_by_level"].values()), 3)
     r["cycle_ms_after"] = round(events_ms(run, reps), 3)
     busy, top, n_kernels, idle = busy_ms(run, 2)
     r.update(device_busy_ms_per_cycle=round(busy, 3), idle_share=round(idle, 4),

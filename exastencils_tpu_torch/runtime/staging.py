@@ -37,6 +37,12 @@ read at all.
 Kernel wrappers count their launches through `count_launch`: eagerly on
 the wrapper's `.launches`, during a capture into the recording, which adds
 the captured launches to the wrappers' counts at every replay.
+
+Spans (runtime/timers): a replay is a `replay` span named by its
+recording, a read of a loop's done flag a `host_read` span; the spans
+the closure opens are captured as event nodes and marks of each graph
+(`timers.capturing`), which every launch of the graph replays on the
+host while spans are on; the warm-up records none.
 """
 
 from __future__ import annotations
@@ -52,6 +58,8 @@ from dataclasses import asdict, dataclass
 from typing import Callable, List, Optional, Sequence
 
 import torch
+
+from exastencils_tpu_torch.runtime import timers
 
 # Iterations of a masked device loop between two host reads of its done
 # flag (PERF.md: the coarse solves of the 3D paths exit within one
@@ -88,6 +96,7 @@ class StageStats:
     segments: int = 0  # graphs outside loop bodies
     loops: int = 0  # device loops recorded
     host_reads: int = 0  # reads of a loop's done flag, during replays
+    eager_reads: int = 0  # the DSL executor's reads of device values outside runs
     capture_s: float = 0.0  # warm-up and capture, seconds
     pool_bytes: int = 0  # device memory the graph pools reserved
     unstaged: int = 0  # DSL runs left eager (host read or missed state key)
@@ -197,7 +206,8 @@ def no_host_reads(device):
 
 def read_flag(flag: torch.Tensor, stats: Optional[StageStats] = None) -> bool:
     """`bool(flag)`: the one host read a device loop makes per chunk (or
-    an early exit per call), allowed inside `no_host_reads`."""
+    an early exit per call), allowed inside `no_host_reads`; a `host_read`
+    span named `flag` (its parent names the recording)."""
     if stats is not None:
         stats.host_reads += 1
     _Guard.allowed += 1
@@ -205,7 +215,8 @@ def read_flag(flag: torch.Tensor, stats: Optional[StageStats] = None) -> bool:
     if sync:
         torch.cuda.set_sync_debug_mode(0)
     try:
-        return bool(flag)
+        with timers.host_read("flag"):
+            return bool(flag)
     finally:
         if sync:
             torch.cuda.set_sync_debug_mode("error")
@@ -245,7 +256,7 @@ def warm_up(fn: Callable[[], object], device):
     recording's inputs): plainly, then with host reads forbidden.  Device
     loops run one iteration each in the warm-up."""
     device = torch.device(device)
-    with _on_side_stream(device), _mode("warmup"):
+    with _on_side_stream(device), _mode("warmup"), timers.quiet():
         fn()
         with no_host_reads(device):
             fn()
@@ -255,6 +266,7 @@ def warm_up(fn: Callable[[], object], device):
 class _Graph:
     graph: object  # torch.cuda.CUDAGraph
     tally: Counter  # wrapper -> launches captured
+    marks: list  # span boundaries captured in it (runtime/timers)
 
 
 @dataclass
@@ -271,10 +283,12 @@ class _Loop:
 class Recording:
     """A closure's device work, recorded once (`capture`) and replayed
     (`replay`).  `fn()` reads static buffers and writes its results back
-    into static buffers; on CUDA it runs once, inside the capture."""
+    into static buffers; on CUDA it runs once, inside the capture.  `name`
+    names its replay and flag-read spans."""
 
-    def __init__(self, fn: Callable[[], object], device, stats: StageStats):
+    def __init__(self, fn: Callable[[], object], device, stats: StageStats, name: str):
         self.fn = fn
+        self.name = name
         self.device = torch.device(device)
         self.stats = stats
         self.steps: list = []
@@ -303,7 +317,7 @@ class Recording:
             gc.disable()
             try:
                 with _on_side_stream(self.device), _mode("capture", self), \
-                        warnings.catch_warnings():
+                        timers.capturing(), warnings.catch_warnings():
                     # a segment between two loops may hold no kernel
                     warnings.filterwarnings("ignore", message=".*CUDA Graph is empty.*")
                     self._begin()
@@ -323,11 +337,12 @@ class Recording:
 
     def replay(self):
         self.stats.replays += 1
-        if not self.cuda:
-            with _mode("replay", self):
-                self.fn()
-            return
-        self._run(self.steps)
+        with timers.span("replay", self.name):
+            if not self.cuda:
+                with _mode("replay", self):
+                    self.fn()
+                return
+            self._run(self.steps)
 
     # --- capture ---
     def _begin(self):
@@ -338,7 +353,7 @@ class Recording:
     def _end(self):
         g, self._graph = self._graph, None
         g.capture_end()
-        self._open[-1].append(_Graph(g, self._tally))
+        self._open[-1].append(_Graph(g, self._tally, timers.take_marks()))
         self.stats.graphs += 1
         if len(self._open) == 1:
             self.stats.segments += 1
@@ -375,7 +390,7 @@ class Recording:
     def _run(self, steps):
         for st in steps:
             if isinstance(st, _Graph):
-                st.graph.replay()
+                timers.launch(st.graph, st.marks)
                 for wrapper, k in st.tally.items():
                     wrapper.launches += k
                 continue
@@ -573,7 +588,8 @@ class Staged:
                                   for a in args]), dev)
         self.stats.capture_s += time.perf_counter() - t0
         b = _Binding(args, self.donate)
-        b.rec = Recording(functools.partial(b.run, self.fn), dev, self.stats)
+        b.rec = Recording(functools.partial(b.run, self.fn), dev, self.stats,
+                          getattr(self.fn, "__name__", "staged"))
         b.rec.capture()
         return b
 

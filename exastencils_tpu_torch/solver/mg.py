@@ -14,6 +14,11 @@ neighbour exchange of a fragment on the sharded one (parallel/), where
 every rank runs the cycle eagerly and every loop exit reads an
 all-reduced value, so all ranks branch alike.
 
+Spans (runtime/timers): a cycle on the finest level is a `cycle` span,
+each level's part of it a `level` span (`level@L`), the coarse solve a
+`coarse` span and each residual norm a `check` span; inside a staged
+cycle or `solve_jit` they are captured with the graphs.
+
 In-place contract: where a level has kernels (ops/cuda), the cycle may
 update the iterate in place (the reference donated it); callers that
 reuse the tensor they pass in must clone it first.  K1-K3 and K5 update
@@ -30,6 +35,7 @@ import torch
 
 from exastencils_tpu_torch.ops.reductions import dot, norm_l2
 from exastencils_tpu_torch.runtime.staging import Staged, device_loop
+from exastencils_tpu_torch.runtime.timers import host_read, span
 
 
 def _ident(x):
@@ -109,10 +115,17 @@ class Multigrid:
         kind = self.cycle_type if kind is None else kind
         if kind not in ("V", "W", "F"):
             raise ValueError(f"unknown cycle type {kind!r} (V | W | F)")
-        lv = self.levels[level]
+        if level != self.max_level:
+            with span("level", "level", level):
+                return self._level_cycle(sol, rhs, level, kind)
+        with span("cycle", f"{kind}-cycle", level), span("level", "level", level):
+            return self._level_cycle(sol, rhs, level, kind)
 
+    def _level_cycle(self, sol, rhs, level: int, kind: str):
+        lv = self.levels[level]
         if level == self.min_level:
-            return self.coarse_solve(sol, rhs)
+            with span("coarse", "coarse", level):
+                return self.coarse_solve(sol, rhs)
 
         sol, rhs = self._hook("pre", level, sol, rhs)
         fused_down = lv.down_leg_fn is not None and not self.fas
@@ -185,7 +198,8 @@ class Multigrid:
 
     def res_norm(self, sol, rhs, level: Optional[int] = None):
         level = self.max_level if level is None else level
-        return self.levels[level].norm_fn(self.residual(level, sol, rhs))
+        with span("check", "res_norm", level):
+            return self.levels[level].norm_fn(self.residual(level, sol, rhs))
 
     def staged(self, name: str):
         """The staged (captured, replayed) `cycle` or `res_norm` of this
@@ -220,7 +234,10 @@ class Multigrid:
         init_res = res_norm(sol, rhs)
         cur_res = init_res
         it = 0
-        while it < max_its and not bool(cur_res <= target_res_reduction * init_res):
+        while it < max_its:
+            with host_read("solve loop"):
+                if bool(cur_res <= target_res_reduction * init_res):
+                    break
             it += 1
             sol = cycle(sol, rhs)
             cur_res = res_norm(sol, rhs)

@@ -68,6 +68,7 @@ from exastencils_tpu_torch.ops.smoothers import (
 )
 from exastencils_tpu_torch.ops.stencil_apply import apply_stencil
 from exastencils_tpu_torch.runtime.performance import HBM_BANDWIDTH, detect_chip
+from exastencils_tpu_torch.runtime.timers import host_read, span
 from exastencils_tpu_torch.solver.krylov import SOLVERS
 from exastencils_tpu_torch.solver.mg import MGLevelOps, Multigrid
 
@@ -168,7 +169,9 @@ class GeneratedSolver:
             sol = self._fmg(rhs)
 
         def fmt(x):
-            return reduced_prec_str(float(x), k.testing_maxPrecision, k.testing_zeroThreshold)
+            with host_read("print"):
+                x = float(x)
+            return reduced_prec_str(x, k.testing_maxPrecision, k.testing_zeroThreshold)
 
         def callback(it, s, cur_res):
             if not k.solver_printAllResiduals:
@@ -177,10 +180,11 @@ class GeneratedSolver:
                 emit(fmt(self._err(s)))
             emit(fmt(cur_res))
 
-        emit(fmt(self._res_norm(sol, rhs)))
-        sol, init_res, cur_res, it = self.mg.solve(
-            sol, rhs, eps, max_its, callback,
-            cycle_fn=self._cycle, res_norm_fn=self._res_norm)
+        with span("solve", "solve"):
+            emit(fmt(self._res_norm(sol, rhs)))
+            sol, init_res, cur_res, it = self.mg.solve(
+                sol, rhs, eps, max_its, callback,
+                cycle_fn=self._cycle, res_norm_fn=self._res_norm)
         return sol, lines, float(init_res), float(cur_res), it
 
     def solve_fused(self, max_its=None, target_res_reduction=None, state=None):
@@ -196,11 +200,24 @@ class GeneratedSolver:
         sol, rhs = self.init_state() if state is None else state
         fused = self.__dict__.setdefault("_fused", {})
         if (eps, max_its) not in fused:
+            def solve_jit(s, r):
+                return self.mg.solve_jit(s, r, eps, max_its)
+
             fused[(eps, max_its)] = self.backend.wrap(
-                lambda s, r: self.mg.solve_jit(s, r, eps, max_its),
-                ("field", "field"), ("field", "scalar", "scalar", "scalar"),
+                solve_jit, ("field", "field"), ("field", "scalar", "scalar", "scalar"),
                 donate_argnums=(0,))
-        return fused[(eps, max_its)](sol, rhs)
+        with span("solve", "solve_fused"):
+            return fused[(eps, max_its)](sol, rhs)
+
+    def staging_stats(self, max_its=None, target_res_reduction=None) -> Optional[dict]:
+        """The counters (runtime/staging.StageStats) of the staged
+        `solve_fused` for these arguments (the Knowledge's by default); None
+        where it has not run or runs eagerly (the CPU, a sharded backend)."""
+        k = self.knowledge
+        max_its = k.solver_maxNumIts if max_its is None else max_its
+        eps = k.solver_targetResReduction if target_res_reduction is None else target_res_reduction
+        fused = self.__dict__.get("_fused", {}).get((eps, max_its))
+        return fused.stats.as_dict() if hasattr(fused, "stats") else None
 
     def export(self) -> "ExportedSolver":
         """The embedding interface (reference `export`, synthesis.py:
