@@ -37,6 +37,16 @@ two DSL paths right after the build):
                recording of CUDA graphs, its kernels named in a profiler
                trace of a replay) and eager (dsl_path_eager, bit for bit the
                same U@finest), and without the fast path (dsl_path_plain);
+               the finest-level check (CalcRes + ResNorm) before it
+               launches the check kernels K9/K10 once each (none plain);
+  check_times  K9 (residual) and K10 (sum of squares) alone at 513^3
+               float32 against their plain versions and their bounds, the
+               whole check through the staged executor with and without
+               them;
+  dsl_solve_checks  the program's Solve at 513^3 float32 solved twice as
+               the benchmark solves: K9/K10 launches a solve (one before
+               the loop and one a cycle), and none in a solve of the
+               solver API at 513^3 float64 (solve_fused);
   dsl_v1_path  the same with EXA_STREAM_V1=1 (K7/K8), staged and eager;
   loop_chunk   the staged cycle with 1, 4 and 16 device-loop iterations
                per host read;
@@ -946,6 +956,18 @@ def ab_schedule(full, main_ms, v1_ms):
           v1_path_ms=f"{v1_ms:.3f}", main_path_ms=f"{main_ms:.3f}")
 
 
+# the residual check kernels (ops/cuda/check3d.py), which replace no TPU
+# kernel: kernel -> wrapper
+CHECKS = {"K9": "residual", "K10": "inner_sum_squares"}
+
+
+def check_launches():
+    """The check wrappers' launch counters by kernel."""
+    from exastencils_tpu_torch.ops.cuda import check3d as c3
+
+    return {kk: getattr(c3, fn).launches for kk, fn in CHECKS.items()}
+
+
 def launch_counts(reset=False):
     """The wrappers' launch counters by kernel, optionally set to 0."""
     from exastencils_tpu_torch.ops.cuda import stream3d as s3
@@ -1155,7 +1177,11 @@ def drive_dsl(tag, fastpath, expected, jit_functions=None):
     r0 = res_norm()
     cycle()
     u1 = ex.get_field("U", fin).clone()
-    r1 = res_norm()
+    c0 = check_launches()
+    r1 = res_norm()  # staged: replays of the check's graphs
+    checks = {kk: n - c0[kk] for kk, n in check_launches().items()}
+    if checks != dict.fromkeys(CHECKS, 1 if fastpath else 0):
+        raise AssertionError(f"{tag}: check launches {checks}")
     reads0 = ex.stage_stats.host_reads
     launch_counts(reset=True)
     cycle()
@@ -1189,8 +1215,104 @@ def drive_dsl(tag, fastpath, expected, jit_functions=None):
     glups = (2 ** MAIN_LEVEL + 1) ** 3 / (ms * 1e-3) / 1e9
     phase(tag, fastpath=fastpath, staged=ex.jit_functions, residual_drop=f"{r1 / r0:.4e}",
           bound=DSL_DROP_BOUND, cycle_ms=f"{ms:.3f}", glups=f"{glups:.4f}",
-          launches_per_cycle=launches, **extra)
+          launches_per_cycle=launches, check_launches=checks, **extra)
     return ms, u1, r1, u2
+
+
+def check_times():
+    """K9 and K10 alone at 513^3 float32 on random fields: K9 bitwise its
+    plain version, K10 within 1e-5 of its plain version (it sums in double)
+    and bitwise alike twice; each timed beside its bound (bytes: u, f read
+    and res written; res read) and its plain version; then the whole
+    finest-level check (CalcRes + ResNorm) of the bench program through the
+    staged executor with the fast path (K9 + K10) and without it (the
+    plain ops).  Returns {kernel: ms}."""
+    from exastencils_tpu_torch.ops.cuda import check3d as c3
+
+    A, sol, rhs, _, _ = leg_inputs(MAIN_LEVEL, torch.float32, seed=19)
+    res = torch.empty_like(sol)
+    nbytes = sol.numel() * sol.element_size()
+    k9_ms = cuda_ms(lambda: c3.residual(sol, rhs, A, res), 20)
+    bitwise = torch.equal(res, c3.residual_plain(sol, rhs, A))
+    k9_plain_ms = cuda_ms(lambda: c3.residual_plain(sol, rhs, A), 3)
+    k10_ms = cuda_ms(lambda: c3.inner_sum_squares(res), 20)
+    s1, s2 = c3.inner_sum_squares(res), c3.inner_sum_squares(res)
+    want = c3.inner_sum_squares_plain(res)
+    rel = abs(float(s1) - float(want)) / float(want)
+    k10_plain_ms = cuda_ms(lambda: c3.inner_sum_squares_plain(res), 3)
+    if not (bitwise and torch.equal(s1, s2) and rel <= TOL[torch.float32]):
+        raise AssertionError(f"check_times: K9 bitwise {bitwise}, K10 deterministic "
+                             f"{torch.equal(s1, s2)}, K10 relative error {rel:.3e}")
+    del sol, rhs, res
+    whole = {}
+    for fastpath in (True, False):
+        ex = dsl_executable(BENCH_EXA4, "cuda", fastpath)
+        fin = ex.hi
+        calcres, resnorm = (ex.functions[(nm, fin)] for nm in ("CalcRes", "ResNorm"))
+        ex.call_function(ex.functions[("InitF", fin)], fin, [])
+
+        def check():
+            ex.call_function(calcres, fin, [])
+            ex.call_function(resnorm, fin, [])
+
+        check()  # captures
+        whole[fastpath] = cuda_ms(check, 10 if fastpath else 3)
+        del ex
+    out = {"K9": k9_ms, "K10": k10_ms}
+    for kk, ms, plain_ms, by in (("K9", k9_ms, k9_plain_ms, 3 * nbytes),
+                                 ("K10", k10_ms, k10_plain_ms, nbytes)):
+        b_ms = by / PEAK_BYTES_S * 1e3
+        phase("check_times", kernel=kk, wrapper=CHECKS[kk], level=MAIN_LEVEL, ms=f"{ms:.4f}",
+              bound_ms=f"{b_ms:.4f}", bound_gb=f"{by / 1e9:.3f}",
+              share_of_bound=f"{b_ms / ms:.3f}", plain_ms=f"{plain_ms:.4f}",
+              **({"bitwise": bitwise} if kk == "K9" else
+                 {"rel_err": f"{rel:.3e}", "deterministic": True}))
+    phase("check_times_whole", level=MAIN_LEVEL, fastpath_ms=f"{whole[True]:.4f}",
+          plain_ms=f"{whole[False]:.4f}", speedup=f"{whole[False] / whole[True]:.1f}")
+    return out
+
+
+def dsl_solve_checks():
+    """The bench program at 513^3 float32, staged: Application (its
+    Solve captures the graphs), then a second Solve from a zero guess, as
+    the benchmark solves: the check kernels' launches in that solve must
+    be one before the loop and one a cycle each, with no capture.  Then
+    the solver API's float64 solve_fused at 513^3 to 1e-10 (the api
+    cell's solve, twice): no check kernel launches."""
+    from exastencils_tpu_torch import Knowledge
+    from exastencils_tpu_torch.models.poisson import PoissonMGSolver
+
+    lines = []
+    ex = dsl_executable(BENCH_EXA4, "cuda", lines=lines)
+    ex.run()
+    captures = ex.stage_stats.captures
+    ex.get_field("U", ex.hi).zero_()
+    lines.clear()
+    c0 = check_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ex.call_function(ex.functions[("Solve", None)], None, [])
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    got = {kk: n - c0[kk] for kk, n in check_launches().items()}
+    cycles = int(lines[-1])
+    if got != dict.fromkeys(CHECKS, cycles + 1) or ex.stage_stats.captures != captures:
+        raise AssertionError(f"dsl_solve_checks: launches {got} in {cycles} cycles, captures "
+                             f"{ex.stage_stats.captures - captures}")
+    del ex
+    k = Knowledge(dimensionality=3, minLevel=0, maxLevel=MAIN_LEVEL).update()
+    api = PoissonMGSolver(k, device="cuda", omega=OMEGA, n_pre=K_MAIN, n_post=K_MAIN)
+    c1 = check_launches()
+    for _ in range(2):
+        _, _, _, api_it = api.solve_fused(max_its=100, target_res_reduction=1e-10)
+    torch.cuda.synchronize()
+    api_got = {kk: n - c1[kk] for kk, n in check_launches().items()}
+    if any(api_got.values()):
+        raise AssertionError(f"dsl_solve_checks: the solver API launched {api_got}")
+    phase("dsl_solve_checks", level=MAIN_LEVEL, cycles=cycles, launches_per_solve=got,
+          solve_ms=f"{solve_s * 1e3:.2f}", api_f64_cycles=int(api_it),
+          api_f64_launches_per_2_solves=api_got)
+    return got
 
 
 def dsl_staged_vs_eager(tag, staged, eager):
@@ -2418,6 +2540,8 @@ def main():
     dsl_fast_vs_plain(fast, plain)
     dsl_ms, dsl_eager_ms, dsl_plain_ms = fast[0], fast_eager[0], plain[0]
     del fast, fast_eager, plain
+    check_ms = check_times()
+    check_solve = dsl_solve_checks()
     with v1_schedule():
         v1_want = {**none, "K7": dsl_levels, "K8": dsl_levels}
         v1_staged = drive_dsl("dsl_v1_path", True, v1_want)
@@ -2558,6 +2682,12 @@ def main():
                         "bf16_bound_ms": bound(kk, n, nc, K_MAIN, BF16)[0],
                         "bf16_max_abs_err": bf16[kk]["max_abs_err"],
                         "bf16_launches": bf16_launches[kk]})
+    for kk, fn in CHECKS.items():
+        by = (3 if kk == "K9" else 1) * n ** 3 * 4
+        kernels.append({"name": f"{kk} {fn}", "route": "cuda", "source":
+                        "exastencils_tpu_torch/csrc/check3d.cu", "replaces": None,
+                        "launches_per_solve": check_solve[kk], "ms": check_ms[kk],
+                        "bound_ms": by / PEAK_BYTES_S * 1e3, "bound_by": "bytes"})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

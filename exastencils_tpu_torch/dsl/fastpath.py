@@ -4,8 +4,10 @@ Reference: exastencils_tpu/dsl/fastpath.py.  The same matchers, planner
 and liveness-gated dead-store elision; the segments call the port's
 kernel makers (ops/cuda): `make_fused_legs_3d` gives the whole-leg
 kernels K1/K2 (K7/K8 under EXA_STREAM_V1=1), `make_fused_smoother_3d`
-the fused smoother K3 (K6).  The path is on where the executable's
-device is CUDA; EXA_FASTPATH_FORCE=1 forces it on the CPU (the wrappers
+the fused smoother K3 (K6); the residual checks call the check kernels
+K9/K10 (ops/cuda/check3d.py), which the reference leaves to XLA.  The
+path is on where the executable's device is CUDA; EXA_FASTPATH_FORCE=1
+forces it on the CPU (the wrappers
 then run their plain versions) and lowers the level threshold from 33
 to 5 nodes per dimension, as in the reference.
 
@@ -31,6 +33,13 @@ Examples/Benchmark programs both take exactly these forms):
                 loop over u { u += P * u@coarser }; [apply bc to u];
                 <smoother call>
 
+  calcres       a whole statement list of <calcres>'s form (a residual
+                function's body): K9 writes res in place, its ring zeroed
+                where `apply bc to res` follows, else left as it is
+
+  resnorm       loop over res with reduction ( + : acc ) { acc += res * res }:
+                K10's sum over the inner nodes, added to acc
+
 The down leg elides the residual store entirely (one streaming pass:
 smooth + residual + restrict).  That is a cross-statement dead-store
 elimination and is only performed when dsl/liveness.py PROVES the
@@ -43,8 +52,10 @@ Correctness envelope (checked per match):
   constant radius-1 star stencil, homogeneous Dirichlet bc on u/res
   (the kernels preserve the boundary ring, which the plain path's
   interior-masked loops also never write), separable 2:1 transfers in
-  the supported z-geometries.  Everything else executes on the plain
-  torch ops of the interpreter.
+  the supported z-geometries; for calcres and resnorm a res that is not
+  u, under zero Dirichlet bc, whose loops exclude the boundary in every
+  dim (duplicate layers), in float32 or float64.  Everything else
+  executes on the plain torch ops of the interpreter.
 
 Externally visible difference (documented): a residual field elided as
 a dead store is re-materialized on `get_field` as the residual of the
@@ -67,12 +78,14 @@ from exastencils_tpu_torch.dsl import nodes as N
 from exastencils_tpu_torch.core.field import DirichletBC, Field
 from exastencils_tpu_torch.core.grid import NODE
 from exastencils_tpu_torch.core.stencil import BoundStencil, IntergridStencil
+from exastencils_tpu_torch.dsl.interp_base import _apply_binop
 from exastencils_tpu_torch.dsl.liveness import FieldLiveness
 from exastencils_tpu_torch.ops.cuda import (
     cuda_applicable_3d,
     make_fused_legs_3d,
     make_fused_smoother_3d,
 )
+from exastencils_tpu_torch.ops.cuda.check3d import inner_sum_squares, residual
 
 
 def _forced() -> bool:
@@ -115,6 +128,13 @@ class CalcResMatch:
     f: str
     a: str
     res: str
+    apply_bc: bool = False  # `apply bc to res` follows the loop
+
+
+@dataclass
+class ResNormMatch:
+    res: str
+    acc: str
 
 
 def _const_f(exe, e) -> Optional[float]:
@@ -166,8 +186,11 @@ def _is_parity2(e: N.Expr, ndim: int) -> bool:
         and None not in leaves
 
 
-def _clean_loop(s: N.LoopOverField) -> bool:
-    return (s.region is None and not s.on_boundary and s.reduction is None
+def _clean_loop(s: N.LoopOverField, reduction: bool = False) -> bool:
+    """A loop over the default iteration space, its points in parallel;
+    with a reduction clause when `reduction`, else without."""
+    return (s.region is None and not s.on_boundary
+            and (s.reduction is not None) == reduction
             and s.condition is None and not s.sequentially
             and not s.starting and not s.ending and not s.stepping)
 
@@ -279,7 +302,13 @@ def match_calcres_call(exe, s: N.Stmt, L: int) -> Optional[CalcResMatch]:
     fn = _single_target(exe, s, L)
     if fn is None:
         return None
-    body = [st for st in fn.body if not isinstance(st, N.Communicate)]
+    return match_calcres_body(exe, fn.body, L)
+
+
+def match_calcres_body(exe, stmts: List[N.Stmt], L: int) -> Optional[CalcResMatch]:
+    """Match a WHOLE statement list as a residual computation:
+    [communicate ..]; loop over res { res = f - A*u }; [apply bc to res]."""
+    body = [st for st in stmts if not isinstance(st, N.Communicate)]
     loop = None
     if len(body) == 1 and isinstance(body[0], N.LoopOverField):
         loop = body[0]
@@ -315,7 +344,27 @@ def match_calcres_call(exe, s: N.Stmt, L: int) -> Optional[CalcResMatch]:
         return None
     if _lvl(exe, conv.lhs.level, L) != L or _lvl(exe, conv.rhs.level, L) != L:
         return None
-    return CalcResMatch(u=u, f=f, a=aname, res=res)
+    return CalcResMatch(u=u, f=f, a=aname, res=res, apply_bc=len(body) == 2)
+
+
+def match_resnorm_loop(exe, s: N.Stmt, L: int) -> Optional[ResNormMatch]:
+    """loop over res with reduction ( + : acc ) { acc += res * res }."""
+    if not isinstance(s, N.LoopOverField) or not _clean_loop(s, reduction=True) \
+            or len(s.body) != 1 or s.reduction[0] != "+":
+        return None
+    res, acc = _plain(s.field), s.reduction[1]
+    if res is None or _lvl(exe, s.field.level, L) != L:
+        return None
+    a = s.body[0]
+    if not (isinstance(a, N.Assign) and a.op == "+=" and _plain(a.target, acc)
+            and a.target.level is None and acc not in exe.fields):
+        return None
+    v = a.value
+    if not (isinstance(v, N.BinOp) and v.op == "*"
+            and _plain(v.lhs, res) and _plain(v.rhs, res)
+            and _lvl(exe, v.lhs.level, L) == L and _lvl(exe, v.rhs.level, L) == L):
+        return None
+    return ResNormMatch(res=res, acc=acc)
 
 
 def match_transfer_loop(exe, s: N.Stmt, L: int, kind: str):
@@ -362,6 +411,7 @@ class Segment:
     start: int  # first statement index replaced
     end: int  # last statement index replaced (inclusive)
     run: Callable  # run(exe, fr) executing the fused equivalent
+    kind: str  # down, up, smoother, calcres or resnorm
 
 
 class FastPathPlanner:
@@ -404,27 +454,45 @@ class FastPathPlanner:
                 return False
         return True
 
+    def _large(self, lvl: int) -> bool:
+        """Below 33^3 a level is latency-bound either way and runs the
+        plain ops (the reference's threshold, so one Knowledge gives the
+        same leg segments in both packages).  Forced (test) mode fuses
+        everything so tiny grids exercise the path."""
+        return min(self.exe.grids[lvl].shape_of(NODE)) >= (5 if _forced() else 33)
+
     def _star_stencil(self, name: str, lvl: int) -> Optional[BoundStencil]:
         if lvl not in self.exe.stencils.get(name, {}):
             return None
         st = self.exe._stencil_at(name, lvl)
-        if not isinstance(st, BoundStencil):
+        if not isinstance(st, BoundStencil) or not self._large(lvl):
             return None
         shape = tuple(self.exe.grids[lvl].shape_of(NODE))
-        # below 33^3 a level is latency-bound either way and runs the
-        # plain ops (the reference's threshold, so one Knowledge gives the
-        # same segments in both packages).  Forced (test) mode fuses
-        # everything so tiny grids exercise the path.
-        min_n = 5 if _forced() else 33
-        if min(shape) < min_n:
-            return None
         if not cuda_applicable_3d(shape, st.offsets, st.coefs):
             return None
         return st
 
+    def _checked_field_ok(self, name: str, lvl: int) -> bool:
+        """A field the check kernels K9/K10 take: a zero-Dirichlet node
+        field (_field_ok) whose loops exclude the boundary in every dim
+        (duplicate layers), on a large 3D level, in float32 or float64.
+        A bfloat16 check stays on the plain ops: K9 rounds its residual
+        once (csrc/star3d.cuh), the executor after every op, and a
+        stalled bfloat16 iterate's residual is mostly that rounding, so
+        the printed norms would move far from the reference's (~0.7x)."""
+        if not (self._field_ok(name, lvl, zero_dirichlet=True) and self._large(lvl)
+                and self.exe.grids[lvl].ndim == 3
+                and self.exe.dtype in (torch.float32, torch.float64)):
+            return False
+        dup = self.exe.fields[name].dup_layers
+        return dup is None or all(d > 0 for d in dup[:3])
+
     # ------------------------------------------------------------------
     def _build(self, stmts: List[N.Stmt], L: int) -> List[Segment]:
         exe = self.exe
+        seg = self._try_calcres(stmts, L)
+        if seg is not None:
+            return [seg]
         segs: List[Segment] = []
         i = 0
         n = len(stmts)
@@ -447,8 +515,47 @@ class FastPathPlanner:
                     segs.append(seg)
                     i = seg.end + 1
                     continue
+            seg = self._try_resnorm(stmts[i], i, L)
+            if seg is not None:
+                segs.append(seg)
             i += 1
         return segs
+
+    # ------------------------------------------------------------------
+    def _try_calcres(self, stmts, L) -> Optional[Segment]:
+        """A whole residual computation (match_calcres_body) as one K9
+        launch, in place in res: the interior written, the ring zeroed
+        where `apply bc to res` follows and left as it is otherwise."""
+        cr = match_calcres_body(self.exe, stmts, L)
+        if cr is None or cr.res in (cr.u, cr.f):  # K9 writes res while it reads u, f
+            return None
+        # u, f and A as the down leg takes them
+        if not (self._checked_field_ok(cr.res, L) and self._smoother_env_ok(cr, L)):
+            return None
+        A = self._star_stencil(cr.a, L)
+
+        def run(exe, fr, _u=cr.u, _f=cr.f, _res=cr.res, _A=A, _L=L, _zero=cr.apply_bc):
+            sol, rhs = exe.get_field(_u, _L), exe.get_field(_f, _L)
+            # every node is written with `apply bc`, so a residual elided by a
+            # down leg is not rematerialized first; without it the ring is read
+            out = exe.overwritten_field(_res, _L) if _zero else exe.own_field(_res, _L)
+            exe.set_field(_res, _L, residual(sol, rhs, _A, out, zero_ring=_zero))
+
+        return Segment(0, len(stmts) - 1, run, "calcres")
+
+    def _try_resnorm(self, s, i, L) -> Optional[Segment]:
+        """`acc += res * res` over res's inner nodes as one K10 sum, added
+        to acc as the executor adds a reduction's result."""
+        rn = match_resnorm_loop(self.exe, s, L)
+        if rn is None or not self._checked_field_ok(rn.res, L):
+            return None
+
+        def run(exe, fr, _res=rn.res, _acc=rn.acc, _L=L):
+            red = inner_sum_squares(exe.get_field(_res, _L))
+            fr.vars.setdefault(_acc, 0.0)
+            fr.vars[_acc] = _apply_binop("+", fr.vars[_acc], red)
+
+        return Segment(i, i, run, "resnorm")
 
     # ------------------------------------------------------------------
     def _smoother_env_ok(self, sm: SmootherMatch, L: int) -> bool:
@@ -474,7 +581,7 @@ class FastPathPlanner:
             rhs = exe.get_field(_f, _L)
             exe.set_field(_u, _L, _fn(_n, sol, rhs))
 
-        return Segment(i, i, run)
+        return Segment(i, i, run, "smoother")
 
     # ------------------------------------------------------------------
     def _owning_function(self, stmts: List[N.Stmt], L: int):
@@ -586,7 +693,7 @@ class FastPathPlanner:
                 lambda exe=exe, fn=_cr, lvl=_L: exe.call_function(fn, lvl, []),
             )
 
-        return Segment(i, j, run)
+        return Segment(i, j, run, "down")
 
     def _try_up_leg(self, stmts, i, L) -> Optional[Segment]:
         exe = self.exe
@@ -636,7 +743,7 @@ class FastPathPlanner:
             rhs = exe.get_field(_f, _L)
             exe.set_field(_u, _L, _up(sol, sol_c, rhs))
 
-        return Segment(i, j, run)
+        return Segment(i, j, run, "up")
 
     # ------------------------------------------------------------------
     def _build_legs(self, sm: SmootherMatch, cr, rop: str, pop: str,

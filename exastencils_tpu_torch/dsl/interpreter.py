@@ -567,6 +567,19 @@ class L4Executable(L4BuiltinsMixin, L4StagingMixin, L4LocalSolveMixin, L4Fragmen
             self.state[key] = arr
         return arr
 
+    def overwritten_field(self, name: str, level: int) -> torch.Tensor:
+        """The stored tensor of a single-slot field for a caller that
+        writes every node of it: a mark left by a dead-store elision is
+        dropped without rematerializing the field, and a fresh tensor
+        stands in where another value shares the storage."""
+        key = (name, level)
+        self._stale.pop(key, None)
+        arr = self.state[key]
+        if self._shares_storage(arr, skip=key):
+            arr = torch.empty_like(arr)
+            self.state[key] = arr
+        return arr
+
     def set_field(self, name: str, level: int, value, slot: Optional[str] = None):
         """Store `value` as `field@level`; the stored tensor is contiguous,
         and a value whose storage another state entry already holds (an

@@ -27,7 +27,8 @@ The kernels are CUDA C++ for sm_90a in ../../csrc/ (legs3d.cu: K1-K3,
 one z-chunked pass per call, K3 its transfer-free mode; stream3d.cu:
 K4/K5, z-streamed tiles; cluster_legs3d.cu: K6-K8, the same one-pass
 design on thread-block clusters that share their y/x halo, K6 its
-transfer-free mode), compiled
+transfer-free mode; check3d.cu: the residual check K9/K10, whose wrappers
+are in check3d.py), compiled
 with nvcc on first use into build/exastencils_tpu_torch/ at the
 repository root and loaded with ctypes.  A wrapper given CUDA tensors
 launches the kernels (or raises); given CPU tensors it runs the plain
@@ -81,7 +82,8 @@ NO_GHOST = (0, 0, 0)  # per-dim ghost width of a halo-extended fragment (K1/K2)
 MAX_TAPS = 3  # transfer taps per dim the kernels take (kMaxTaps)
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
-SOURCES = (CSRC / "stream3d.cu", CSRC / "legs3d.cu", CSRC / "cluster_legs3d.cu")
+SOURCES = (CSRC / "stream3d.cu", CSRC / "legs3d.cu", CSRC / "cluster_legs3d.cu",
+           CSRC / "check3d.cu")
 HEADERS = (CSRC / "star3d.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "exastencils_tpu_torch"
 # --fmad=false: no mul+add contraction, so the RBGS and residual
@@ -230,8 +232,11 @@ def load_library() -> ctypes.CDLL:
     lib.exa_cluster_grid.argtypes, lib.exa_cluster_grid.restype = [i] * 10 + [pi], None
     lib.exa_cluster_leg.argtypes = [p, p, p, p, p, i, i, i, i, i, i, pd, d, i, i, i, i, pd, pi, pi,
                                     pi, i, i, i, p]
+    lib.exa_check_constant.argtypes, lib.exa_check_constant.restype = [i], i
+    lib.exa_residual.argtypes = [p, p, p, i, i, i, pd, i, i, i, p]
+    lib.exa_sum_squares.argtypes = [p, p, p, i, i, i, i, i, p]
     for fn in (lib.exa_residual_restrict, lib.exa_prolong_correct, lib.exa_leg,
-               lib.exa_cluster_leg):
+               lib.exa_cluster_leg, lib.exa_residual, lib.exa_sum_squares):
         fn.restype = i
     if lib.exa_max_taps() != MAX_TAPS:
         raise RuntimeError(f"{so}: kMaxTaps {lib.exa_max_taps()} != {MAX_TAPS}")

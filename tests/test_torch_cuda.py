@@ -1259,3 +1259,109 @@ def test_float16_rejected(cuda):
         with pytest.raises(ValueError, match="float32, float64 or bfloat16, not torch.float16"):
             call()
     assert [fn.launches for fn in counters] == n0
+
+
+# ----------------------------------------------------------------------
+# the residual check K9/K10 (csrc/check3d.cu, ops/cuda/check3d.py)
+# ----------------------------------------------------------------------
+
+# K10 against its plain version, relative: the kernel sums in double, the
+# plain torch.sum in the field's type (float32 for bfloat16) and in another
+# order.  float64: both sums' own rounding; float32: the plain sum's float32
+# rounding over up to 129^3 terms; bfloat16: each side rounds its sum to
+# bfloat16 once, so they may differ by one bfloat16 ulp (at most 2^-7).
+NORM_RTOL = {torch.float64: 1e-12, torch.float32: 1e-5, BF16: 2.0 ** -7}
+
+
+@pytest.mark.parametrize("level", [5, 6, 7])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, BF16],
+                         ids=["f32", "f64", "bf16"])
+def test_check_kernels_match_plain(cuda, level, dtype):
+    """K9 bitwise its plain version, the interior and the ring, with the
+    ring zeroed (`apply bc` follows) and kept, for a star with distinct
+    coefficients and for the Laplacian; K10 within NORM_RTOL of its plain
+    version and bitwise alike in two runs; one launch each per call."""
+    from exastencils_tpu_torch.ops.cuda import check3d as c3
+
+    n = 2 ** level + 1
+    A, sol, rhs, _ = star_fields((n,) * 3, (1, 1, 1), dtype, cuda, level)
+    ring = torch.from_numpy(np.random.default_rng(level + 7).standard_normal((n,) * 3)).to(cuda, dtype)
+    n0 = (c3.residual.launches, c3.inner_sum_squares.launches)
+    for stencil in (A, laplacian(level, dtype, cuda)):
+        for zero_ring in (True, False):
+            res = ring.clone()
+            assert c3.residual(sol, rhs, stencil, res, zero_ring=zero_ring) is res
+            want = c3.residual_plain(sol, rhs, stencil, None if zero_ring else ring)
+            assert torch.equal(res, want), (zero_ring, stencil.name)
+    sums = [c3.inner_sum_squares(res) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert (c3.residual.launches - n0[0], c3.inner_sum_squares.launches - n0[1]) == (4, 2)
+    want = c3.inner_sum_squares_plain(res)
+    assert sums[0].dtype == dtype and sums[0].dim() == 0
+    assert torch.equal(sums[0], sums[1])
+    assert abs(sums[0].double().item() - want.double().item()) \
+        <= NORM_RTOL[dtype] * want.double().item()
+
+
+def test_check_kernels_count_replays_and_refuse(cuda):
+    """K9 and K10 captured in a staged function: each replay counts one
+    launch of each and gives the eager results bit for bit; an aliased
+    res and float16 fields raise and launch nothing."""
+    from exastencils_tpu_torch.ops.cuda import check3d as c3
+    from exastencils_tpu_torch.runtime.staging import Staged
+
+    A, sol, rhs, _ = star_fields((65, 33, 40), (1, 1, 1), torch.float32, cuda, 3)
+    res = torch.zeros_like(sol)
+
+    def check(sol, rhs, res):
+        c3.residual(sol, rhs, A, res)
+        return c3.inner_sum_squares(res)
+
+    eager = check(sol, rhs, res.clone())
+    staged = Staged(check)
+    staged(sol, rhs, res)  # warm-up, capture and a first replay
+    n0 = (c3.residual.launches, c3.inner_sum_squares.launches)
+    got = [staged(sol, rhs, res) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert (c3.residual.launches - n0[0], c3.inner_sum_squares.launches - n0[1]) == (2, 2)
+    assert staged.stats.captures == 1 and staged.stats.replays == 3
+    assert all(torch.equal(g, eager) for g in got)
+    assert torch.equal(res, c3.residual_plain(sol, rhs, A))
+    n0 = (c3.residual.launches, c3.inner_sum_squares.launches)
+    with pytest.raises(ValueError, match="share storage"):
+        c3.residual(sol, rhs, A, sol)
+    h = torch.zeros((9, 9, 9), dtype=torch.float16, device=cuda)
+    with pytest.raises(ValueError, match="float32, float64 or bfloat16, not torch.float16"):
+        c3.residual(h, h.clone(), A, h.clone())
+    with pytest.raises(ValueError, match="float32, float64 or bfloat16, not torch.float16"):
+        c3.inner_sum_squares(h)
+    assert (c3.residual.launches, c3.inner_sum_squares.launches) == n0
+
+
+def test_dsl_solve_launches_the_check_kernels(cuda):
+    """The bench program at maxLevel 6 float32, staged, solved a second
+    time from a zero guess (as the benchmark solves): its graphs replay,
+    and Solve's finest-level CalcRes and ResNorm run K9 and K10, one launch
+    each before the loop and after every cycle (the cycles' own residuals
+    go to K1, the coarsest level's norm to the plain ops)."""
+    from exastencils_tpu_torch.dsl.interpreter import L4Executable
+    from exastencils_tpu_torch.dsl.parser import parse_l4
+    from exastencils_tpu_torch.ops.cuda import check3d as c3
+
+    k = Knowledge(dimensionality=3, minLevel=1, maxLevel=6, useDblPrecision=False,
+                  tpu_compute_dtype="float32", tpu_shard_dsl=False).update()
+    lines = []
+    ex = L4Executable(parse_l4(BENCH_EXA4), k, device="cuda", out=lines.append)
+    ex.run()
+    first = list(lines)
+    captures = ex.stage_stats.captures
+    ex.get_field("U", ex.hi).zero_()
+    lines.clear()
+    n0 = (c3.residual.launches, c3.inner_sum_squares.launches)
+    ex.call_function(ex.functions[("Solve", None)], None, [])
+    torch.cuda.synchronize()
+    cycles = int(lines[-1])
+    assert lines == first and ex.stage_stats.captures == captures
+    assert (c3.residual.launches - n0[0], c3.inner_sum_squares.launches - n0[1]) == \
+        (cycles + 1, cycles + 1)
+    assert ex.staging_stats()["unstaged"] == 0

@@ -25,6 +25,8 @@ from exastencils_tpu.dsl.parser import parse_l4 as jax_parse_l4
 from exastencils_tpu_torch import Knowledge
 from exastencils_tpu_torch.dsl.interpreter import L4Executable
 from exastencils_tpu_torch.dsl.parser import parse_l4
+from exastencils_tpu_torch.dsl import fastpath
+from exastencils_tpu_torch.dsl.fastpath import FastPathPlanner
 from exastencils_tpu_torch.interop import dsl_state_from_jax
 from exastencils_tpu_torch.ops.cuda import stream3d as s3
 
@@ -40,7 +42,7 @@ def knowledge(which, f64=True, cls=Knowledge, **kw):
     from the same keywords."""
     dims = dict(dimensionality=3, minLevel=1, maxLevel=4) if which == "3d" \
         else dict(dimensionality=2, minLevel=0, maxLevel=5)
-    return cls(useDblPrecision=f64, tpu_shard_dsl=False, **dims, **kw).update()
+    return cls(useDblPrecision=f64, tpu_shard_dsl=False, **{**dims, **kw}).update()
 
 
 def jax_knowledge(which, f64=True, **kw):
@@ -128,18 +130,35 @@ def force_fastpath(monkeypatch):
 
 
 def seg_kind(seg):
+    """The port's segments name their kind; the JAX package's segments are
+    told apart by their closures' variables."""
+    if hasattr(seg, "kind"):
+        return seg.kind
     names = seg.run.__code__.co_varnames
     return "down" if "_down" in names else "up" if "_up" in names else "smoother"
 
 
-def plans(ex, src_fn="MGCycle"):
-    """{level: [(start, end, kind)]} of the fast path for every leveled
-    function body named `src_fn`."""
+def plans(ex, src_fn="MGCycle", planner=None):
+    """{level: [(start, end, kind)]} of the fast path (or `planner`) for
+    every leveled function body named `src_fn`."""
+    planner = planner or ex._fastpath
     out = {}
     for (name, lvl), fn in ex.functions.items():
         if name == src_fn and lvl is not None:
-            out[lvl] = [(s.start, s.end, seg_kind(s)) for s in ex._fastpath.plan(fn.body, lvl)]
+            out[lvl] = [(s.start, s.end, seg_kind(s)) for s in planner.plan(fn.body, lvl)]
     return out
+
+
+def spy_checks(monkeypatch):
+    """[(kernel, level shape)] of every residual (K9) and sum-of-squares
+    (K10) call the fast path makes."""
+    calls = []
+    for name in ("residual", "inner_sum_squares"):
+        def wrapped(t, *a, _name=name, _fn=getattr(fastpath, name), **kw):
+            calls.append((_name, t.shape[0]))
+            return _fn(t, *a, **kw)
+        monkeypatch.setattr(fastpath, name, wrapped)
+    return calls
 
 
 def bench_src(liveness_blocked=False):
@@ -181,6 +200,7 @@ def test_fastpath_plans_match_jax(force_fastpath, tmp_path, blocked):
 
 
 def test_fastpath_prints_the_jax_lines_and_calls_k1_k2(force_fastpath, jax_lines, monkeypatch):
+    checks = spy_checks(monkeypatch)
     calls = []
 
     def spy(name, fn):
@@ -200,10 +220,14 @@ def test_fastpath_prints_the_jax_lines_and_calls_k1_k2(force_fastpath, jax_lines
         # one launch per fused level (2..4) and cycle
         assert sorted(n for c, n in calls if c == name) == sorted([5, 9, 17] * cycles)
     assert not [c for c in calls if c[0] == "rbgs_fused"]
+    # Solve's checks on the finest level: before the loop and after every
+    # cycle (the cycles' own residuals go to K1)
+    assert sorted(checks) == sorted([("residual", 17), ("inner_sum_squares", 17)] * (cycles + 1))
 
 
 def test_fastpath_liveness_blocked_prints_the_plain_lines(force_fastpath, tmp_path, monkeypatch):
     src = bench_src(liveness_blocked=True)
+    checks = spy_checks(monkeypatch)
     k3 = []
     fn = s3.rbgs_fused
     monkeypatch.setattr(s3, "rbgs_fused", lambda sol, *a, **kw: k3.append(sol.shape[0]) or fn(sol, *a, **kw))
@@ -216,6 +240,100 @@ def test_fastpath_liveness_blocked_prints_the_plain_lines(force_fastpath, tmp_pa
     L4Executable(parse_src(src, tmp_path), knowledge("3d", tpu_dsl_fastpath=False),
                  device="cpu", out=plain_lines.append).run()
     assert fast_lines == plain_lines
+    jax_ex = JaxL4(parse_src(src, tmp_path, jax_parse_l4),
+                   jax_knowledge("3d", tpu_dsl_fastpath=False), out=[].append)
+    jax_out = []
+    jax_ex.out = jax_out.append
+    jax_ex.run()
+    assert fast_lines == jax_out
+    # Solve's first check, the finest cycle's own residual (its down leg
+    # blocked) and every norm Solve takes
+    cycles = int(fast_lines[-1])
+    assert sorted(checks) == sorted([("residual", 17), ("inner_sum_squares", 17)] * (cycles + 1))
+
+
+def check_plans(ex, planner=None):
+    """{function: {level: kinds}} of the residual and norm functions."""
+    return {name: {lvl: [kind for *_, kind in segs] for lvl, segs in
+                   plans(ex, name, planner).items()} for name in ("CalcRes", "ResNorm")}
+
+
+def test_checks_planned_on_large_levels(force_fastpath, monkeypatch):
+    """CalcRes@L gets a calcres segment (its whole body) and ResNorm@L a
+    resnorm segment (the reduction loop alone) on every level the
+    envelope takes: forced on the CPU from 5 nodes a dim, else from 33
+    (a planner built by hand at maxLevel 6, where level 5 has 33); none
+    below.  MGCycle's plans are the legs' alone."""
+    ex = L4Executable(parse_l4(BENCH), knowledge("3d"), device="cpu", out=lambda s: None)
+    assert check_plans(ex) == {"CalcRes": {1: [], 2: ["calcres"], 3: ["calcres"], 4: ["calcres"]},
+                               "ResNorm": {1: [], 4: ["resnorm"]}}
+    assert plans(ex, "ResNorm")[4] == [(1, 1, "resnorm")]
+    assert plans(ex, "CalcRes")[4] == [(0, 2, "calcres")]
+    monkeypatch.delenv("EXA_FASTPATH_FORCE")
+    big = L4Executable(parse_l4(BENCH), knowledge("3d", maxLevel=6), device="cpu",
+                       out=lambda s: None)
+    assert big._fastpath is None  # a CPU executable plans nothing unforced
+    got = check_plans(big, FastPathPlanner(big))
+    assert got["CalcRes"] == {1: [], 2: [], 3: [], 4: [], 5: ["calcres"], 6: ["calcres"]}
+    assert got["ResNorm"] == {1: [], 6: ["resnorm"]}
+    assert {kind for segs in plans(big, planner=FastPathPlanner(big)).values()
+            for *_, kind in segs} == {"down", "up"}
+
+
+DECLINED = {  # case: (source text, replacement, CalcRes@4 and ResNorm@4 planned)
+    "res_dirichlet_1": ("Field Res< unitCube, HaloNode, 0.0 >@all",
+                        "Field Res< unitCube, HaloNode, 1.0 >@all", False, False),
+    "max_reduction": ("loop over Res@current with reduction ( + : acc ) {\n\t\tacc += Res@current * Res@current",
+                      "loop over Res@current with reduction ( max : acc ) {\n\t\tacc = max ( acc, Res@current * Res@current )",
+                      True, False),
+    "res_times_f": ("acc += Res@current * Res@current", "acc += Res@current * F@current", True, False),
+    "res_from_itself": ("Res@current = F@current - ( A@current * U@current )",
+                        "Res@current = Res@current - ( A@current * U@current )", False, True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(DECLINED))
+def test_checks_declined_outside_the_envelope(force_fastpath, tmp_path, case):
+    """A res with Dirichlet 1.0 (neither check), a max reduction and a
+    res * f product (no resnorm segment), a residual read from res itself
+    (no calcres segment: K9 writes res in place); the executor's plain ops
+    print the same lines as without the fast path."""
+    old, new, calcres, resnorm = DECLINED[case]
+    src = open(BENCH).read()
+    assert src.count(old) == 1
+    src = src.replace(old, new)
+    ex = L4Executable(parse_src(src, tmp_path), knowledge("3d"), device="cpu", out=lambda s: None)
+    got = check_plans(ex)
+    assert got["CalcRes"][4] == (["calcres"] if calcres else [])
+    assert got["ResNorm"][4] == (["resnorm"] if resnorm else [])
+    lines = {}
+    for fast in (True, False):
+        out = []
+        L4Executable(parse_src(src, tmp_path), knowledge("3d", tpu_dsl_fastpath=fast),
+                     device="cpu", out=out.append).run()
+        lines[fast] = out
+    assert lines[True] == lines[False]
+
+
+def test_checks_declined_in_2d(force_fastpath):
+    """A 2D program runs no fast path, and a planner built for it by hand
+    plans no check either."""
+    ex = L4Executable(parse_l4(EX2D), knowledge("2d"), device="cpu", out=lambda s: None)
+    assert ex._fastpath is None
+    got = check_plans(ex, FastPathPlanner(ex))
+    assert len(got["CalcRes"]) == 6 and len(got["ResNorm"]) == 2
+    assert not any(got["CalcRes"].values()) and not any(got["ResNorm"].values())
+
+
+def test_checks_declined_in_bfloat16(force_fastpath):
+    """bfloat16 checks stay on the plain ops (the legs still fuse): the
+    executor rounds after every op, K9 once."""
+    ex = L4Executable(parse_l4(BENCH), knowledge("3d", False, tpu_compute_dtype="bfloat16"),
+                      device="cpu", out=lambda s: None)
+    assert ex.dtype == torch.bfloat16
+    got = check_plans(ex)
+    assert not any(got["CalcRes"].values()) and not any(got["ResNorm"].values())
+    assert [kind for *_, kind in plans(ex)[4]] == ["down", "up"]
 
 
 @pytest.mark.parametrize("maker,blocked", [("make_fused_legs_3d", False),
