@@ -8,11 +8,19 @@ per dimension run the whole-leg kernels K1/K2.  Given a `mesh`
 (parallel/mesh.DomainMesh, one per rank), it runs on the sharded backend
 instead, each rank the solver of its fragment (the reference's
 :111-126).
+
+With `kappa_fn` the solver solves -div(kappa grad u) = f instead
+(`varcoeff_laplace_stencil`), on the dense backend only.  The JAX package
+has no such model: its reference is the plain PyTorch file
+portbench/references/poisson3d_varcoeff_vcycle.py.  The stencil's tensor
+coefficients are outside every kernel's contract, so every level runs the
+plain ops.
 """
 
 from __future__ import annotations
 
 import math
+import time
 from dataclasses import dataclass
 from typing import Callable, Optional
 
@@ -23,7 +31,7 @@ from exastencils_tpu_torch.config import Knowledge
 
 from exastencils_tpu_torch.core.domain import Domain, unit_domain
 from exastencils_tpu_torch.core.field import DirichletBC, Field
-from exastencils_tpu_torch.core.grid import NODE, level_grids
+from exastencils_tpu_torch.core.grid import NODE, LevelGrid, level_grids
 from exastencils_tpu_torch.core.stencil import Stencil, node_prolongation, node_restriction
 from exastencils_tpu_torch.device import check_device, real_dtype
 from exastencils_tpu_torch.parallel.backend import DenseBackend, ShardedBackend
@@ -89,6 +97,86 @@ def stretched_laplace_stencil(ndim: int) -> Stencil:
     return st
 
 
+def face_coefficients(grid: LevelGrid, d: int, kappa_fn: Callable) -> torch.Tensor:
+    """-kappa / h_d^2 at the midpoints of the edges along axis d, one
+    midpoint more past each end: n + 1 values along d, the j-th at
+    x_j - h_d / 2, and the node positions along the other axes.  The
+    values past the ends only meet the Dirichlet ring."""
+    h = grid.grid_width(d)
+    coords = []
+    for a in range(grid.ndim):
+        x = grid.node_pos_1d(a)
+        if a == d:
+            x = torch.cat([x - 0.5 * h, x[-1:] + 0.5 * h])
+        shape = [1] * grid.ndim
+        shape[a] = x.shape[0]
+        coords.append(x.reshape(shape))
+    out = torch.empty([c.shape[a] for a, c in enumerate(coords)], dtype=grid.dtype,
+                      device=grid.device)
+    out.copy_(torch.as_tensor(kappa_fn(*coords), dtype=grid.dtype, device=grid.device))
+    return out.mul_(-1.0 / h ** 2)
+
+
+def minus_side(face: torch.Tensor, d: int, n: int) -> torch.Tensor:
+    """The coefficient of the neighbour at -e_d: face[i] (the midpoint
+    i - 1/2), a view of the face array."""
+    return face.narrow(d, 0, n)
+
+
+def plus_side(face: torch.Tensor, d: int, n: int) -> torch.Tensor:
+    """The coefficient of the neighbour at +e_d: face[i + 1], a view."""
+    return face.narrow(d, 1, n)
+
+
+def coef_storage_bytes(stencils) -> int:
+    """The bytes of the storage that the bound stencils' tensor
+    coefficients hold, each storage counted once however many views share
+    it."""
+    seen = {}
+    for st in stencils:
+        for c in st.coefs:
+            if isinstance(c, torch.Tensor) and c.dim():
+                store = c.untyped_storage()
+                seen[store.data_ptr()] = store.nbytes()
+    return sum(seen.values())
+
+
+def varcoeff_laplace_stencil(ndim: int, kappa_fn: Callable) -> Stencil:
+    """-div(kappa grad u), the conservative (2*ndim+1)-point node scheme
+    on a uniform grid: (A u)_i = sum_d [k_{i+1/2 e_d} (u_i - u_{i+e_d})
+    + k_{i-1/2 e_d} (u_i - u_{i-e_d})] / h_d^2, each k = kappa_fn(x, y[,
+    z]) at the edge's midpoint, every level discretised on its own grid.
+    Entries centre, then -/+ per dim, as `laplace_stencil`'s.
+
+    A level holds ndim + 1 full-size arrays: the centre and one face
+    array per axis (`face_coefficients`), whose minus and plus sides are
+    views shifted by one (the operator is symmetric).  They are built at
+    the first bind on a level grid, and every later bind shares them."""
+    built = {}
+
+    def arrays(grid):
+        if id(grid) not in built:
+            if not grid.is_uniform:
+                raise ValueError("the variable-coefficient stencil needs a uniform grid")
+            n = grid.shape_of(NODE)
+            faces = [face_coefficients(grid, d, kappa_fn) for d in range(ndim)]
+            centre = minus_side(faces[0], 0, n[0]) + plus_side(faces[0], 0, n[0])
+            for d in range(1, ndim):
+                centre.add_(minus_side(faces[d], d, n[d])).add_(plus_side(faces[d], d, n[d]))
+            centre.neg_()
+            built[id(grid)] = (grid, centre, faces)  # the grid keeps its id unique
+        return built[id(grid)][1:]
+
+    st = Stencil("VarCoeffLaplace")
+    st.add_entry((0,) * ndim, lambda g: arrays(g)[0])
+    for d in range(ndim):
+        for s, side in ((-1, minus_side), (1, plus_side)):
+            off = tuple(s if i == d else 0 for i in range(ndim))
+            st.add_entry(off, lambda g, d=d, side=side:
+                         side(arrays(g)[1][d], d, g.shape_of(NODE)[d]))
+    return st
+
+
 def default_solution_2d(x, y):
     return torch.cos(math.pi * x) - torch.sin(2.0 * math.pi * y)
 
@@ -117,7 +205,11 @@ class PoissonMGSolver:
     """FD Poisson with geometric multigrid on [0,1]^d: on one device, or
     with `mesh` (this rank's DomainMesh) and `shard_dims` (shards per
     spatial dim, default the mesh's shape) one fragment per rank on the
-    rank's `device`."""
+    rank's `device`.  With `kappa_fn` (dense only) the operator is
+    -div(kappa grad u); `exact_fn` still defaults to `bc_fn`.  `coef_bytes`
+    holds the bytes of the hierarchy's coefficient arrays, each storage
+    once, and `coef_s` the seconds their build took (host clock, to a
+    device sync); both 0 without `kappa_fn`."""
 
     knowledge: Knowledge
     device: object
@@ -134,6 +226,8 @@ class PoissonMGSolver:
     domain: Optional[Domain] = None
     mesh: object = None  # parallel/mesh.DomainMesh -> the sharded backend
     shard_dims: Optional[tuple] = None  # shards per spatial dim
+    # kappa(x, y[, z]): solve -div(kappa grad u) = f (varcoeff_laplace_stencil)
+    kappa_fn: Callable = None
 
     def __post_init__(self):
         k = self.knowledge
@@ -149,7 +243,22 @@ class PoissonMGSolver:
             self.domain = unit_domain(nd)
         self.dtype = real_dtype(k)
         self.grids = level_grids(self.domain, k, self.device, dtype=self.dtype)
-        self.stencil = laplace_stencil(nd)
+        if self.kappa_fn is None:
+            self.stencil = laplace_stencil(nd)
+        elif self.mesh is None:
+            self.stencil = varcoeff_laplace_stencil(nd, self.kappa_fn)
+        else:
+            raise ValueError("kappa_fn runs on the dense backend only")
+        self.coef_bytes, self.coef_s = 0, 0.0
+        if self.kappa_fn is not None:
+            # build every level's arrays here, so that the build is timed
+            # alone; the solver's binds share them
+            t = time.perf_counter()
+            bound = [self.stencil.bind(g) for g in self.grids.values()]
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self.coef_s = time.perf_counter() - t
+            self.coef_bytes = coef_storage_bytes(bound)
         self.restrict_op = node_restriction(nd)
         self.prolong_op = node_prolongation(nd)
         if self.mesh is None:

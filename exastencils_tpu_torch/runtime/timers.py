@@ -7,10 +7,11 @@ Reference: exastencils_tpu/runtime/timers.py (same `Timer` and
 the `with timers(name)` scope is a span of kind `timer`.
 
 Spans (the port's own; the reference has none).  A span is one piece of
-a solve at a layer boundary: `solve` (the root), `cycle`, `level`,
-`coarse`, `check` (a residual check between cycles), `replay` (the host
-launching a recording's graphs), `host_read` (one read of a device
-value on the host) and `timer`.  Each holds its name, kind, host start
+a solve at a layer boundary: `solve` (the root), `cycle`, `level`
+(named by its route, `kernels@L` or `plain@L`, in solver/mg), `coarse`,
+`check` (a residual check between cycles), `replay` (the host launching a
+recording's graphs), `host_read` (one read of a device value on the host)
+and `timer`.  Each holds its name, kind, host start
 and end (`time.perf_counter`), parent, the id of its solve (the root's),
 its device ms and the host reads and graph launches made while it was
 open.

@@ -15,9 +15,11 @@ every rank runs the cycle eagerly and every loop exit reads an
 all-reduced value, so all ranks branch alike.
 
 Spans (runtime/timers): a cycle on the finest level is a `cycle` span,
-each level's part of it a `level` span (`level@L`), the coarse solve a
-`coarse` span and each residual norm a `check` span; inside a staged
-cycle or `solve_jit` they are captured with the graphs.
+each level's part of it a `level` span named by the level's route
+(`Multigrid.route`: `kernels@L` where its legs run hand-written kernels,
+`plain@L` where they run plain ops), the coarse solve a `coarse` span and each residual
+norm a `check` span; inside a staged cycle or `solve_jit` they are
+captured with the graphs.
 
 In-place contract: where a level has kernels (ops/cuda), the cycle may
 update the iterate in place (the reference donated it); callers that
@@ -81,6 +83,7 @@ class MGLevelOps:
     # smoothing calls when set
     down_leg_fn: Optional[Callable] = None  # (sol, rhs) -> (sol, rhs_c)
     up_leg_fn: Optional[Callable] = None  # (sol, sol_c, rhs) -> sol
+    smooth_kernel: bool = False  # smooth_n is a hand-written kernel (K3, K6)
 
 
 @dataclass
@@ -115,11 +118,21 @@ class Multigrid:
         kind = self.cycle_type if kind is None else kind
         if kind not in ("V", "W", "F"):
             raise ValueError(f"unknown cycle type {kind!r} (V | W | F)")
+        route = self.route(level, sol)
         if level != self.max_level:
-            with span("level", "level", level):
+            with span("level", route, level):
                 return self._level_cycle(sol, rhs, level, kind)
-        with span("cycle", f"{kind}-cycle", level), span("level", "level", level):
+        with span("cycle", f"{kind}-cycle", level), span("level", route, level):
             return self._level_cycle(sol, rhs, level, kind)
+
+    def route(self, level: int, sol) -> str:
+        """The name of the level's `level` spans: `kernels` where
+        `_level_cycle` hands its legs or smoothing to hand-written kernels
+        on `sol`'s CUDA device, else `plain` (on the CPU the kernels'
+        wrappers run their plain twins)."""
+        lv = self.levels[level]
+        legs = not self.fas and (lv.down_leg_fn is not None or lv.res_restrict_fn is not None)
+        return "kernels" if (legs or lv.smooth_kernel) and sol.device.type == "cuda" else "plain"
 
     def _level_cycle(self, sol, rhs, level: int, kind: str):
         lv = self.levels[level]

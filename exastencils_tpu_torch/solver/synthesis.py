@@ -400,6 +400,7 @@ def generate_solver(
             coloring = h.color_masks(num_colors, color_fn=color_fn_nd)
         smooth = make_smoother(A, bc_sol, omega=omega, coloring=coloring, exchange=h.exchange)
         smooth_n = None
+        smooth_kernel = False
         kernels_3d = k.tpu_use_pallas and nd == 3
         # the sharded path's communication structure (reference
         # IR_SplitLoops / halo aggregation): overlap the interior update
@@ -416,9 +417,10 @@ def generate_solver(
                 fused = make_sharded_fused_smoother_3d(A, u, lvl, h.topo, h.local_cells, omega,
                                                        num_colors)
                 if fused is not None:
-                    smooth_n = fused
+                    smooth_n, smooth_kernel = fused, True
         if kernels_3d and not backend.is_sharded and num_colors == 2 and smoother_kind in _GS:
             smooth_n = make_fused_smoother_3d(A, u, lvl, h.work_shape, omega, num_colors)
+            smooth_kernel = smooth_n is not None
         restrict_fn = prolong_fn = None
         res_restrict_fn = prolong_correct_fn = None
         down_leg_fn = up_leg_fn = None
@@ -460,6 +462,7 @@ def generate_solver(
             prolong_correct_fn=prolong_correct_fn,
             down_leg_fn=down_leg_fn,
             up_leg_fn=up_leg_fn,
+            smooth_kernel=smooth_kernel,
         )
 
     if k.performance_printEstimation:
