@@ -30,8 +30,10 @@ RBGS and FAS under EXA_STREAM_V1=1) on the GPU and on the CPU, which must
 print the same lines, solves main_path's problem to 1e-10 in float64
 host-driven and device-resident (main_path_fused: solve_fused's one
 recording must take the same cycles to the same residual and iterate),
-and drives the DSL entry points on examples/poisson_3d_bench.exa4 (the
-two DSL paths right after the build):
+holds the variable-coefficient legs K11/K12 to their plain sweeps at 513^3
+float64 and times them beside K1/K2 and the solver's staged cycle
+(varcoeff_path), and drives the DSL entry points on
+examples/poisson_3d_bench.exa4 (the two DSL paths right after the build):
   dsl_path     the L4 executor at 513^3 float32, MGCycle@finest with the
                fast path (K1/K2 on levels 5-9) staged (the default: one
                recording of CUDA graphs, its kernels named in a profiler
@@ -1414,6 +1416,135 @@ def fused_path():
           capture_s=f"{st.capture_s:.3f}", pool_bytes=st.pool_bytes)
 
 
+def varcoeff_kappa(x, y, z):
+    """The variable-coefficient benchmark cell's kappa (portbench
+    configs/poisson3d_varcoeff_api_f64.json: kappa0 = 10)."""
+    return torch.exp(10.0 * (x - x * x) * (y - y * y) * (z - z * z))
+
+
+def varcoeff_path():
+    """K11/K12 (legs3d.cu leg_kernel's face-array build) on the finest level
+    of the variable-coefficient Poisson3D (PoissonMGSolver(kappa_fn=...) at 513^3
+    float64, V(3,3), as the benchmark's api_vc cell solves it): each leg
+    at K=3 on seeded fields, its smoothed sol bitwise the plain sweeps',
+    K11's coarse rhs bitwise K4's restriction of the plain residual, K12
+    bitwise K5 then the plain sweeps, both within the K1/K2 tolerance of
+    the plain legs, timed beside its bound (the leg's bytes plus its three face arrays,
+    each read once) and its plain version; K1/K2 on the constant
+    Laplacian timed alike.  Then the solver itself, staged: a cycle's and a
+    residual norm's device ms, and a solve_fused's cycles, ms and
+    K11/K12 launches per cycle.  Returns the K11/K12 rows of the kernel
+    table."""
+    from exastencils_tpu_torch import Knowledge
+    from exastencils_tpu_torch.core.grid import NODE
+    from exastencils_tpu_torch.core.stencil import (BoundStencil, node_prolongation,
+                                                    node_restriction)
+    from exastencils_tpu_torch.models.poisson import PoissonMGSolver, laplace_stencil
+    from exastencils_tpu_torch.ops.cuda import stream3d as s3
+    from exastencils_tpu_torch.ops.stencil_apply import apply_stencil
+    from exastencils_tpu_torch.ops.transfer import separable_kernels
+
+    dt = torch.float64
+    k = Knowledge(dimensionality=3, minLevel=0, maxLevel=MAIN_LEVEL, useDblPrecision=True).update()
+    solver = PoissonMGSolver(k, device="cuda", omega=OMEGA, n_pre=K_MAIN, n_post=K_MAIN,
+                             kappa_fn=varcoeff_kappa)
+    grid = solver.grids[MAIN_LEVEL]
+    A, L = solver.stencil.bind(grid), laplace_stencil(3).bind(grid)
+    shape = tuple(grid.shape_of(NODE))
+    cshape = tuple(solver.grids[MAIN_LEVEL - 1].shape_of(NODE))
+    faces = s3.face_arrays(shape, A.offsets, A.coefs)
+    if faces is None:
+        raise AssertionError("varcoeff_path: the level's stencil is outside K11/K12's contract")
+    R, P = node_restriction(3), node_prolongation(3)
+    rk, pk = separable_kernels(R), separable_kernels(P)
+    rng = np.random.default_rng(23)
+    sol, rhs = (torch.as_tensor(rng.standard_normal(shape), device="cuda") for _ in range(2))
+    sol_c = torch.as_tensor(rng.standard_normal(cshape), device="cuda")
+    s_got, rc_got = s3.smooth_res_restrict_faces(sol.clone(), rhs, A, faces, OMEGA, K_MAIN, rk,
+                                                 R.lo, cshape)
+    u_got = s3.prolong_correct_smooth_faces(sol.clone(), sol_c, rhs, A, faces, OMEGA, K_MAIN, pk,
+                                            P.lo)
+    s_ref = s3.rbgs_fused_plain(sol, rhs, A, OMEGA, K_MAIN)
+    # K11's coarse rhs is K4's restriction of the plain residual: with a zero
+    # sol, K4 on any constant star restricts its rhs as given
+    res = torch.zeros_like(sol)
+    res[1:-1, 1:-1, 1:-1] = (rhs - apply_stencil(A, s_ref))[1:-1, 1:-1, 1:-1]
+    rc_k4 = s3.res_restrict(torch.zeros_like(sol), res, BoundStencil("A", s3.STAR_OFFSETS, (
+        6.5, -0.9, -1.1, -0.7, -1.3, -0.95, -1.05)), rk, R.lo, cshape)
+    del res
+    same = {"K11_sol": torch.equal(s_got, s_ref), "K11_coarse_rhs": torch.equal(rc_got, rc_k4),
+            "K12_sol": torch.equal(u_got, s3.rbgs_fused_plain(
+                s3.prolong_correct(sol.clone(), sol_c, pk, P.lo), rhs, A, OMEGA, K_MAIN))}
+    del s_ref, rc_k4
+    _, rc_ref = s3.smooth_res_restrict_plain(sol, rhs, A, OMEGA, K_MAIN, rk, R.lo, cshape)
+    u_ref = s3.prolong_correct_smooth_plain(sol, sol_c, rhs, A, OMEGA, K_MAIN, pk, P.lo)
+    e_rc, e_u = rel_err(rc_got, rc_ref), rel_err(u_got, u_ref)
+    same["K11_coarse_rhs_vs_plain"] = tol_ok("K1", e_rc, dt)
+    same["K12_vs_plain"] = tol_ok("K2", e_u, dt)
+    phase("varcoeff_compare", level=MAIN_LEVEL, dtype="float64", K=K_MAIN,
+          k11_coarse_rel=f"{e_rc[1]:.3e}", k12_rel=f"{e_u[1]:.3e}", tol=tol_of(dt), **same)
+    if not all(same.values()):
+        raise AssertionError(f"varcoeff_path: K11/K12 against the plain legs {same}")
+    del s_got, rc_got, u_got, rc_ref, u_ref
+    w = sol.clone()
+    ms = {"K11": cuda_ms(lambda: s3.smooth_res_restrict_faces(w, rhs, A, faces, OMEGA, K_MAIN,
+                                                              rk, R.lo, cshape), 5),
+          "K12": cuda_ms(lambda: s3.prolong_correct_smooth_faces(w, sol_c, rhs, A, faces, OMEGA,
+                                                                 K_MAIN, pk, P.lo), 5),
+          "K1": cuda_ms(lambda: s3.smooth_res_restrict(w, rhs, L, OMEGA, K_MAIN, rk, R.lo,
+                                                       cshape), 5),
+          "K2": cuda_ms(lambda: s3.prolong_correct_smooth(w, sol_c, rhs, L, OMEGA, K_MAIN, pk,
+                                                          P.lo), 5)}
+    plain = {"K11": cuda_ms(lambda: s3.smooth_res_restrict_plain(w, rhs, A, OMEGA, K_MAIN, rk,
+                                                                 R.lo, cshape), 1),
+             "K12": cuda_ms(lambda: s3.prolong_correct_smooth_plain(w, sol_c, rhs, A, OMEGA,
+                                                                    K_MAIN, pk, P.lo), 1)}
+    del w
+    chain = {kk: len(s3.leg_chain(m, K_MAIN, dt, r)) for kk, m, r in (
+        ("K11", s3.LEG_RESTRICT, 1), ("K1", s3.LEG_RESTRICT, 1), ("K12", s3.LEG_PROLONG, 0),
+        ("K2", s3.LEG_PROLONG, 0))}
+    n, nc = shape[0], cshape[0]
+    leg_bytes = (3 * n ** 3 + nc ** 3) * 8
+    face_bytes = sum(f.numel() for f in faces) * 8
+    rows = {}
+    for kk in ("K11", "K12", "K1", "K2"):
+        by = leg_bytes + (face_bytes if kk in ("K11", "K12") else 0)
+        b_ms = by / PEAK_BYTES_S * 1e3
+        rows[kk] = {"ms": ms[kk], "bound_ms": b_ms, "plain_ms": plain.get(kk)}
+        phase("varcoeff_leg_times", kernel=kk, level=MAIN_LEVEL, dtype="float64", K=K_MAIN,
+              ms=f"{ms[kk]:.4f}", bound_ms=f"{b_ms:.4f}", share_of_bound=f"{b_ms / ms[kk]:.4f}",
+              launches_per_call=chain[kk],
+              **({"plain_ms": f"{plain[kk]:.4f}"} if kk in plain else {}))
+    del sol, rhs, sol_c
+    x, f = solver.init_state()
+    x0 = x.clone()
+    cycle, res_norm = solver.mg.staged("cycle"), solver.mg.staged("res_norm")
+    cycle_ms = cuda_ms(lambda: cycle(x, f), 5)
+    check_ms = cuda_ms(lambda: res_norm(x, f), 5)
+    x.copy_(x0)
+    solver.solve_fused(max_its=100, target_res_reduction=1e-10, state=(x, f))  # captures
+    x.copy_(x0)
+    n0 = (s3.smooth_res_restrict_faces.launches, s3.prolong_correct_smooth_faces.launches)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, init, cur, it = solver.solve_fused(max_its=100, target_res_reduction=1e-10, state=(x, f))
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    it = int(it)
+    per_cycle = ((s3.smooth_res_restrict_faces.launches - n0[0]) / it,
+                 (s3.prolong_correct_smooth_faces.launches - n0[1]) / it)
+    legs = sum(lv.down_leg_fn is not None for lv in solver.levels.values())
+    if not (float(cur) <= 1e-10 * float(init) and per_cycle == (legs * chain["K11"],
+                                                                  legs * chain["K12"])):
+        raise AssertionError(f"varcoeff_path: {init} -> {cur} in {it}, launches {per_cycle}")
+    phase("varcoeff_path", level=MAIN_LEVEL, dtype="float64", levels_with_legs=legs, cycles=it,
+          residual=f"{float(cur):.6e}", solve_ms=f"{solve_s * 1e3:.3f}",
+          cycle_ms=f"{cycle_ms:.3f}", res_norm_ms=f"{check_ms:.3f}",
+          K11_launches_per_cycle=per_cycle[0], K12_launches_per_cycle=per_cycle[1])
+    rows["K11"]["launches"], rows["K12"]["launches"] = per_cycle
+    return {kk: rows[kk] for kk in ("K11", "K12")}
+
+
 def dsl_fast_vs_plain(fast, plain):
     """U@finest and the residual after the first cycle with the fast path
     against the plain executor's, both from InitF: float32 tolerance."""
@@ -2645,6 +2776,7 @@ def main():
         solve_both("rbgs_v1")
         solve_both("fas_v1", solver_useFAS=True)
     fused_path()
+    varcoeff = varcoeff_path()
     cgs_paths(per_level)
     cell_path()
     nonuniform_path()
@@ -2688,6 +2820,13 @@ def main():
                         "exastencils_tpu_torch/csrc/check3d.cu", "replaces": None,
                         "launches_per_solve": check_solve[kk], "ms": check_ms[kk],
                         "bound_ms": by / PEAK_BYTES_S * 1e3, "bound_by": "bytes"})
+    for kk, fn in (("K11", "smooth_res_restrict_faces"), ("K12", "prolong_correct_smooth_faces")):
+        # 513^3 float64, K=3, on the variable-coefficient star (varcoeff_path)
+        kernels.append({"name": f"{kk} {fn}", "route": "cuda",
+                        "source": "exastencils_tpu_torch/csrc/legs3d.cu", "replaces": None,
+                        "dtype": "float64", "launches_per_cycle": varcoeff[kk]["launches"],
+                        "ms": varcoeff[kk]["ms"], "plain_ms": varcoeff[kk]["plain_ms"],
+                        "bound_ms": varcoeff[kk]["bound_ms"], "bound_by": "bytes"})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -82,6 +82,37 @@
 // - K3 is one kSmooth launch per call (chained beyond kMaxLegK).  It
 //   replaces 2K launches of a half-sweep kernel, each a pass over sol and
 //   rhs (4.77 ms at 513^3 f32, K=3, on an H100).
+//
+// K11/K12, the variable-coefficient legs (wrappers
+// ops/cuda/stream3d.smooth_res_restrict_faces, prolong_correct_smooth_faces;
+// they replace no TPU kernel: the JAX package has no variable-coefficient
+// model).  K1's and K2's maths, and the kSmooth chain beyond one launch, for
+// -div(kappa grad u) as models/poisson.varcoeff_laplace_stencil stores it:
+// a face array per axis, face_d n_d + 1 long along d, node i's minus
+// coefficient face_d[i] and its plus coefficient face_d[i + 1].  The same
+// kernel, leg_kernel, with the face arrays as one more parameter (its pack
+// F, empty for K1-K3, whose parameters and code are as they were); float
+// and double, dense only.
+// - Bound: device-memory bytes, the legs' plus the three face arrays read
+//   once, 112.0 B a fine node over a float64 V(3,3) cycle (portbench
+//   varcoeff.py).  No centre array is read: the diagonal is the negative
+//   sum of the six face values the update holds, in the stencil's order,
+//   so bitwise the stored centre (ops/cuda/stream3d.face_arrays holds the
+//   level to that at set-up).  The smoother's omega / diag is PyTorch's
+//   reciprocal(diag) * omega, as make_smoother's plain update computes it.
+// - Shared memory holds no coefficient: in float64 the rings of sol and
+//   rhs already take 216-223 KB of a block's 227 (K1 at K=1, K2 at K=2),
+//   so a ring per face array does not fit.  Each update reads its node's
+//   six face values from device memory (L2: a block's face planes are read
+//   again by the halo of its neighbours and by the K updates of each
+//   node); the loads of a step's 2K half-sweeps do not wait on the sweeps,
+//   so they are issued together, a node not updated reading a safe one.
+//   The launch bounds are the launch's own threads, not the constant
+//   kernels' 768/1024, so more registers hold the loads in flight.
+// - Launches hold as many iterations as for K1/K2 (leg_chain): at 513^3
+//   float64, K=3, chains of one iteration a launch took K11 from 13.52 to
+//   14.36 ms and K12 from 9.94 to 10.88 on an H100 (PERF.md §6), each
+//   launch streaming sol and rhs once more.
 
 #include <algorithm>
 
@@ -144,6 +175,74 @@ inline Coarse make_coarse(const int* c) {
 // has threads: each of its threads takes two.
 __device__ __host__ constexpr int leg_pairs_per_thread(int mode) { return mode == kRestrict ? 2 : 1; }
 
+// The window's halo around one block's tile: 2K nodes per side, K1 2K+1
+// plus the restriction's reach.
+__device__ __host__ constexpr int leg_halo(int mode, int K, int reach) {
+  return mode == kRestrict ? 2 * K + 1 + reach : 2 * K;
+}
+
+// Threads of one block: its pairs of window columns, leg_pairs_per_thread
+// to a thread, in whole warps.
+__device__ __host__ constexpr int leg_threads_of(int mode, int K, int reach) {
+  const int r = kLegTile + 2 * leg_halo(mode, K, reach);
+  const int np = leg_pairs_per_thread(mode);
+  return ((r * (r / 2) + np - 1) / np + 31) / 32 * 32;
+}
+
+// K11/K12's coefficients: a level's three face arrays (see the note above).
+template <typename T>
+struct Faces {
+  const T* z;  // (nz + 1, ny, nx)
+  const T* y;  // (nz, ny + 1, nx)
+  const T* x;  // (nz, ny, nx + 1)
+};
+
+// The star of node (q, y, x), g = y * nx + x its offset within a plane of
+// sol, from the face arrays: the off-centre entries in Star's order, the
+// centre their negative sum in varcoeff_laplace_stencil's order.  A node
+// that is not `used` reads node (0, 0, 0)'s values, which lie in bounds.
+template <typename T>
+__device__ __forceinline__ Star<T> face_star(bool used, int q, int y, int64_t g, int ny, int nx,
+                                             const Faces<T>& f) {
+  if (!used) {
+    q = y = 0;
+    g = 0;
+  }
+  const int64_t plane = static_cast<int64_t>(ny) * nx;
+  const int64_t oz = q * plane + g;                           // face_z planes: ny * nx
+  const int64_t oy = q * (plane + nx) + g;                    // face_y planes: (ny + 1) * nx
+  const int64_t ox = q * (plane + ny) + g + y;                // face_x rows: nx + 1
+  Star<T> s;
+  s.c[1] = __ldg(f.z + oz);
+  s.c[2] = __ldg(f.z + oz + plane);
+  s.c[3] = __ldg(f.y + oy);
+  s.c[4] = __ldg(f.y + oy + nx);
+  s.c[5] = __ldg(f.x + ox);
+  s.c[6] = __ldg(f.x + ox + 1);
+  s.c[0] = -(((((s.c[1] + s.c[2]) + s.c[3]) + s.c[4]) + s.c[5]) + s.c[6]);
+  return s;
+}
+
+// A u at a node from its star, summed in Star's order (the plain path's).
+template <typename C>
+__device__ __forceinline__ C star_apply(const Star<C>& k, C cen, C zm, C zp, C ym, C yp, C xm,
+                                        C xp) {
+  C au = k.c[0] * cen;
+  au = au + k.c[1] * zm;
+  au = au + k.c[2] * zp;
+  au = au + k.c[3] * ym;
+  au = au + k.c[4] * yp;
+  au = au + k.c[5] * xm;
+  au = au + k.c[6] * xp;
+  return au;
+}
+
+// Threads a block of leg_kernel may have: K1-K3's fixed bounds, or (vc)
+// K11/K12's own at the node restriction's reach of 1.
+__device__ __host__ constexpr int leg_bound(int mode, int K, bool vc) {
+  return vc ? leg_threads_of(mode, K, 1) : mode == kRestrict ? kMaxDownThreads : kMaxUpThreads;
+}
+
 // The block's window: the tile plus `halo` nodes per side, global origin
 // (wy0, wx0).  A plane is stored colour-split, (x parity, row, x / 2): the
 // pair (row ly, columns 2 jx and 2 jx + 1) is thread ly * RH + jx's, at
@@ -154,7 +253,7 @@ struct Geom {
 
 __device__ __host__ inline Geom geom_for(int mode, int K, int reach, int by, int bx) {
   Geom g;
-  g.halo = mode == kRestrict ? 2 * K + 1 + reach : 2 * K;
+  g.halo = leg_halo(mode, K, reach);
   g.R = kLegTile + 2 * g.halo;
   g.RH = g.R / 2;
   g.odd = g.R * g.RH;
@@ -287,12 +386,17 @@ __device__ __forceinline__ Pair pair_at(int e, const Geom& g, int ny, int nx, co
   return c;
 }
 
-template <typename T, int K, int MODE, bool GHOSTED>
-__global__ void __launch_bounds__(MODE == kRestrict ? kMaxDownThreads : kMaxUpThreads)
+// One block of a leg.  K11/K12 (F = Faces<T>): each node's star from the
+// face arrays `f`, `scale` omega, `s`, `ex` and `cg` unread (dense, no excl
+// planes); K1-K3 (F empty): the launch's star `s`, `scale` omega over its
+// centre.
+template <typename T, int K, int MODE, bool GHOSTED, typename... F>
+__global__ void __launch_bounds__(leg_bound(MODE, K, sizeof...(F) > 0))
 leg_kernel(T* __restrict__ out, T* __restrict__ outc, const T* __restrict__ sol,
            const T* __restrict__ solc, const T* __restrict__ rhs, int nz, int ny, int nx,
            int nzc, int nyc, int nxc, Star<compute_t<T>> s, compute_t<T> scale, int reach,
-           int chunk, Taps<compute_t<T>> t, Excl ex, Coarse cg) {
+           int chunk, Taps<compute_t<T>> t, Excl ex, Coarse cg, F... f) {
+  constexpr bool VC = sizeof...(F) > 0;
   using C = compute_t<T>;  // the rings' type (star3d.cuh: the bfloat16 contract)
   constexpr int L = 2 * K;  // half-sweeps
   constexpr bool up = MODE == kProlong, down = MODE == kRestrict;
@@ -460,6 +564,8 @@ leg_kernel(T* __restrict__ out, T* __restrict__ outc, const T* __restrict__ sol,
       const int dista = a ? c.dist1 : c.dist0;
       const int li = a ? odd + c.e : c.e;
       const int xm = a ? c.e : odd + c.e - 1, xp = a ? c.e + 1 : odd + c.e;
+      int64_t ga = 0;  // VC: the active column's offset within a plane
+      if constexpr (VC) ga = a ? c.g1 : c.g0;
       int sq = s0;  // slot of plane q + 1
       C zp = bp[li];
 #pragma unroll
@@ -469,16 +575,26 @@ leg_kernel(T* __restrict__ out, T* __restrict__ outc, const T* __restrict__ sol,
         C* b = ring + sl * g.plane;
         const C cen = b[li];
         C v = cen;
-        if (oka && l <= dista && q >= max(zlo + l, 1) && q <= nz - 2 && q != ex.p[0] &&
-            q != ex.p[1]) {
-          C au = s.c[0] * cen;
-          au = au + s.c[1] * ring[sm * g.plane + li];
-          au = au + s.c[2] * zp;
-          au = au + s.c[3] * b[li - g.RH];
-          au = au + s.c[4] * b[li + g.RH];
-          au = au + s.c[5] * b[xm];
-          au = au + s.c[6] * b[xp];
-          const C corr = scale * (rring[sl * g.plane + li] - au);
+        const bool upd = oka && l <= dista && q >= max(zlo + l, 1) && q <= nz - 2 &&
+                         q != ex.p[0] && q != ex.p[1];
+        Star<C> node;  // VC: loaded where not updated too, so the step's loads issue together
+        if constexpr (VC) node = face_star(upd, q, c.gy, ga, ny, nx, f...);
+        if (upd) {
+          C au, sc = scale;
+          if constexpr (VC) {
+            au = star_apply(node, cen, ring[sm * g.plane + li], zp, b[li - g.RH], b[li + g.RH],
+                            b[xm], b[xp]);
+            sc = (C(1) / node.c[0]) * scale;  // PyTorch's omega / diag
+          } else {
+            au = s.c[0] * cen;
+            au = au + s.c[1] * ring[sm * g.plane + li];
+            au = au + s.c[2] * zp;
+            au = au + s.c[3] * b[li - g.RH];
+            au = au + s.c[4] * b[li + g.RH];
+            au = au + s.c[5] * b[xm];
+            au = au + s.c[6] * b[xp];
+          }
+          const C corr = sc * (rring[sl * g.plane + li] - au);
           v = round_stored<T>(cen + corr);
           b[li] = v;
         }
@@ -514,15 +630,22 @@ leg_kernel(T* __restrict__ out, T* __restrict__ outc, const T* __restrict__ sol,
       const C* b = ring + slot_back(s0, L + 1) * g.plane;
       const C* zq = ring + slot_back(s0, L) * g.plane;
       const C* rq = rring + slot_back(s0, L + 1) * g.plane;
-      auto residual = [&](bool ok, int li, int xm, int xp) {
+      auto residual = [&](bool ok, int li, int xm, int xp, int gy, int64_t gn) {
+        Star<C> node;
+        if constexpr (VC) node = face_star(ok, qr, gy, gn, ny, nx, f...);
         if (!ok) return C(0);
-        C au = s.c[0] * b[li];
-        au = au + s.c[1] * zm[li];
-        au = au + s.c[2] * zq[li];
-        au = au + s.c[3] * b[li - g.RH];
-        au = au + s.c[4] * b[li + g.RH];
-        au = au + s.c[5] * b[xm];
-        au = au + s.c[6] * b[xp];
+        C au;
+        if constexpr (VC) {
+          au = star_apply(node, b[li], zm[li], zq[li], b[li - g.RH], b[li + g.RH], b[xm], b[xp]);
+        } else {
+          au = s.c[0] * b[li];
+          au = au + s.c[1] * zm[li];
+          au = au + s.c[2] * zq[li];
+          au = au + s.c[3] * b[li - g.RH];
+          au = au + s.c[4] * b[li + g.RH];
+          au = au + s.c[5] * b[xm];
+          au = au + s.c[6] * b[xp];
+        }
         return round_stored<T>(rq[li] - au);
       };
       const int k0 = (qr - t.lo[0]) & 1, c0 = (qr - t.lo[0] - k0) >> 1;
@@ -532,8 +655,9 @@ leg_kernel(T* __restrict__ out, T* __restrict__ outc, const T* __restrict__ sol,
 #pragma unroll
       for (int k = 0; k < NP; ++k) {
         const Pair& c = pr[k];
-        const C v0 = residual(plane_ok && c.ok0 && box0[k], c.e, odd + c.e - 1, odd + c.e);
-        const C v1 = residual(plane_ok && c.ok1 && box1[k], odd + c.e, c.e, c.e + 1);
+        const C v0 = residual(plane_ok && c.ok0 && box0[k], c.e, odd + c.e - 1, odd + c.e, c.gy,
+                              c.g0);
+        const C v1 = residual(plane_ok && c.ok1 && box1[k], odd + c.e, c.e, c.e + 1, c.gy, c.g1);
         auto add = [&](int cz, C w) {
           if (cz & 1) {
             za[k][1] = za[k][1] + w * v0;
@@ -580,13 +704,7 @@ size_t leg_smem(int mode, int K, int reach, size_t itemsize) {
   return (slots * g.plane + extra) * itemsize;
 }
 
-// Threads of one block: its pairs of window columns, leg_pairs_per_thread
-// to a thread, in whole warps.
-int leg_threads(int mode, int K, int reach) {
-  const Geom g = geom_for(mode, K, reach, 0, 0);
-  const int np = leg_pairs_per_thread(mode);
-  return ((g.odd + np - 1) / np + 31) / 32 * 32;
-}
+int leg_threads(int mode, int K, int reach) { return leg_threads_of(mode, K, reach); }
 
 
 int tiles(int n, int tile) { return (n + tile - 1) / tile; }
@@ -605,6 +723,33 @@ auto leg_kernel_for(int K, int mode, bool ghosted = false) {
        : mode == kRestrict ? (ghosted ? leg_kernel_for<T, kRestrict, true>(K)
                                       : leg_kernel_for<T, kRestrict>(K))
                            : leg_kernel_for<T, kSmooth>(K);
+}
+
+template <typename T, int MODE>
+auto leg_kernel_faces_for(int K) {
+  return K == 1   ? leg_kernel<T, 1, MODE, false, Faces<T>>
+         : K == 2 ? leg_kernel<T, 2, MODE, false, Faces<T>>
+                  : leg_kernel<T, 3, MODE, false, Faces<T>>;
+}
+
+// K11/K12's kernel of one launch.
+template <typename T>
+auto leg_kernel_faces_for(int K, int mode) {
+  return mode == kProlong ? leg_kernel_faces_for<T, kProlong>(K)
+       : mode == kRestrict ? leg_kernel_faces_for<T, kRestrict>(K)
+                           : leg_kernel_faces_for<T, kSmooth>(K);
+}
+
+// The grid of one launch: the fine tiles of each z-chunk, or K1's coarse
+// tiles where they are more (nc: K1's aligned coarse shape).
+dim3 leg_grid(int mode, int nz, int ny, int nx, const int* nc, int chunk) {
+  dim3 grid(tiles(nx, kLegTile), tiles(ny, kLegTile), tiles(nz, chunk));
+  if (mode == kRestrict) {
+    grid.x = std::max<int>(grid.x, tiles(nc[2], kLegTile / 2));
+    grid.y = std::max<int>(grid.y, tiles(nc[1], kLegTile / 2));
+    grid.z = std::max<int>(grid.z, tiles(nc[0], chunk / 2));
+  }
+  return grid;
 }
 
 // Blocks of one launch resident on one SM (registers, shared memory and
@@ -639,12 +784,7 @@ cudaError_t launch_leg(void* out, void* outc, const void* sol, const void* solc,
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  dim3 grid(tiles(nx, kLegTile), tiles(ny, kLegTile), tiles(nz, chunk));
-  if (mode == kRestrict) {
-    grid.x = std::max<int>(grid.x, tiles(cg.n[2], kLegTile / 2));
-    grid.y = std::max<int>(grid.y, tiles(cg.n[1], kLegTile / 2));
-    grid.z = std::max<int>(grid.z, tiles(cg.n[0], chunk / 2));
-  }
+  const dim3 grid = leg_grid(mode, nz, ny, nx, cg.n, chunk);
   using C = compute_t<T>;
   kernel<<<grid, threads, smem, stream>>>(
       static_cast<T*>(out), static_cast<T*>(outc), static_cast<const T*>(sol),
@@ -652,6 +792,46 @@ cudaError_t launch_leg(void* out, void* outc, const void* sol, const void* solc,
       make_star<C>(coefs), static_cast<C>(scale), reach, chunk, make_taps<C>(taps, ntaps, lo),
       make_excl(excl), cg);
   return cudaGetLastError();
+}
+
+// K11/K12 (T float or double): as launch_leg, dense, the face arrays in
+// place of the star, omega in place of the scale; reach at most 1.
+template <typename T>
+cudaError_t launch_leg_faces(void* out, void* outc, const void* sol, const void* solc,
+                             const void* rhs, const void* fz, const void* fy, const void* fx,
+                             int nz, int ny, int nx, int nzc, int nyc, int nxc, double omega,
+                             int K, int reach, int mode, int chunk, const double* taps,
+                             const int* ntaps, const int* lo, cudaStream_t stream) {
+  if (K < 1 || K > kMaxLegK || chunk < 2 || chunk % 2) return cudaErrorInvalidValue;
+  if (mode < kSmooth || mode > kRestrict || reach < 0 || reach > 1) return cudaErrorInvalidValue;
+  const size_t smem = leg_smem(mode, K, reach, sizeof(T));
+  auto kernel = leg_kernel_faces_for<T>(K, mode);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const int nc[3] = {nzc, nyc, nxc};
+  const Excl none = {{-1, -1, -1, -1, -1, -1}};
+  kernel<<<leg_grid(mode, nz, ny, nx, nc, chunk), leg_threads(mode, K, reach), smem, stream>>>(
+      static_cast<T*>(out), static_cast<T*>(outc), static_cast<const T*>(sol),
+      static_cast<const T*>(solc), static_cast<const T*>(rhs), nz, ny, nx, nzc, nyc, nxc,
+      Star<T>{}, static_cast<T>(omega), reach, chunk, make_taps<T>(taps, ntaps, lo), none,
+      Coarse{},
+      Faces<T>{static_cast<const T*>(fz), static_cast<const T*>(fy), static_cast<const T*>(fx)});
+  return cudaGetLastError();
+}
+
+// Calls f(static_cast<T*>(nullptr)) for K11/K12's field types, float32 and
+// float64; `bad` for any other dtype code.
+template <typename R, typename F>
+R with_face_dtype(int dtype, R bad, F f) {
+  switch (dtype) {
+    case kFloat32:
+      return f(static_cast<float*>(nullptr));
+    case kFloat64:
+      return f(static_cast<double*>(nullptr));
+    default:
+      return bad;
+  }
 }
 
 }  // namespace
@@ -685,6 +865,23 @@ long long exa_leg_smem(int mode, int K, int reach, int dtype) {
 int exa_leg_occupancy(int mode, int K, int reach, int dtype) {
   return with_dtype(dtype, -1, [&](auto* z) {
     return leg_occupancy<std::remove_pointer_t<decltype(z)>>(mode, K, reach);
+  });
+}
+
+// K11/K12: their threads (their shared memory is exa_leg_smem's), and one
+// launch (exa_leg's arguments, with the face arrays fz, fy, fx and omega in
+// place of the star, the scale, the excl planes and the coarse geometry).
+int exa_leg_faces_threads(int mode, int K, int reach) { return leg_threads(mode, K, reach); }
+
+int exa_leg_faces(void* out, void* outc, const void* sol, const void* solc, const void* rhs,
+                  const void* fz, const void* fy, const void* fx, int nz, int ny, int nx, int nzc,
+                  int nyc, int nxc, double omega, int K, int reach, int mode, int chunk,
+                  const double* taps, const int* ntaps, const int* lo, int dtype, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return with_face_dtype(dtype, static_cast<int>(cudaErrorInvalidValue), [&](auto* z) {
+    return static_cast<int>(launch_leg_faces<std::remove_pointer_t<decltype(z)>>(
+        out, outc, sol, solc, rhs, fz, fy, fx, nz, ny, nx, nzc, nyc, nxc, omega, K, reach, mode,
+        chunk, taps, ntaps, lo, st));
   });
 }
 

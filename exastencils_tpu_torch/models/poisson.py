@@ -12,9 +12,11 @@ instead, each rank the solver of its fragment (the reference's
 With `kappa_fn` the solver solves -div(kappa grad u) = f instead
 (`varcoeff_laplace_stencil`), on the dense backend only.  The JAX package
 has no such model: its reference is the plain PyTorch file
-portbench/references/poisson3d_varcoeff_vcycle.py.  The stencil's tensor
-coefficients are outside every kernel's contract, so every level runs the
-plain ops.
+portbench/references/poisson3d_varcoeff_vcycle.py.  On CUDA and in 3D the
+levels with at least 5 nodes per dimension run the variable-coefficient
+legs K11/K12, which read the stencil's face arrays (ops/cuda
+`face_arrays`); the residual norm and the coarser levels run the plain
+ops.
 """
 
 from __future__ import annotations

@@ -10,7 +10,11 @@ mode in both packages:
   function, Dirichlet bc, constant radius-1 star stencil, >= 5 z-planes);
 - `make_fused_transfers_3d`: K4/K5 (a node field, Dirichlet bc, star
   stencil, separable transfers of the default node or cell z-geometry);
-- `make_fused_legs_3d`: K1/K2 (as K3 and K4/K5, and n_pre, n_post >= 1).
+- `make_fused_legs_3d`: K1/K2 (as K3 and K4/K5, and n_pre, n_post >= 1);
+  for the variable-coefficient star of models/poisson (`face_arrays`:
+  three face arrays, float32 or float64) the port's own K11/K12 under the
+  same conditions and under either EXA_STREAM_V1 schedule, which the JAX
+  package has no counterpart of.
 
 and for a sharded 3D level (the JAX package's :57-230), on one rank's
 halo-extended fragment after one wide halo exchange:
@@ -48,14 +52,18 @@ from exastencils_tpu_torch.core.field import DirichletBC, Field
 from exastencils_tpu_torch.core.grid import NODE
 from exastencils_tpu_torch.ops.cuda.stream3d import (  # noqa: F401
     MAX_TAPS,
+    _restrict_reach,
     _star_coefs,
     cuda_applicable_3d,
+    face_arrays,
     prolong_correct,
     prolong_correct_smooth,
+    prolong_correct_smooth_faces,
     prolong_correct_smooth_fused_3d,
     rbgs_fused_3d,
     res_restrict,
     smooth_res_restrict,
+    smooth_res_restrict_faces,
     smooth_res_restrict_fused_3d,
 )
 from exastencils_tpu_torch.ops.transfer import separable_kernels
@@ -142,23 +150,40 @@ def make_fused_legs_3d(
     num_colors: int,
 ):
     """Whole-leg kernels for the dense 3D path, K1/K2 (K7/K8 under
-    EXA_STREAM_V1=1).  Returns (down(sol, rhs) -> (sol, rhs_c),
-    up(sol, sol_c, rhs) -> sol), K1/K2 updating `sol` in place and K7/K8
-    writing a new tensor, or (None, None) outside the contract."""
+    EXA_STREAM_V1=1), or for a variable-coefficient star (`face_arrays`)
+    K11/K12.  Returns (down(sol, rhs) -> (sol, rhs_c),
+    up(sol, sol_c, rhs) -> sol), K1/K2 and K11/K12 updating `sol` in place
+    and K7/K8 writing a new tensor, or (None, None) outside the contract."""
     if num_colors != 2:
         return None, None
     if not _node_dirichlet(field, level):
         return None, None
-    if not cuda_applicable_3d(tuple(fine_shape), A.offsets, A.coefs):
-        return None, None
     if n_pre < 1 or n_post < 1:
         return None, None
+    faces = None
+    if not cuda_applicable_3d(tuple(fine_shape), A.offsets, A.coefs):
+        faces = face_arrays(fine_shape, A.offsets, A.coefs)
+        if faces is None:
+            return None, None
     taps = _transfer_taps(restrict_op, prolong_op)
     if taps is None:
         return None, None
     r_kern, p_kern = taps
     coarse_shape = tuple(coarse_shape)
     r_lo, p_lo = tuple(restrict_op.lo), tuple(prolong_op.lo)
+    if faces is not None:
+        if _restrict_reach(r_kern, r_lo) > 1:
+            return None, None
+
+        def down_faces(sol, rhs):
+            return smooth_res_restrict_faces(sol, rhs, A, faces, omega, n_pre, r_kern, r_lo,
+                                             coarse_shape)
+
+        def up_faces(sol, sol_c, rhs):
+            return prolong_correct_smooth_faces(sol, sol_c, rhs, A, faces, omega, n_post, p_kern,
+                                                p_lo)
+
+        return down_faces, up_faces
 
     def down(sol, rhs):
         return smooth_res_restrict_fused_3d(sol, rhs, A, omega, n_pre, r_kern, r_lo,

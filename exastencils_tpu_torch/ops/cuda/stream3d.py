@@ -16,6 +16,8 @@ the v1 kernels behind them) and exastencils_tpu/ops/pallas/stream3d_pair.py
     K6 rbgs_wavefront                    K3's maths, one pass, cluster-shared halo
     K7 smooth_res_restrict_wavefront     K1's maths, one pass, cluster-shared halo
     K8 prolong_correct_smooth_wavefront  K2's maths, one pass, cluster-shared halo
+    K11 smooth_res_restrict_faces     K1 for a variable-coefficient star (face arrays)
+    K12 prolong_correct_smooth_faces  K2 for a variable-coefficient star (face arrays)
 
 As in the JAX package, the dispatchers `rbgs_fused_3d`,
 `smooth_res_restrict_fused_3d` and `prolong_correct_smooth_fused_3d` run
@@ -23,8 +25,14 @@ K3/K1/K2 (the v2 schedule, the default) or, with EXA_STREAM_V1=1 in the
 environment when they are called, K6/K7/K8 (the v1 single-plane
 schedule).
 
+K11/K12 replace no TPU kernel (the JAX package has no variable-coefficient
+model): they run K1/K2's maths on the star of
+models/poisson.varcoeff_laplace_stencil, whose off-centre coefficients are
+views of three face arrays (`face_arrays` states the contract).
+
 The kernels are CUDA C++ for sm_90a in ../../csrc/ (legs3d.cu: K1-K3,
-one z-chunked pass per call, K3 its transfer-free mode; stream3d.cu:
+one z-chunked pass per call, K3 its transfer-free mode, K11/K12 its
+variable-coefficient build; stream3d.cu:
 K4/K5, z-streamed tiles; cluster_legs3d.cu: K6-K8, the same one-pass
 design on thread-block clusters that share their y/x halo, K6 its
 transfer-free mode; check3d.cu: the residual check K9/K10, whose wrappers
@@ -144,16 +152,71 @@ def _star_coefs(offsets, coefs, ndim: int):
     return c0, [tuple(p) for p in per_dim]
 
 
+def _kernel_shape(shape) -> bool:
+    """3D, at least 5 z-planes and 3 nodes in y/x."""
+    return len(shape) == 3 and shape[0] >= 5 and shape[1] >= 3 and shape[2] >= 3
+
+
 def cuda_applicable_3d(shape, offsets, coefs) -> bool:
     """The kernels' contract: 3D, at least 5 z-planes and 3 nodes in y/x,
     constant radius-1 star stencil.  (The TPU version also checked a VMEM
     budget, which has no counterpart here.)"""
-    if len(shape) != 3:
-        return False
-    nz, ny, nx = shape
-    if nz < 5 or ny < 3 or nx < 3:
-        return False
-    return _star_coefs(offsets, coefs, 3) is not None
+    return _kernel_shape(tuple(shape)) and _star_coefs(offsets, coefs, 3) is not None
+
+
+# The radius-1 star's entries in the kernels' order (csrc/star3d.cuh Star):
+# centre, z-, z+, y-, y+, x-, x+
+STAR_OFFSETS = ((0, 0, 0), (-1, 0, 0), (1, 0, 0), (0, -1, 0), (0, 1, 0), (0, 0, -1), (0, 0, 1))
+# The field dtypes K11/K12 take (legs3d.cu builds them for float and double)
+FACE_DTYPES = (torch.float32, torch.float64)
+
+
+def _face_of(minus: torch.Tensor, plus: torch.Tensor, d: int):
+    """The contiguous array, one longer along `d`, whose views at offsets 0
+    and 1 along `d` are `minus` and `plus`; None if there is none."""
+    shape = list(minus.shape)
+    shape[d] += 1
+    stride = (shape[1] * shape[2], shape[2], 1)
+    store = minus.untyped_storage()
+    if (minus.stride() != stride or plus.stride() != stride
+            or plus.untyped_storage().data_ptr() != store.data_ptr()
+            or plus.storage_offset() != minus.storage_offset() + stride[d]
+            or (minus.storage_offset() + shape[0] * stride[0]) * minus.element_size()
+            > store.nbytes()):
+        return None
+    return minus.as_strided(shape, stride, minus.storage_offset())
+
+
+def face_arrays(shape, offsets, coefs):
+    """K11/K12's contract on a level of `shape`: the radius-1 star of
+    models/poisson.varcoeff_laplace_stencil.  Returns its face arrays
+    (face_z, face_y, face_x; face_d contiguous and n_d + 1 long along d),
+    or None.  Every entry is a float32 or float64 tensor of the level's
+    shape, on one device; the minus and plus entries of axis d are the
+    views at offsets 0 and 1 along d of one face array; the centre equals
+    their negative sum in the kernels' order (z- + z+, then y-, y+, x-,
+    x+), which is held once here with torch.equal, so the kernels read no
+    centre array.  The shape is the kernels' (`_kernel_shape`).
+    EXA_STREAM_V1=1 does not apply: it chooses between K1-K3 and K6-K8,
+    and K11/K12 have one schedule."""
+    shape = tuple(int(n) for n in shape)
+    by_off = dict(zip((tuple(o) for o in offsets), coefs))
+    if (not _kernel_shape(shape) or len(by_off) != len(offsets)
+            or set(by_off) != set(STAR_OFFSETS)):
+        return None
+    entries = [by_off[o] for o in STAR_OFFSETS]
+    if not all(isinstance(c, torch.Tensor) and tuple(c.shape) == shape for c in entries):
+        return None
+    if entries[0].dtype not in FACE_DTYPES or any(
+            c.dtype != entries[0].dtype or c.device != entries[0].device for c in entries):
+        return None
+    faces = tuple(_face_of(entries[1 + 2 * d], entries[2 + 2 * d], d) for d in range(3))
+    if any(f is None for f in faces):
+        return None
+    centre = entries[1] + entries[2]
+    for c in entries[3:]:
+        centre.add_(c)
+    return faces if torch.equal(entries[0], centre.neg_()) else None
 
 
 # ----------------------------------------------------------------------
@@ -220,6 +283,8 @@ def load_library() -> ctypes.CDLL:
     lib.exa_leg_smem.argtypes, lib.exa_leg_smem.restype = [i, i, i, i], ctypes.c_longlong
     lib.exa_leg.argtypes = [p, p, p, p, p, i, i, i, i, i, i, pd, d, i, i, i, i, pd, pi, pi, pi, pi,
                             i, p]
+    lib.exa_leg_faces_threads.argtypes, lib.exa_leg_faces_threads.restype = [i, i, i], i
+    lib.exa_leg_faces.argtypes = [p] * 8 + [i] * 6 + [d, i, i, i, i, pd, pi, pi, i, p]
     lib.exa_error_string.argtypes, lib.exa_error_string.restype = [i], ctypes.c_char_p
     lib.exa_transfer_constant.argtypes, lib.exa_transfer_constant.restype = [i], i
     lib.exa_residual_restrict.argtypes = [p, p, p, i, i, i, i, i, i, pd, pd, pi, pi, i, i, p]
@@ -236,7 +301,7 @@ def load_library() -> ctypes.CDLL:
     lib.exa_residual.argtypes = [p, p, p, i, i, i, pd, i, i, i, p]
     lib.exa_sum_squares.argtypes = [p, p, p, i, i, i, i, i, p]
     for fn in (lib.exa_residual_restrict, lib.exa_prolong_correct, lib.exa_leg,
-               lib.exa_cluster_leg, lib.exa_residual, lib.exa_sum_squares):
+               lib.exa_leg_faces, lib.exa_cluster_leg, lib.exa_residual, lib.exa_sum_squares):
         fn.restype = i
     if lib.exa_max_taps() != MAX_TAPS:
         raise RuntimeError(f"{so}: kMaxTaps {lib.exa_max_taps()} != {MAX_TAPS}")
@@ -252,6 +317,9 @@ def load_library() -> ctypes.CDLL:
                 != _leg_smem(mode, k, reach, smem_itemsize(dtype))):
             raise RuntimeError(f"{so}: legs3d.cu's leg_smem{(mode, k, reach, dtype)} differs"
                                " from the wrapper's")
+        if lib.exa_leg_faces_threads(mode, k, reach) != _leg_threads(mode, k, reach):
+            raise RuntimeError(f"{so}: legs3d.cu's K11/K12 threads of"
+                               f" {(mode, k, reach)} differ from the wrapper's")
     const = tuple(lib.exa_cluster_constant(k) for k in range(5))
     if const != (CLUSTER_TILE, CLUSTER_AHEAD, MAX_CLUSTER_K, MAX_CLUSTER_X, CLUSTER_THREADS):
         raise RuntimeError(f"{so}: cluster_legs3d.cu's constants {const} differ from the wrapper's")
@@ -265,9 +333,9 @@ def load_library() -> ctypes.CDLL:
             raise RuntimeError(f"{so}: cluster_legs3d.cu's launch shape of"
                                f" {(mode, k, reach, cluster, dtype)} differs from the wrapper's")
     bad = max(DTYPE_CODES.values()) + 1
-    if lib.exa_leg_smem(LEG_SMOOTH, 1, 0, bad) != -1 or lib.exa_cluster_smem(
-            LEG_SMOOTH, 1, 0, 1, 1, bad) != -1:
-        raise RuntimeError(f"{so}: an unknown dtype code is not rejected")
+    if (lib.exa_leg_smem(LEG_SMOOTH, 1, 0, bad) != -1
+            or lib.exa_cluster_smem(LEG_SMOOTH, 1, 0, 1, 1, bad) != -1):
+        raise RuntimeError(f"{so}: a dtype code that a kernel does not take is not rejected")
     return lib
 
 
@@ -595,15 +663,17 @@ def coarse_geometry(fine_shape, coarse_shape, r_lo, ghost=NO_GHOST):
 
 
 def _leg_launches(sol, rhs, A, omega, K, mode, kernels, lo, excl, counted,
-                  sol_c=None, coarse_shape=(1, 1, 1), chunk=None, ghost=NO_GHOST):
+                  sol_c=None, coarse_shape=(1, 1, 1), chunk=None, ghost=NO_GHOST, faces=None):
     """The launches of leg_chain(mode, K) on CUDA tensors, each out of place
     into the other of (sol, a scratch tensor); the result ends in sol.
     `chunk`: the fine z-planes of a block (default leg_chunk); `ghost`: a
     halo-extended fragment's geometry (K1: coarse_geometry; K2: taps lo
-    shifted by the ghost width).  Returns K1's coarse rhs
+    shifted by the ghost width); `faces`: K11/K12's face arrays, read in
+    place of A's star (dense, no excl planes).  Returns K1's coarse rhs
     (None for K2, K3)."""
     lib, excl_c = load_library(), _excl_array(excl)
-    c0, coefs = _star_array(A)
+    if faces is None:
+        c0, coefs = _star_array(A)
     nz, ny, nx = sol.shape
     nzc, nyc, nxc = sol_c.shape if sol_c is not None else coarse_shape
     geom = (0, 0, 0, nzc, nyc, nxc, 0, 0, 0, nzc - 1, nyc - 1, nxc - 1)
@@ -620,11 +690,16 @@ def _leg_launches(sol, rhs, A, omega, K, mode, kernels, lo, excl, counted,
         taps, ntaps, tlo = _taps_arrays(*((kernels, lo) if m != LEG_SMOOTH else _NO_TAPS))
         if m == LEG_RESTRICT:
             out_c = new_c((nzc, nyc, nxc), dtype=sol.dtype, device=sol.device)
-        err = lib.exa_leg(
-            spare.data_ptr(), (out_c if out_c is not None else spare).data_ptr(),
-            cur.data_ptr(), (sol_c if sol_c is not None else cur).data_ptr(), rhs.data_ptr(),
-            nz, ny, nx, nzc, nyc, nxc, coefs, omega / c0, k, reach, m, chunk, taps, ntaps, tlo,
-            excl_c, geom_c, DTYPE_CODES[sol.dtype], _stream())
+        ptrs = (spare.data_ptr(), (out_c if out_c is not None else spare).data_ptr(),
+                cur.data_ptr(), (sol_c if sol_c is not None else cur).data_ptr(), rhs.data_ptr())
+        if faces is None:
+            err = lib.exa_leg(*ptrs, nz, ny, nx, nzc, nyc, nxc, coefs, omega / c0, k, reach, m,
+                              chunk, taps, ntaps, tlo, excl_c, geom_c, DTYPE_CODES[sol.dtype],
+                              _stream())
+        else:
+            err = lib.exa_leg_faces(*ptrs, *(f.data_ptr() for f in faces), nz, ny, nx, nzc, nyc,
+                                    nxc, omega, k, reach, m, chunk, taps, ntaps, tlo,
+                                    DTYPE_CODES[sol.dtype], _stream())
         _check(lib, err, "leg_kernel")
         count_launch(counted)
         cur, spare = spare, cur
@@ -680,6 +755,68 @@ def prolong_correct_smooth(sol, sol_c, rhs, A: BoundStencil, omega: float,
 
 
 prolong_correct_smooth.launches = 0
+
+
+def _check_faces(sol, faces):
+    """K11/K12's fields: float32 or float64, and three contiguous face
+    arrays of sol's dtype, n_d + 1 long along axis d."""
+    if sol.dtype not in FACE_DTYPES:
+        raise ValueError(f"K11/K12 take float32 or float64, not {sol.dtype}")
+    for d, f in enumerate(faces):
+        want = tuple(n + (i == d) for i, n in enumerate(sol.shape))
+        if f.dtype != sol.dtype or tuple(f.shape) != want or not f.is_contiguous():
+            raise ValueError(f"face array {d}: need a contiguous {sol.dtype} array of shape {want}")
+
+
+def smooth_res_restrict_faces(sol, rhs, A: BoundStencil, faces, omega: float, K: int,
+                              r_kernels, r_lo, coarse_shape: Tuple[int, int, int]):
+    """K11, K1 for a variable-coefficient star: K RBGS iterations on `sol`
+    (in place), then the residual restricted to `coarse_shape`.  Returns
+    (sol, coarse rhs).  `A` is the level's bound star and `faces` its face
+    arrays (face_arrays(sol.shape, A.offsets, A.coefs)): on CUDA the
+    kernels read the face arrays alone, one legs3d.cu leg_kernel launch
+    (its face-array build) for K up to max_leg_k (leg_chain beyond), and
+    their sweeps are bitwise the plain version's, which the CPU runs on A.
+    Dense only; a restriction reach of at most 1 (node and cell
+    restrictions)."""
+    if _device_type(sol, rhs, *faces) == "cpu":
+        new, rc = smooth_res_restrict_plain(sol, rhs, A, omega, K, r_kernels, r_lo, coarse_shape)
+        return sol.copy_(new), rc
+    _check_cuda_fields(sol, rhs)
+    _check_faces(sol, faces)
+    _check_shapes(sol, rhs, coarse_shape)
+    if _restrict_reach(r_kernels, r_lo) > 1:
+        raise ValueError("K11 takes a restriction reach of at most 1")
+    with torch.cuda.device(sol.device):
+        out = _leg_launches(sol, rhs, A, omega, K, LEG_RESTRICT, r_kernels, r_lo, NO_EXCL,
+                            smooth_res_restrict_faces,
+                            coarse_shape=tuple(int(n) for n in coarse_shape), faces=faces)
+    return sol, out
+
+
+smooth_res_restrict_faces.launches = 0
+
+
+def prolong_correct_smooth_faces(sol, sol_c, rhs, A: BoundStencil, faces, omega: float, K: int,
+                                 p_kernels, p_lo):
+    """K12, K2 for a variable-coefficient star: sol += P sol_c on inner
+    nodes, then K RBGS iterations, all in place on `sol`.  Returns sol.
+    `A` and `faces` as smooth_res_restrict_faces's; on CUDA one legs3d.cu
+    leg_kernel launch (its face-array build) for K up to max_leg_k
+    (leg_chain beyond)."""
+    if _device_type(sol, sol_c, rhs, *faces) == "cpu":
+        return sol.copy_(prolong_correct_smooth_plain(sol, sol_c, rhs, A, omega, K, p_kernels,
+                                                      p_lo))
+    _check_cuda_fields(sol, sol_c, rhs)
+    _check_faces(sol, faces)
+    _check_shapes(sol, rhs)
+    with torch.cuda.device(sol.device):
+        _leg_launches(sol, rhs, A, omega, K, LEG_PROLONG, p_kernels, p_lo, NO_EXCL,
+                      prolong_correct_smooth_faces, sol_c=sol_c, faces=faces)
+    return sol
+
+
+prolong_correct_smooth_faces.launches = 0
 
 
 def rbgs_fused(sol, rhs, A: BoundStencil, omega: float, K: int, excl=NO_EXCL, chunk=None):

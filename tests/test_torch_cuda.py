@@ -1,4 +1,4 @@
-"""The port's CUDA kernels K1-K8 against their plain PyTorch versions, on the
+"""The port's CUDA kernels K1-K12 against their plain PyTorch versions, on the
 GPU, solves on the GPU that print the CPU's lines (every coarse solver,
 cell and face fields with no kernel launched, stretched grids), the
 embedding API and field IO from tensors on the card.  Skips where torch.cuda.is_available() is false (the kernels have no
@@ -1365,3 +1365,142 @@ def test_dsl_solve_launches_the_check_kernels(cuda):
     assert (c3.residual.launches - n0[0], c3.inner_sum_squares.launches - n0[1]) == \
         (cycles + 1, cycles + 1)
     assert ex.staging_stats()["unstaged"] == 0
+
+
+# ----------------------------------------------------------------------
+# K11/K12 (legs3d.cu leg_kernel's face-array build): the legs of a variable-coefficient
+# star, read from its three face arrays
+
+
+def face_star(shape, dtype, device, seed):
+    """A variable-coefficient star as models/poisson.varcoeff_laplace_stencil
+    stores it: three face arrays of seeded negative values (face_d one
+    node longer along d), the minus and plus entries of axis d their views
+    at offsets 0 and 1, the centre their negative sum in that order.
+    Returns (A, faces)."""
+    from exastencils_tpu_torch.core.stencil import BoundStencil
+    from exastencils_tpu_torch.models.poisson import minus_side, plus_side
+
+    rng = np.random.default_rng(seed)
+    faces = []
+    for d in range(3):
+        fshape = [n + (i == d) for i, n in enumerate(shape)]
+        faces.append(torch.from_numpy(-0.5 - rng.random(fshape)).to(device, dtype))
+    sides = []
+    for d, f in enumerate(faces):
+        sides += [minus_side(f, d, shape[d]), plus_side(f, d, shape[d])]
+    centre = sides[0] + sides[1]
+    for c in sides[2:]:
+        centre.add_(c)
+    return BoundStencil("VarCoeff", s3.STAR_OFFSETS, (centre.neg_(), *sides)), tuple(faces)
+
+
+# A constant star for K4: with a zero sol its residual is its rhs, so K4
+# restricts a given residual in K1's order
+CONST_STAR = (6.5, -0.9, -1.1, -0.7, -1.3, -0.95, -1.05)
+
+
+def check_face_legs(shape, dtype, K, seed, device):
+    """K11 and K12 once on seeded fields: the smoothed sol bitwise the plain
+    sweeps' (make_smoother's rounding), K11's coarse rhs bitwise K4's
+    restriction of the plain residual, K12 bitwise K5 then the plain
+    sweeps, both within TOL of the plain legs; returns the launches of each
+    call."""
+    from exastencils_tpu_torch.core.stencil import BoundStencil
+    from exastencils_tpu_torch.ops.stencil_apply import apply_stencil
+
+    cshape = tuple((n + 1) // 2 for n in shape)
+    R, P = node_restriction(3), node_prolongation(3)
+    rk, pk = separable_kernels(R), separable_kernels(P)
+    A, faces = face_star(shape, dtype, device, seed)
+    found = s3.face_arrays(shape, A.offsets, A.coefs)
+    assert [(f.data_ptr(), f.shape) for f in found] == [(f.data_ptr(), f.shape) for f in faces]
+    rng = np.random.default_rng(seed + 1000)
+    sol, rhs = (torch.from_numpy(rng.standard_normal(shape)).to(device, dtype) for _ in range(2))
+    sol_c = torch.from_numpy(rng.standard_normal(cshape)).to(device, dtype)
+    n0 = (s3.smooth_res_restrict_faces.launches, s3.prolong_correct_smooth_faces.launches)
+    s_got, rc_got = s3.smooth_res_restrict_faces(sol.clone(), rhs, A, faces, OMEGA, K, rk, R.lo,
+                                                 cshape)
+    u_got = s3.prolong_correct_smooth_faces(sol.clone(), sol_c, rhs, A, faces, OMEGA, K, pk, P.lo)
+    torch.cuda.synchronize()
+    s_ref = s3.rbgs_fused_plain(sol, rhs, A, OMEGA, K)
+    assert torch.equal(s_got, s_ref), (shape, dtype, K)
+    inner = torch.zeros(shape, dtype=torch.bool, device=device)
+    inner[1:-1, 1:-1, 1:-1] = True
+    res = torch.where(inner, rhs - apply_stencil(A, s_ref), 0.0)
+    const = BoundStencil("A", s3.STAR_OFFSETS, CONST_STAR)
+    assert torch.equal(rc_got, s3.res_restrict(torch.zeros_like(sol), res, const, rk, R.lo,
+                                                cshape)), (shape, dtype, K)
+    assert torch.equal(u_got, s3.rbgs_fused_plain(s3.prolong_correct(sol.clone(), sol_c, pk, P.lo),
+                                                  rhs, A, OMEGA, K)), (shape, dtype, K)
+    _, rc_ref = s3.smooth_res_restrict_plain(sol, rhs, A, OMEGA, K, rk, R.lo, cshape)
+    u_ref = s3.prolong_correct_smooth_plain(sol, sol_c, rhs, A, OMEGA, K, pk, P.lo)
+    for got, ref in ((rc_got, rc_ref), (u_got, u_ref)):
+        assert (got - ref).abs().max().item() <= TOL[dtype] * ref.abs().max().item()
+    return (s3.smooth_res_restrict_faces.launches - n0[0],
+            s3.prolong_correct_smooth_faces.launches - n0[1])
+
+
+@pytest.mark.parametrize("shape", [(65, 65, 65), (67, 65, 69)])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_face_legs_match_plain(cuda, shape, dtype):
+    """K11/K12 at K = 1..4 on a cube and an odd shape: every K one launch
+    holds (float64: K11 1, K12 2; float32: 3) and deeper K, whose other
+    iterations run in kSmooth launches of the same build; all bitwise
+    (check_face_legs), each call leg_chain's launches."""
+    for K in (1, 2, 3, 4):
+        assert check_face_legs(shape, dtype, K, K, cuda) == (
+            leg_launches(s3.LEG_RESTRICT, K, dtype), leg_launches(s3.LEG_PROLONG, K, dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_face_legs_tile_edges(cuda, dtype):
+    """K11/K12's blocks run concurrently on overlapping windows: 129^3 at
+    K=3 (two z-chunks), several seeds, each run twice, all bitwise."""
+    for seed in range(3):
+        for _ in range(2):
+            check_face_legs((129,) * 3, dtype, 3, seed, cuda)
+
+
+def test_face_legs_refuse(cuda):
+    """bfloat16 fields, a face array of the wrong shape and a restriction
+    reach past 1 raise."""
+    A, faces = face_star((9, 9, 9), torch.float64, cuda, 0)
+    R = node_restriction(3)
+    rk = separable_kernels(R)
+    sol = torch.zeros((9, 9, 9), dtype=torch.float64, device=cuda)
+    bf = torch.zeros((9, 9, 9), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="float32 or float64"):
+        s3.smooth_res_restrict_faces(bf, bf, A, tuple(f.bfloat16() for f in faces), OMEGA, 1, rk,
+                                     R.lo, (5, 5, 5))
+    with pytest.raises(ValueError, match="face array 1"):
+        s3.smooth_res_restrict_faces(sol, sol, A, (faces[0], faces[0], faces[2]), OMEGA, 1, rk,
+                                     R.lo, (5, 5, 5))
+    with pytest.raises(ValueError, match="reach"):
+        s3.smooth_res_restrict_faces(sol, sol, A, faces, OMEGA, 1, rk, (-2, -2, -2), (5, 5, 5))
+
+
+def test_face_legs_solve_prints_the_cpu_lines(cuda):
+    """A 129^3 float64 `kappa_fn` solve, staged on the card: levels 7-2 run
+    K11/K12 (their counters advance at every replay), levels 1-0 plain;
+    its residual lines and cycle count are the CPU's."""
+    def kappa(x, y, z):
+        return torch.exp(10.0 * (x - x * x) * (y - y * y) * (z - z * z))
+
+    def solve(device):
+        k = Knowledge(dimensionality=3, minLevel=0, maxLevel=7, useDblPrecision=True).update()
+        solver = PoissonMGSolver(k, device, kappa_fn=kappa)
+        legs = [lvl for lvl, lv in solver.levels.items() if lv.down_leg_fn is not None]
+        return legs, solver.solve(max_its=100, target_res_reduction=1e-10)
+
+    n0 = (s3.smooth_res_restrict_faces.launches, s3.prolong_correct_smooth_faces.launches)
+    legs, got = solve("cuda")
+    torch.cuda.synchronize()
+    calls = got[4] * len(legs)
+    assert sorted(legs) == list(range(2, 8))
+    assert s3.smooth_res_restrict_faces.launches - n0[0] >= calls * leg_launches(
+        s3.LEG_RESTRICT, 3, torch.float64)
+    assert s3.prolong_correct_smooth_faces.launches - n0[1] >= calls * leg_launches(
+        s3.LEG_PROLONG, 3, torch.float64)
+    _, want = solve("cpu")
+    assert got[1] == want[1] and got[4] == want[4]
