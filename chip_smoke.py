@@ -293,7 +293,7 @@ def compare_legs(level, K, dtype, timed=False, shape=None, excl=None):
     n1 = launch_counts()
     launches = (n1["K1"] - n0["K1"], n1["K2"] - n0["K2"])
     want = tuple(len(s3.leg_chain(m, K, dtype, r))
-                 for m, r in ((s3.LEG_RESTRICT, s3._restrict_reach(rk, R.lo)), (s3.LEG_PROLONG, 0)))
+                 for m, r in ((s3.LEG_RESTRICT, s3.restrict_reach(rk, R.lo)), (s3.LEG_PROLONG, 0)))
     s_ref, rc_ref = s3.smooth_res_restrict_plain(sol, rhs, A, omega, K, rk, R.lo, cshape, excl)
     u_ref = s3.prolong_correct_smooth_plain(sol, sol_c, rhs, A, omega, K, pk, P.lo, excl)
     e_s, e_rc, e_u = rel_err(s_got, s_ref), rel_err(rc_got, rc_ref), rel_err(u_got, u_ref)
@@ -450,9 +450,10 @@ def leg_launch_shape(level, K):
     """K1/K2's launch at one level in float32 and float64: per launch of
     its chain the grid's blocks, threads and shared memory of a block, and
     the blocks one SM holds (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    from exastencils_tpu_torch.ops.cuda import library
     from exastencils_tpu_torch.ops.cuda import stream3d as s3
 
-    lib, n = s3.load_library(), 2 ** level + 1
+    lib, n = library.load_library(), 2 ** level + 1
     chunk, tiles = s3.leg_chunk((n,) * 3, _sm_count()), -(-n // s3.LEG_TILE)
     for kk, mode, reach in (("K1", s3.LEG_RESTRICT, 1), ("K2", s3.LEG_PROLONG, 0)):
         for dtype in (torch.float32, torch.float64):
@@ -550,10 +551,11 @@ def library_transfers(level):
     import torch.nn.functional as F
 
     from exastencils_tpu_torch.ops.cuda import stream3d as s3
+    from exastencils_tpu_torch.ops.cuda.library import star_coefs
 
     A, sol, rhs, sol_c, cshape = leg_inputs(level, torch.float32, seed=level + 17)
     R, P, rk, pk = transfer_ops(False)
-    c = s3._star_coefs(A.offsets, A.coefs, 3)
+    c = star_coefs(A.offsets, A.coefs, 3)
     star = torch.zeros((1, 1, 3, 3, 3), dtype=sol.dtype, device=sol.device)
     star[0, 0, 1, 1, 1] = c[0]
     for d, (lo_c, hi_c) in enumerate(c[1]):
@@ -867,9 +869,10 @@ def v1_launch_shape(level, K):
     clusters the card holds at once (cudaOccupancyMaxActiveClusters)."""
     import ctypes
 
+    from exastencils_tpu_torch.ops.cuda import library
     from exastencils_tpu_torch.ops.cuda import stream3d as s3
 
-    lib, n, nc = s3.load_library(), 2 ** level + 1, 2 ** (level - 1) + 1
+    lib, n, nc = library.load_library(), 2 ** level + 1, 2 ** (level - 1) + 1
     chunk = s3.leg_chunk((n,) * 3, _sm_count())
     for kk, mode, reach in (("K7", s3.LEG_RESTRICT, 1), ("K8", s3.LEG_PROLONG, 0)):
         for cluster in s3.CLUSTER_SHAPES:
@@ -1020,11 +1023,15 @@ def drive_gen(tag, gen, drop_bound, reps, idle=True):
         state["s"] = gen.mg.cycle(state["s"], rhs)
 
     out["eager_ms"] = cuda_ms(step, reps)
-    if idle:  # device idle share in a profiler trace of two cycles
-        from exastencils_tpu_torch.runtime.dsl_profile import busy_ms
+    if idle:  # device idle share in a profiler trace of two cycles, as the benchmark's
+        from portbench import devtrace
 
-        out["idle"] = {"idle_share": f"{busy_ms(lambda: staged(x, rhs), 2)[3]:.4f}",
-                       "eager_idle_share": f"{busy_ms(step, 2)[3]:.4f}"}
+        def idle_share(fn):
+            tr = devtrace.profile(fn, 2)
+            return 1 - devtrace.busy_s(tr) / tr["wall_s"]
+
+        out["idle"] = {"idle_share": f"{idle_share(lambda: staged(x, rhs)):.4f}",
+                       "eager_idle_share": f"{idle_share(step):.4f}"}
     st = staged.stats
     STAGING[tag] = {"graphs": st.graphs, "segments": st.segments, "loops": st.loops,
                     "capture_s": round(st.capture_s, 3), "pool_bytes": st.pool_bytes}
@@ -1141,15 +1148,15 @@ def kernel_of(name):
 def replay_kernels(fn):
     """The kernels K1-K8 that a torch.profiler trace of one fn() shows on
     the device, counted by name, the device events in all and the first
-    three event names (`dsl_profile.device_events`: the trace's own first
+    three event names (portbench/devtrace.profile: the trace's own first
     milliseconds, which can lose their events, hold another fn() and a
     marker kernel)."""
-    from exastencils_tpu_torch.runtime.dsl_profile import device_events
+    from portbench import devtrace
 
     seen, names = {}, []
-    for e in device_events(fn, 1):
-        names.append(e.name[:48])
-        kk = kernel_of(e.name)
+    for name, _, _ in devtrace.profile(fn, 1)["device"]:
+        names.append(name[:48])
+        kk = kernel_of(name)
         if kk is not None:
             seen[kk] = seen.get(kk, 0) + 1
     return seen, len(names), names[:3]
@@ -1452,7 +1459,7 @@ def varcoeff_path():
     A, L = solver.stencil.bind(grid), laplace_stencil(3).bind(grid)
     shape = tuple(grid.shape_of(NODE))
     cshape = tuple(solver.grids[MAIN_LEVEL - 1].shape_of(NODE))
-    faces = s3.face_arrays(shape, A.offsets, A.coefs)
+    faces = s3.face_arrays(shape, A)
     if faces is None:
         raise AssertionError("varcoeff_path: the level's stencil is outside K11/K12's contract")
     R, P = node_restriction(3), node_prolongation(3)
@@ -2643,6 +2650,7 @@ def main():
         print("chip_smoke: torch.cuda.is_available() is false; nothing run", file=sys.stderr)
         return 1
     t_start = time.perf_counter()
+    from exastencils_tpu_torch.ops.cuda import library
     from exastencils_tpu_torch.ops.cuda import stream3d as s3
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2653,8 +2661,8 @@ def main():
     phase("device", nvidia_smi=repr(smi), torch=torch.__version__, cuda=torch.version.cuda, name=repr(name))
 
     t0 = time.perf_counter()
-    s3.load_library()
-    log = s3.library_path().with_suffix(".log")
+    library.load_library()
+    log = library.library_path().with_suffix(".log")
     regs = [ln.strip() for ln in log.read_text().splitlines() if "registers" in ln] if log.exists() else []
     phase("build", seconds=f"{time.perf_counter() - t0:.2f}", ptxas=regs)
 

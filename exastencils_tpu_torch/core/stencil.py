@@ -142,11 +142,16 @@ def _mul_shifted(a, b, p: Offset):
 @dataclass(frozen=True)
 class BoundStencil:
     """A stencil with concrete per-level coefficients (scalars or tensors
-    broadcastable against the field it is applied to)."""
+    broadcastable against the field it is applied to).  `faces`: the face
+    arrays whose views the coefficients are, set only by the bind of
+    models/poisson.varcoeff_laplace_stencil (ops/cuda's K11/K12 read
+    them); a stencil made any other way, scale() and the algebra included,
+    carries none."""
 
     name: str
     offsets: Tuple[Offset, ...]
     coefs: Tuple[object, ...]
+    faces: Optional[Tuple[torch.Tensor, ...]] = dc_field(default=None, compare=False)
 
     @property
     def ndim(self) -> int:

@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import math
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Callable, Optional
 
 import numpy as np
@@ -34,7 +34,8 @@ from exastencils_tpu_torch.config import Knowledge
 from exastencils_tpu_torch.core.domain import Domain, unit_domain
 from exastencils_tpu_torch.core.field import DirichletBC, Field
 from exastencils_tpu_torch.core.grid import NODE, LevelGrid, level_grids
-from exastencils_tpu_torch.core.stencil import Stencil, node_prolongation, node_restriction
+from exastencils_tpu_torch.core.stencil import (BoundStencil, Stencil, node_prolongation,
+                                                node_restriction)
 from exastencils_tpu_torch.device import check_device, real_dtype
 from exastencils_tpu_torch.parallel.backend import DenseBackend, ShardedBackend
 from exastencils_tpu_torch.solver.synthesis import Equation, generate_solver
@@ -143,6 +144,17 @@ def coef_storage_bytes(stencils) -> int:
     return sum(seen.values())
 
 
+@dataclass
+class _FaceStencil(Stencil):
+    """A stencil whose bind carries the level's face arrays
+    (BoundStencil.faces), as `faces_of(grid)` gives them."""
+
+    faces_of: Optional[Callable] = None
+
+    def bind(self, grid: LevelGrid) -> BoundStencil:
+        return replace(super().bind(grid), faces=self.faces_of(grid))
+
+
 def varcoeff_laplace_stencil(ndim: int, kappa_fn: Callable) -> Stencil:
     """-div(kappa grad u), the conservative (2*ndim+1)-point node scheme
     on a uniform grid: (A u)_i = sum_d [k_{i+1/2 e_d} (u_i - u_{i+e_d})
@@ -153,7 +165,8 @@ def varcoeff_laplace_stencil(ndim: int, kappa_fn: Callable) -> Stencil:
     A level holds ndim + 1 full-size arrays: the centre and one face
     array per axis (`face_coefficients`), whose minus and plus sides are
     views shifted by one (the operator is symmetric).  They are built at
-    the first bind on a level grid, and every later bind shares them."""
+    the first bind on a level grid, and every later bind shares them and
+    carries the face arrays (BoundStencil.faces)."""
     built = {}
 
     def arrays(grid):
@@ -166,10 +179,10 @@ def varcoeff_laplace_stencil(ndim: int, kappa_fn: Callable) -> Stencil:
             for d in range(1, ndim):
                 centre.add_(minus_side(faces[d], d, n[d])).add_(plus_side(faces[d], d, n[d]))
             centre.neg_()
-            built[id(grid)] = (grid, centre, faces)  # the grid keeps its id unique
+            built[id(grid)] = (grid, centre, tuple(faces))  # the grid keeps its id unique
         return built[id(grid)][1:]
 
-    st = Stencil("VarCoeffLaplace")
+    st = _FaceStencil("VarCoeffLaplace", faces_of=lambda g: arrays(g)[1])
     st.add_entry((0,) * ndim, lambda g: arrays(g)[0])
     for d in range(ndim):
         for s, side in ((-1, minus_side), (1, plus_side)):

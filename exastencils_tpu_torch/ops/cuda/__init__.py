@@ -50,10 +50,8 @@ from __future__ import annotations
 
 from exastencils_tpu_torch.core.field import DirichletBC, Field
 from exastencils_tpu_torch.core.grid import NODE
-from exastencils_tpu_torch.ops.cuda.stream3d import (  # noqa: F401
+from exastencils_tpu_torch.ops.cuda.stream3d import (
     MAX_TAPS,
-    _restrict_reach,
-    _star_coefs,
     cuda_applicable_3d,
     face_arrays,
     prolong_correct,
@@ -62,6 +60,7 @@ from exastencils_tpu_torch.ops.cuda.stream3d import (  # noqa: F401
     prolong_correct_smooth_fused_3d,
     rbgs_fused_3d,
     res_restrict,
+    restrict_reach,
     smooth_res_restrict,
     smooth_res_restrict_faces,
     smooth_res_restrict_fused_3d,
@@ -162,7 +161,7 @@ def make_fused_legs_3d(
         return None, None
     faces = None
     if not cuda_applicable_3d(tuple(fine_shape), A.offsets, A.coefs):
-        faces = face_arrays(fine_shape, A.offsets, A.coefs)
+        faces = face_arrays(fine_shape, A)
         if faces is None:
             return None, None
     taps = _transfer_taps(restrict_op, prolong_op)
@@ -172,7 +171,7 @@ def make_fused_legs_3d(
     coarse_shape = tuple(coarse_shape)
     r_lo, p_lo = tuple(restrict_op.lo), tuple(prolong_op.lo)
     if faces is not None:
-        if _restrict_reach(r_kern, r_lo) > 1:
+        if restrict_reach(r_kern, r_lo) > 1:
             return None, None
 
         def down_faces(sol, rhs):

@@ -11,7 +11,7 @@ ExaSlang program's `CalcRes`-shaped function bodies (`res = f - A * u`
 over res, then `apply bc to res`) and its `+ : acc += res * res`
 reductions here, on levels of at least 33 nodes a dim: the plain ops took
 ~40 passes a check.  The kernels are csrc/check3d.cu's, built into the
-library of ops/cuda/stream3d.py.  As for K1-K8, a wrapper given CUDA tensors launches
+library of library.py.  As for K1-K8, a wrapper given CUDA tensors launches
 (or raises), given CPU tensors runs the plain version, and counts its
 launches on its `.launches` (runtime/staging `count_launch`: replays of a
 captured launch count too); K10's count is one per sum, though each sum is
@@ -35,20 +35,20 @@ import functools
 import torch
 
 from exastencils_tpu_torch.core.stencil import BoundStencil
-from exastencils_tpu_torch.ops.cuda.stream3d import (
+from exastencils_tpu_torch.ops.cuda.library import (
     DTYPE_CODES,
     NO_EXCL,
-    _check,
-    _check_cuda_fields,
-    _check_shapes,
-    _compute,
-    _device_type,
-    _inner_mask,
-    _sm_count,
-    _star_array,
-    _stored,
-    _stream,
+    check_cuda_fields,
+    check_error,
+    check_shapes,
+    compute,
+    current_stream,
+    device_type,
+    inner_mask,
     load_library,
+    sm_count,
+    star_array,
+    stored,
 )
 from exastencils_tpu_torch.ops.stencil_apply import apply_stencil
 from exastencils_tpu_torch.runtime.staging import count_launch
@@ -80,16 +80,16 @@ def _library():
 def residual_plain(sol, rhs, A: BoundStencil, ring=None):
     """rhs - A sol on the inner nodes; on the ring zero (`ring` None) or
     `ring`'s values.  Returns a new tensor."""
-    inner = _inner_mask(sol.shape, NO_EXCL, sol.device)
+    inner = inner_mask(sol.shape, NO_EXCL, sol.device)
     dtype = sol.dtype
-    res = _stored(_compute(rhs) - apply_stencil(A, _compute(sol)), dtype)
-    return torch.where(inner, res, 0.0 if ring is None else _compute(ring)).to(dtype)
+    res = stored(compute(rhs) - apply_stencil(A, compute(sol)), dtype)
+    return torch.where(inner, res, 0.0 if ring is None else compute(ring)).to(dtype)
 
 
 def inner_sum_squares_plain(res):
     """The sum of res * res over the inner nodes, a 0-dim tensor of res's
     dtype: the DSL executor's masked sum."""
-    inner = _inner_mask(res.shape, NO_EXCL, res.device)
+    inner = inner_mask(res.shape, NO_EXCL, res.device)
     return torch.sum(torch.where(inner, res * res, 0))
 
 
@@ -121,19 +121,19 @@ def residual(sol, rhs, A: BoundStencil, res, zero_ring: bool = True):
     check3d.cu launch in z-chunks of res_chunk planes."""
     if _shares(res, sol) or _shares(res, rhs):
         raise ValueError("res must not share storage with sol or rhs")
-    if _device_type(sol, rhs, res) == "cpu":
+    if device_type(sol, rhs, res) == "cpu":
         return res.copy_(residual_plain(sol, rhs, A, None if zero_ring else res))
-    _check_cuda_fields(sol, rhs, res)
-    _check_shapes(sol, rhs)
-    _check_shapes(sol, res)
-    _, coefs = _star_array(A)
+    check_cuda_fields(sol, rhs, res)
+    check_shapes(sol, rhs)
+    check_shapes(sol, res)
+    _, coefs = star_array(A)
     lib = _library()
     nz, ny, nx = sol.shape
     with torch.cuda.device(sol.device):
-        chunk = res_chunk(sol.shape, sol.element_size(), _sm_count(sol.device.index))
+        chunk = res_chunk(sol.shape, sol.element_size(), sm_count(sol.device.index))
         err = lib.exa_residual(res.data_ptr(), sol.data_ptr(), rhs.data_ptr(), nz, ny, nx, coefs,
-                               int(zero_ring), chunk, DTYPE_CODES[sol.dtype], _stream())
-        _check(lib, err, "residual")
+                               int(zero_ring), chunk, DTYPE_CODES[sol.dtype], current_stream())
+        check_error(lib, err, "residual")
         count_launch(residual)
     return res
 
@@ -146,18 +146,18 @@ def inner_sum_squares(res):
     of res's dtype.  On CUDA the block partials (SUM_BLOCKS_PER_SM blocks a
     SM, so the same card always sums in the same order) into a float64
     buffer of this call, then their sum in one block."""
-    if _device_type(res) == "cpu":
+    if device_type(res) == "cpu":
         return inner_sum_squares_plain(res)
-    _check_cuda_fields(res)
+    check_cuda_fields(res)
     lib = _library()
     nz, ny, nx = res.shape
     with torch.cuda.device(res.device):
-        blocks = SUM_BLOCKS_PER_SM * _sm_count(res.device.index)
+        blocks = SUM_BLOCKS_PER_SM * sm_count(res.device.index)
         partial = torch.empty(blocks, dtype=torch.float64, device=res.device)
         out = torch.empty((), dtype=res.dtype, device=res.device)
         err = lib.exa_sum_squares(res.data_ptr(), partial.data_ptr(), out.data_ptr(), nz, ny, nx,
-                                  blocks, DTYPE_CODES[res.dtype], _stream())
-        _check(lib, err, "inner_sum_squares")
+                                  blocks, DTYPE_CODES[res.dtype], current_stream())
+        check_error(lib, err, "inner_sum_squares")
         count_launch(inner_sum_squares)
     return out
 

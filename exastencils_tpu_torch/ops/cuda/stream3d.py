@@ -1,5 +1,5 @@
-"""The 3D streaming kernels K1-K8: wrappers, plain PyTorch versions, the
-schedule dispatchers and the CUDA library loader.
+"""The 3D streaming kernels K1-K8, K11 and K12: wrappers, their launch
+geometry, plain PyTorch versions and the schedule dispatchers.
 
 Reference: exastencils_tpu/ops/pallas/stream3d.py (`rbgs_fused_3d` :192,
 `res_restrict_fused_3d` :365, `prolong_correct_fused_3d` :454,
@@ -27,18 +27,15 @@ schedule).
 
 K11/K12 replace no TPU kernel (the JAX package has no variable-coefficient
 model): they run K1/K2's maths on the star of
-models/poisson.varcoeff_laplace_stencil, whose off-centre coefficients are
-views of three face arrays (`face_arrays` states the contract).
+models/poisson.varcoeff_laplace_stencil, which carries its three face
+arrays (`face_arrays` states the contract).
 
 The kernels are CUDA C++ for sm_90a in ../../csrc/ (legs3d.cu: K1-K3,
 one z-chunked pass per call, K3 its transfer-free mode, K11/K12 its
-variable-coefficient build; stream3d.cu:
-K4/K5, z-streamed tiles; cluster_legs3d.cu: K6-K8, the same one-pass
-design on thread-block clusters that share their y/x halo, K6 its
-transfer-free mode; check3d.cu: the residual check K9/K10, whose wrappers
-are in check3d.py), compiled
-with nvcc on first use into build/exastencils_tpu_torch/ at the
-repository root and loaded with ctypes.  A wrapper given CUDA tensors
+variable-coefficient build; stream3d.cu: K4/K5, z-streamed tiles;
+cluster_legs3d.cu: K6-K8, the same one-pass design on thread-block
+clusters that share their y/x halo, K6 its transfer-free mode), in the
+library of library.py.  A wrapper given CUDA tensors
 launches the kernels (or raises); given CPU tensors it runs the plain
 version; any other device raises.  Each wrapper counts the kernel
 launches it makes in its own `.launches` (runtime/staging
@@ -62,17 +59,30 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
 import itertools
 import os
-import shutil
-import subprocess
-from pathlib import Path
 from typing import Sequence, Tuple
 
 import torch
 
 from exastencils_tpu_torch.core.stencil import BoundStencil
+from exastencils_tpu_torch.ops.cuda.library import (
+    DTYPE_CODES,
+    NO_EXCL,
+    check_cuda_fields,
+    check_error,
+    check_shapes,
+    compute,
+    current_stream,
+    device_type,
+    inner_mask,
+    library_path,
+    load_library,
+    sm_count,
+    star_array,
+    star_coefs,
+    stored,
+)
 from exastencils_tpu_torch.ops.smoothers import color_mask, jacobi_update
 from exastencils_tpu_torch.ops.stencil_apply import apply_stencil
 from exastencils_tpu_torch.ops.transfer import (
@@ -82,24 +92,9 @@ from exastencils_tpu_torch.ops.transfer import (
 )
 from exastencils_tpu_torch.runtime.staging import count_launch
 
-NO_EXCL = (-1,) * 6  # per-dim lo/hi planes excluded from updates; -1 = none
-# The field dtypes the kernels take, by their code in the C interface
-# (csrc/star3d.cuh DType); bfloat16 under the rounding contract stated there
-DTYPE_CODES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
 NO_GHOST = (0, 0, 0)  # per-dim ghost width of a halo-extended fragment (K1/K2)
 MAX_TAPS = 3  # transfer taps per dim the kernels take (kMaxTaps)
 
-CSRC = Path(__file__).resolve().parents[2] / "csrc"
-SOURCES = (CSRC / "stream3d.cu", CSRC / "legs3d.cu", CSRC / "cluster_legs3d.cu",
-           CSRC / "check3d.cu")
-HEADERS = (CSRC / "star3d.cuh",)
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "exastencils_tpu_torch"
-# --fmad=false: no mul+add contraction, so the RBGS and residual
-# arithmetic rounds exactly as the plain PyTorch path does
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
 # The dynamic shared memory one block may use on Hopper (227 KB)
 SMEM_LIMIT = 232448
 # The kernels' modes (legs3d.cu, cluster_legs3d.cu): LEG_SMOOTH is K3/K6,
@@ -129,29 +124,6 @@ UP_TILE, DOWN_TILE = (16, 64), (8, 32)
 TRANSFER_THREADS, TRANSFER_CHUNK, TRANSFER_AHEAD = 256, 32, 1
 
 
-def _star_coefs(offsets, coefs, ndim: int):
-    """Validate a radius-1 star stencil; return (c0, [(c_lo, c_hi)] per dim)
-    as Python floats, or None if not representable."""
-    c0 = None
-    per_dim = [[0.0, 0.0] for _ in range(ndim)]
-    for off, c in zip(offsets, coefs):
-        try:
-            c = float(c)
-        except (TypeError, ValueError, RuntimeError):
-            return None  # tensor (variable) coefficient
-        nz = [d for d in range(ndim) if off[d] != 0]
-        if not nz:
-            c0 = c
-        elif len(nz) == 1 and abs(off[nz[0]]) == 1:
-            d = nz[0]
-            per_dim[d][0 if off[d] < 0 else 1] += c
-        else:
-            return None  # diagonal entry -> not a star stencil
-    if c0 is None or c0 == 0.0:
-        return None
-    return c0, [tuple(p) for p in per_dim]
-
-
 def _kernel_shape(shape) -> bool:
     """3D, at least 5 z-planes and 3 nodes in y/x."""
     return len(shape) == 3 and shape[0] >= 5 and shape[1] >= 3 and shape[2] >= 3
@@ -161,7 +133,7 @@ def cuda_applicable_3d(shape, offsets, coefs) -> bool:
     """The kernels' contract: 3D, at least 5 z-planes and 3 nodes in y/x,
     constant radius-1 star stencil.  (The TPU version also checked a VMEM
     budget, which has no counterpart here.)"""
-    return _kernel_shape(tuple(shape)) and _star_coefs(offsets, coefs, 3) is not None
+    return _kernel_shape(tuple(shape)) and star_coefs(offsets, coefs, 3) is not None
 
 
 # The radius-1 star's entries in the kernels' order (csrc/star3d.cuh Star):
@@ -171,138 +143,34 @@ STAR_OFFSETS = ((0, 0, 0), (-1, 0, 0), (1, 0, 0), (0, -1, 0), (0, 1, 0), (0, 0, 
 FACE_DTYPES = (torch.float32, torch.float64)
 
 
-def _face_of(minus: torch.Tensor, plus: torch.Tensor, d: int):
-    """The contiguous array, one longer along `d`, whose views at offsets 0
-    and 1 along `d` are `minus` and `plus`; None if there is none."""
-    shape = list(minus.shape)
-    shape[d] += 1
-    stride = (shape[1] * shape[2], shape[2], 1)
-    store = minus.untyped_storage()
-    if (minus.stride() != stride or plus.stride() != stride
-            or plus.untyped_storage().data_ptr() != store.data_ptr()
-            or plus.storage_offset() != minus.storage_offset() + stride[d]
-            or (minus.storage_offset() + shape[0] * stride[0]) * minus.element_size()
-            > store.nbytes()):
-        return None
-    return minus.as_strided(shape, stride, minus.storage_offset())
-
-
-def face_arrays(shape, offsets, coefs):
-    """K11/K12's contract on a level of `shape`: the radius-1 star of
-    models/poisson.varcoeff_laplace_stencil.  Returns its face arrays
-    (face_z, face_y, face_x; face_d contiguous and n_d + 1 long along d),
-    or None.  Every entry is a float32 or float64 tensor of the level's
-    shape, on one device; the minus and plus entries of axis d are the
-    views at offsets 0 and 1 along d of one face array; the centre equals
-    their negative sum in the kernels' order (z- + z+, then y-, y+, x-,
-    x+), which is held once here with torch.equal, so the kernels read no
-    centre array.  The shape is the kernels' (`_kernel_shape`).
+def face_arrays(shape, A: BoundStencil):
+    """K11/K12's contract on a level of `shape`: the face arrays that a
+    bound stencil carries (`BoundStencil.faces`, which only
+    models/poisson.varcoeff_laplace_stencil's bind sets), as (face_z,
+    face_y, face_x), or None.  They are float32 or float64, of one dtype,
+    on one device, face_d n_d + 1 long along d; the stencil's minus and
+    plus entries of axis d are face_d's views at offsets 0 and 1 and its
+    centre their negative sum, built together with them, so the kernels
+    read no centre array.  The shape is the kernels' (`_kernel_shape`).
     EXA_STREAM_V1=1 does not apply: it chooses between K1-K3 and K6-K8,
     and K11/K12 have one schedule."""
-    shape = tuple(int(n) for n in shape)
-    by_off = dict(zip((tuple(o) for o in offsets), coefs))
-    if (not _kernel_shape(shape) or len(by_off) != len(offsets)
-            or set(by_off) != set(STAR_OFFSETS)):
+    shape, faces = tuple(int(n) for n in shape), A.faces
+    if faces is None or len(faces) != 3 or not _kernel_shape(shape):
         return None
-    entries = [by_off[o] for o in STAR_OFFSETS]
-    if not all(isinstance(c, torch.Tensor) and tuple(c.shape) == shape for c in entries):
+    if faces[0].dtype not in FACE_DTYPES:
         return None
-    if entries[0].dtype not in FACE_DTYPES or any(
-            c.dtype != entries[0].dtype or c.device != entries[0].device for c in entries):
-        return None
-    faces = tuple(_face_of(entries[1 + 2 * d], entries[2 + 2 * d], d) for d in range(3))
-    if any(f is None for f in faces):
-        return None
-    centre = entries[1] + entries[2]
-    for c in entries[3:]:
-        centre.add_(c)
-    return faces if torch.equal(entries[0], centre.neg_()) else None
-
-
-# ----------------------------------------------------------------------
-# library loader
-# ----------------------------------------------------------------------
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
-    if cand.exists():
-        return str(cand)
-    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin)")
-
-
-def library_path() -> Path:
-    """Where the build of the current sources and flags lives."""
-    tag = hashlib.sha256()
-    for f in (*SOURCES, *HEADERS):
-        tag.update(f.read_bytes())
-    tag.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libstream3d_{tag.hexdigest()[:16]}.so"
-
-
-def _build(so: Path):
-    """One nvcc per source, all started together, then one link.  The
-    compilers' output, including ptxas register counts, is kept beside
-    the library as .log."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    stem = so.with_name(f"{so.name}.{os.getpid()}")
-    objs = [stem.with_name(f"{stem.name}.{src.stem}.o") for src in SOURCES]
-    procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-             for src, obj in zip(SOURCES, objs)]
-    logs = [proc.communicate()[0] for proc in procs]
-    for src, proc, log in zip(SOURCES, procs, logs):
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {src}:\n{log}")
-    tmp = stem.with_name(f"{stem.name}.tmp")
-    link = subprocess.run([_nvcc(), "-shared", "-o", str(tmp), *map(str, objs)],
-                          capture_output=True, text=True)
-    for obj in objs:
-        obj.unlink()
-    if link.returncode != 0:
-        raise RuntimeError(f"nvcc failed to link {so.name}:\n{link.stdout}{link.stderr}")
-    so.with_suffix(".log").write_text("".join(logs))
-    os.replace(tmp, so)
+    for d, f in enumerate(faces):
+        want = tuple(n + (i == d) for i, n in enumerate(shape))
+        if f.dtype != faces[0].dtype or f.device != faces[0].device or tuple(f.shape) != want:
+            return None
+    return faces
 
 
 @functools.cache
-def load_library() -> ctypes.CDLL:
-    """Build (once per source version) and load the kernel library."""
-    so = library_path()
-    if not so.exists():
-        _build(so)
-    lib = ctypes.CDLL(str(so))
-    p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-    pd, pi = ctypes.POINTER(ctypes.c_double), ctypes.POINTER(ctypes.c_int)
-    lib.exa_max_taps.argtypes, lib.exa_max_taps.restype = [], i
-    lib.exa_leg_constant.argtypes, lib.exa_leg_constant.restype = [i], i
-    lib.exa_leg_occupancy.argtypes, lib.exa_leg_occupancy.restype = [i, i, i, i], i
-    lib.exa_leg_smem.argtypes, lib.exa_leg_smem.restype = [i, i, i, i], ctypes.c_longlong
-    lib.exa_leg.argtypes = [p, p, p, p, p, i, i, i, i, i, i, pd, d, i, i, i, i, pd, pi, pi, pi, pi,
-                            i, p]
-    lib.exa_leg_faces_threads.argtypes, lib.exa_leg_faces_threads.restype = [i, i, i], i
-    lib.exa_leg_faces.argtypes = [p] * 8 + [i] * 6 + [d, i, i, i, i, pd, pi, pi, i, p]
-    lib.exa_error_string.argtypes, lib.exa_error_string.restype = [i], ctypes.c_char_p
-    lib.exa_transfer_constant.argtypes, lib.exa_transfer_constant.restype = [i], i
-    lib.exa_residual_restrict.argtypes = [p, p, p, i, i, i, i, i, i, pd, pd, pi, pi, i, i, p]
-    lib.exa_prolong_correct.argtypes = [p, p, i, i, i, i, i, i, pd, pi, pi, i, i, p]
-    lib.exa_cluster_constant.argtypes, lib.exa_cluster_constant.restype = [i], i
-    lib.exa_cluster_smem.argtypes = [i, i, i, i, i, i]
-    lib.exa_cluster_smem.restype = ctypes.c_longlong
-    lib.exa_cluster_threads.argtypes, lib.exa_cluster_threads.restype = [i, i, i, i, i], i
-    lib.exa_cluster_occupancy.argtypes, lib.exa_cluster_occupancy.restype = [i] * 7, i
-    lib.exa_cluster_grid.argtypes, lib.exa_cluster_grid.restype = [i] * 10 + [pi], None
-    lib.exa_cluster_leg.argtypes = [p, p, p, p, p, i, i, i, i, i, i, pd, d, i, i, i, i, pd, pi, pi,
-                                    pi, i, i, i, p]
-    lib.exa_check_constant.argtypes, lib.exa_check_constant.restype = [i], i
-    lib.exa_residual.argtypes = [p, p, p, i, i, i, pd, i, i, i, p]
-    lib.exa_sum_squares.argtypes = [p, p, p, i, i, i, i, i, p]
-    for fn in (lib.exa_residual_restrict, lib.exa_prolong_correct, lib.exa_leg,
-               lib.exa_leg_faces, lib.exa_cluster_leg, lib.exa_residual, lib.exa_sum_squares):
-        fn.restype = i
+def _library():
+    """The kernel library (library.load_library), the layout constants of
+    stream3d.cu, legs3d.cu and cluster_legs3d.cu checked against these."""
+    lib, so = load_library(), library_path()
     if lib.exa_max_taps() != MAX_TAPS:
         raise RuntimeError(f"{so}: kMaxTaps {lib.exa_max_taps()} != {MAX_TAPS}")
     transfer = tuple(lib.exa_transfer_constant(k) for k in range(7))
@@ -344,43 +212,6 @@ def load_library() -> ctypes.CDLL:
 # ----------------------------------------------------------------------
 
 
-def _device_type(*tensors) -> str:
-    dev = tensors[0].device
-    for t in tensors[1:]:
-        if t.device != dev:
-            raise ValueError(f"tensors on different devices: {dev} and {t.device}")
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {dev} (cpu or cuda)")
-    return dev.type
-
-
-def _check_cuda_fields(sol: torch.Tensor, *others: torch.Tensor):
-    if sol.dtype not in DTYPE_CODES:
-        raise ValueError(f"kernels take float32, float64 or bfloat16, not {sol.dtype}")
-    for t in (sol, *others):
-        if t.dtype != sol.dtype:
-            raise ValueError(f"dtype mismatch: {t.dtype} vs {sol.dtype}")
-        if t.dim() != 3 or not t.is_contiguous():
-            raise ValueError("kernels take contiguous 3D tensors")
-        if max(t.shape[:2]) > 65535:
-            raise ValueError(f"shape {tuple(t.shape)}: z and y must be <= 65535 (grid dims)")
-
-
-def _check_shapes(sol, rhs, coarse_shape=None):
-    if tuple(rhs.shape) != tuple(sol.shape):
-        raise ValueError("rhs must match sol")
-    if coarse_shape is not None and len(coarse_shape) != 3:
-        raise ValueError("coarse_shape must be 3D")
-
-
-def _star_array(A: BoundStencil):
-    cs = _star_coefs(A.offsets, A.coefs, 3)
-    if cs is None:
-        raise ValueError(f"{A.name}: not a constant radius-1 star stencil")
-    c0, ((czm, czp), (cym, cyp), (cxm, cxp)) = cs
-    return c0, (ctypes.c_double * 7)(c0, czm, czp, cym, cyp, cxm, cxp)
-
-
 def _taps_arrays(kernels: Sequence[Sequence[float]], lo: Sequence[int]):
     if len(kernels) != 3 or len(lo) != 3:
         raise ValueError("need one transfer kernel and lo per dim")
@@ -400,19 +231,10 @@ def _excl_array(excl: Sequence[int]):
     return (ctypes.c_int * 6)(*(int(p) for p in excl))
 
 
-def _check(lib, err: int, name: str):
-    if err != 0:
-        raise RuntimeError(f"{name}: CUDA error {err} ({lib.exa_error_string(err).decode()})")
-
-
 def smem_itemsize(dtype: torch.dtype) -> int:
     """Bytes of one value in a kernel's shared memory: its compute type's
     (csrc/star3d.cuh), so 4 for bfloat16, whose rings are float32."""
     return 4 if dtype == torch.bfloat16 else torch.empty((), dtype=dtype).element_size()
-
-
-def _stream():
-    return torch.cuda.current_stream().cuda_stream
 
 
 def _check_plane(sol):
@@ -421,70 +243,17 @@ def _check_plane(sol):
         raise ValueError(f"shape {tuple(sol.shape)}: a plane must hold < 2^31 nodes")
 
 
-def _residual_restrict(lib, sol, rhs, A, r_kernels, r_lo, coarse_shape, chunk):
-    """One stream3d.cu restrict_kernel launch; returns the new coarse
-    tensor."""
-    _, coefs = _star_array(A)
-    taps, ntaps, lo = _taps_arrays(r_kernels, r_lo)
-    nz, ny, nx = sol.shape
-    nzc, nyc, nxc = (int(n) for n in coarse_shape)
-    out = torch.empty((nzc, nyc, nxc), dtype=sol.dtype, device=sol.device)
-    err = lib.exa_residual_restrict(
-        sol.data_ptr(), rhs.data_ptr(), out.data_ptr(), nz, ny, nx,
-        nzc, nyc, nxc, coefs, taps, ntaps, lo, chunk, DTYPE_CODES[sol.dtype], _stream())
-    _check(lib, err, "residual_restrict")
-    return out
-
-
-def _prolong_correct(lib, sol, sol_c, p_kernels, p_lo, chunk):
-    """One stream3d.cu prolong_kernel launch, in place on sol."""
-    taps, ntaps, lo = _taps_arrays(p_kernels, p_lo)
-    nz, ny, nx = sol.shape
-    nzc, nyc, nxc = sol_c.shape
-    err = lib.exa_prolong_correct(
-        sol.data_ptr(), sol_c.data_ptr(), nz, ny, nx, nzc, nyc, nxc,
-        taps, ntaps, lo, chunk, DTYPE_CODES[sol.dtype], _stream())
-    _check(lib, err, "prolong_correct")
-
-
 # ----------------------------------------------------------------------
 # plain PyTorch versions (CPU path, and the reference on the card)
 # ----------------------------------------------------------------------
 
 
-def _inner_mask(shape, excl, device) -> torch.Tensor:
-    """Updatable nodes: not on the Dirichlet ring nor an excl plane."""
-    m = torch.zeros(shape, dtype=torch.bool, device=device)
-    m[1:-1, 1:-1, 1:-1] = True
-    for d in range(3):
-        for p in excl[2 * d:2 * d + 2]:
-            if p >= 0:
-                m[tuple(p if i == d else slice(None) for i in range(3))] = False
-    return m
-
-
-# bfloat16 (csrc/star3d.cuh's contract): the plain versions upcast, run the
-# float32 arithmetic and round where a kernel stores (each half-sweep's new
-# values, each residual, each coarse value, each corrected fine value).
-
-
-def _compute(t: torch.Tensor) -> torch.Tensor:
-    """A field in its compute type: float32 for bfloat16, else itself."""
-    return t.float() if t.dtype == torch.bfloat16 else t
-
-
-def _stored(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """A compute-type value rounded where a kernel stores it (to nearest
-    even, kept in the compute type); a no-op unless `dtype` is bfloat16."""
-    return t.to(dtype).float() if dtype == torch.bfloat16 else t
-
-
 def _rbgs_plain(sol, rhs, A, omega, K, inner):
     masks = [color_mask(sol.shape, c, sol.device) & inner for c in (0, 1)]
-    dtype, sol, rhs = sol.dtype, _compute(sol), _compute(rhs)
+    dtype, sol, rhs = sol.dtype, compute(sol), compute(rhs)
     for _ in range(K):
         for m in masks:
-            sol = _stored(jacobi_update(sol, rhs, A, omega, m), dtype)
+            sol = stored(jacobi_update(sol, rhs, A, omega, m), dtype)
     return sol.to(dtype)
 
 
@@ -501,8 +270,8 @@ def _res_restrict_plain(sol, rhs, A, r_kernels, r_lo, coarse_shape, inner, ghost
     """The residual on `inner` nodes, restricted: coarse node c of the
     write window (coarse_window) takes the fine nodes 2c + lo - ghost + k
     (zero elsewhere)."""
-    dtype, sol, rhs = sol.dtype, _compute(sol), _compute(rhs)
-    res = _stored(torch.where(inner, rhs - apply_stencil(A, sol), 0.0), dtype)
+    dtype, sol, rhs = sol.dtype, compute(sol), compute(rhs)
+    res = stored(torch.where(inner, rhs - apply_stencil(A, sol), 0.0), dtype)
     mats = []
     for d, (w0, w1) in enumerate(coarse_window(coarse_shape, ghost)):
         mats.append(restriction_matrix_1d(r_kernels[d], r_lo[d] - ghost[d] + 2 * w0, w1 - w0 + 1,
@@ -513,27 +282,27 @@ def _res_restrict_plain(sol, rhs, A, r_kernels, r_lo, coarse_shape, inner, ghost
 def _prolong_correct_plain(sol, sol_c, p_kernels, p_lo, inner, ghost=NO_GHOST):
     mats = [prolongation_matrix_full_ghosted(p_kernels[d], p_lo[d], sol_c.shape[d],
                                              sol.shape[d], ghost[d]) for d in range(3)]
-    new = _compute(sol) + apply_separable(mats, _compute(sol_c))
+    new = compute(sol) + apply_separable(mats, compute(sol_c))
     return torch.where(inner, new.to(sol.dtype), sol)
 
 
 def rbgs_fused_plain(sol, rhs, A: BoundStencil, omega: float, K: int, excl=NO_EXCL):
     """K RBGS iterations as masked-Jacobi half-sweeps, red first, on the
     inner non-excl nodes.  Out of place: returns the new sol."""
-    return _rbgs_plain(sol, rhs, A, omega, K, _inner_mask(sol.shape, excl, sol.device))
+    return _rbgs_plain(sol, rhs, A, omega, K, inner_mask(sol.shape, excl, sol.device))
 
 
 def res_restrict_plain(sol, rhs, A: BoundStencil, r_kernels, r_lo, coarse_shape):
     """The residual masked to inner nodes, then the banded-matrix
     restriction.  Returns the coarse rhs."""
-    inner = _inner_mask(sol.shape, NO_EXCL, sol.device)
+    inner = inner_mask(sol.shape, NO_EXCL, sol.device)
     return _res_restrict_plain(sol, rhs, A, r_kernels, r_lo, coarse_shape, inner)
 
 
 def prolong_correct_plain(sol, sol_c, p_kernels, p_lo):
     """sol + P sol_c on inner nodes (banded-matrix prolongation); the
     boundary keeps its values.  Out of place: returns the new sol."""
-    inner = _inner_mask(sol.shape, NO_EXCL, sol.device)
+    inner = inner_mask(sol.shape, NO_EXCL, sol.device)
     return _prolong_correct_plain(sol, sol_c, p_kernels, p_lo, inner)
 
 
@@ -542,7 +311,7 @@ def smooth_res_restrict_plain(sol, rhs, A: BoundStencil, omega: float, K: int,
     """K RBGS iterations, then the residual restricted (on a halo-extended
     fragment: `ghost` as smooth_res_restrict's).  Out of place: returns
     (smoothed sol, coarse rhs)."""
-    inner = _inner_mask(sol.shape, excl, sol.device)
+    inner = inner_mask(sol.shape, excl, sol.device)
     sol = _rbgs_plain(sol, rhs, A, omega, K, inner)
     return sol, _res_restrict_plain(sol, rhs, A, r_kernels, r_lo, coarse_shape, inner, ghost)
 
@@ -552,7 +321,7 @@ def prolong_correct_smooth_plain(sol, sol_c, rhs, A: BoundStencil, omega: float,
     """sol + P sol_c on inner nodes (on a halo-extended fragment the
     prolongation shifted by `ghost`), then K RBGS iterations.  Out of
     place: returns the new sol."""
-    inner = _inner_mask(sol.shape, excl, sol.device)
+    inner = inner_mask(sol.shape, excl, sol.device)
     sol = _prolong_correct_plain(sol, sol_c, p_kernels, p_lo, inner, ghost)
     return _rbgs_plain(sol, rhs, A, omega, K, inner)
 
@@ -616,11 +385,6 @@ def leg_chunk(shape, n_sm: int) -> int:
     return chunk
 
 
-@functools.cache
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def leg_chain(mode: int, K: int, dtype: torch.dtype, reach: int = 1):
     """The launches [(mode, k), ...] of one K1 (LEG_RESTRICT), K2
     (LEG_PROLONG) or K3 (LEG_SMOOTH) call of K iterations: one launch up to
@@ -671,9 +435,9 @@ def _leg_launches(sol, rhs, A, omega, K, mode, kernels, lo, excl, counted,
     shifted by the ghost width); `faces`: K11/K12's face arrays, read in
     place of A's star (dense, no excl planes).  Returns K1's coarse rhs
     (None for K2, K3)."""
-    lib, excl_c = load_library(), _excl_array(excl)
+    lib, excl_c = _library(), _excl_array(excl)
     if faces is None:
-        c0, coefs = _star_array(A)
+        c0, coefs = star_array(A)
     nz, ny, nx = sol.shape
     nzc, nyc, nxc = sol_c.shape if sol_c is not None else coarse_shape
     geom = (0, 0, 0, nzc, nyc, nxc, 0, 0, 0, nzc - 1, nyc - 1, nxc - 1)
@@ -682,9 +446,9 @@ def _leg_launches(sol, rhs, A, omega, K, mode, kernels, lo, excl, counted,
     elif mode == LEG_PROLONG:
         lo = tuple(int(lo[d]) - ghost[d] for d in range(3))
     geom_c = (ctypes.c_int * 12)(*geom)
-    reach = _restrict_reach(kernels, lo) if mode == LEG_RESTRICT else 0
+    reach = restrict_reach(kernels, lo) if mode == LEG_RESTRICT else 0
     cur, spare, out_c = sol, torch.empty_like(sol), None
-    chunk = leg_chunk(sol.shape, _sm_count(sol.device.index)) if chunk is None else chunk
+    chunk = leg_chunk(sol.shape, sm_count(sol.device.index)) if chunk is None else chunk
     new_c = torch.empty if tuple(ghost) == NO_GHOST else torch.zeros
     for m, k in leg_chain(mode, K, sol.dtype, reach):
         taps, ntaps, tlo = _taps_arrays(*((kernels, lo) if m != LEG_SMOOTH else _NO_TAPS))
@@ -695,12 +459,12 @@ def _leg_launches(sol, rhs, A, omega, K, mode, kernels, lo, excl, counted,
         if faces is None:
             err = lib.exa_leg(*ptrs, nz, ny, nx, nzc, nyc, nxc, coefs, omega / c0, k, reach, m,
                               chunk, taps, ntaps, tlo, excl_c, geom_c, DTYPE_CODES[sol.dtype],
-                              _stream())
+                              current_stream())
         else:
             err = lib.exa_leg_faces(*ptrs, *(f.data_ptr() for f in faces), nz, ny, nx, nzc, nyc,
                                     nxc, omega, k, reach, m, chunk, taps, ntaps, tlo,
-                                    DTYPE_CODES[sol.dtype], _stream())
-        _check(lib, err, "leg_kernel")
+                                    DTYPE_CODES[sol.dtype], current_stream())
+        check_error(lib, err, "leg_kernel")
         count_launch(counted)
         cur, spare = spare, cur
     if cur is not sol:
@@ -720,12 +484,12 @@ def smooth_res_restrict(sol, rhs, A: BoundStencil, omega: float, K: int,
     window (coarse_window: every z-plane, the y/x rows outside the coarse
     ghost layers) are written, the others zero.  On CUDA
     one legs3d.cu launch for K up to max_leg_k (leg_chain beyond)."""
-    if _device_type(sol, rhs) == "cpu":
+    if device_type(sol, rhs) == "cpu":
         new, rc = smooth_res_restrict_plain(sol, rhs, A, omega, K, r_kernels,
                                             r_lo, coarse_shape, excl, ghost)
         return sol.copy_(new), rc
-    _check_cuda_fields(sol, rhs)
-    _check_shapes(sol, rhs, coarse_shape)
+    check_cuda_fields(sol, rhs)
+    check_shapes(sol, rhs, coarse_shape)
     with torch.cuda.device(sol.device):
         out = _leg_launches(sol, rhs, A, omega, K, LEG_RESTRICT, r_kernels, r_lo, excl,
                             smooth_res_restrict, coarse_shape=tuple(int(n) for n in coarse_shape),
@@ -743,11 +507,11 @@ def prolong_correct_smooth(sol, sol_c, rhs, A: BoundStencil, omega: float,
     fragment fine node j takes the coarse nodes (j - lo + ghost[d] - k)/2,
     ghost nodes corrected too.  On CUDA one legs3d.cu launch for K up to
     max_leg_k (leg_chain beyond)."""
-    if _device_type(sol, sol_c, rhs) == "cpu":
+    if device_type(sol, sol_c, rhs) == "cpu":
         return sol.copy_(prolong_correct_smooth_plain(
             sol, sol_c, rhs, A, omega, K, p_kernels, p_lo, excl, ghost))
-    _check_cuda_fields(sol, sol_c, rhs)
-    _check_shapes(sol, rhs)
+    check_cuda_fields(sol, sol_c, rhs)
+    check_shapes(sol, rhs)
     with torch.cuda.device(sol.device):
         _leg_launches(sol, rhs, A, omega, K, LEG_PROLONG, p_kernels, p_lo, excl,
                       prolong_correct_smooth, sol_c=sol_c, ghost=ghost)
@@ -773,19 +537,19 @@ def smooth_res_restrict_faces(sol, rhs, A: BoundStencil, faces, omega: float, K:
     """K11, K1 for a variable-coefficient star: K RBGS iterations on `sol`
     (in place), then the residual restricted to `coarse_shape`.  Returns
     (sol, coarse rhs).  `A` is the level's bound star and `faces` its face
-    arrays (face_arrays(sol.shape, A.offsets, A.coefs)): on CUDA the
+    arrays (face_arrays(sol.shape, A)): on CUDA the
     kernels read the face arrays alone, one legs3d.cu leg_kernel launch
     (its face-array build) for K up to max_leg_k (leg_chain beyond), and
     their sweeps are bitwise the plain version's, which the CPU runs on A.
     Dense only; a restriction reach of at most 1 (node and cell
     restrictions)."""
-    if _device_type(sol, rhs, *faces) == "cpu":
+    if device_type(sol, rhs, *faces) == "cpu":
         new, rc = smooth_res_restrict_plain(sol, rhs, A, omega, K, r_kernels, r_lo, coarse_shape)
         return sol.copy_(new), rc
-    _check_cuda_fields(sol, rhs)
+    check_cuda_fields(sol, rhs)
     _check_faces(sol, faces)
-    _check_shapes(sol, rhs, coarse_shape)
-    if _restrict_reach(r_kernels, r_lo) > 1:
+    check_shapes(sol, rhs, coarse_shape)
+    if restrict_reach(r_kernels, r_lo) > 1:
         raise ValueError("K11 takes a restriction reach of at most 1")
     with torch.cuda.device(sol.device):
         out = _leg_launches(sol, rhs, A, omega, K, LEG_RESTRICT, r_kernels, r_lo, NO_EXCL,
@@ -804,12 +568,12 @@ def prolong_correct_smooth_faces(sol, sol_c, rhs, A: BoundStencil, faces, omega:
     `A` and `faces` as smooth_res_restrict_faces's; on CUDA one legs3d.cu
     leg_kernel launch (its face-array build) for K up to max_leg_k
     (leg_chain beyond)."""
-    if _device_type(sol, sol_c, rhs, *faces) == "cpu":
+    if device_type(sol, sol_c, rhs, *faces) == "cpu":
         return sol.copy_(prolong_correct_smooth_plain(sol, sol_c, rhs, A, omega, K, p_kernels,
                                                       p_lo))
-    _check_cuda_fields(sol, sol_c, rhs)
+    check_cuda_fields(sol, sol_c, rhs)
     _check_faces(sol, faces)
-    _check_shapes(sol, rhs)
+    check_shapes(sol, rhs)
     with torch.cuda.device(sol.device):
         _leg_launches(sol, rhs, A, omega, K, LEG_PROLONG, p_kernels, p_lo, NO_EXCL,
                       prolong_correct_smooth_faces, sol_c=sol_c, faces=faces)
@@ -828,12 +592,12 @@ def rbgs_fused(sol, rhs, A: BoundStencil, omega: float, K: int, excl=NO_EXCL, ch
     beyond), out of place and copied back into `sol`; `chunk` is a block's
     fine z-planes (default leg_chunk).  On the CPU the plain version, in
     the launches' chunks of K."""
-    if _device_type(sol, rhs) == "cpu":
+    if device_type(sol, rhs) == "cpu":
         for _, k in leg_chain(LEG_SMOOTH, K, sol.dtype):
             sol.copy_(rbgs_fused_plain(sol, rhs, A, omega, k, excl))
         return sol
-    _check_cuda_fields(sol, rhs)
-    _check_shapes(sol, rhs)
+    check_cuda_fields(sol, rhs)
+    check_shapes(sol, rhs)
     with torch.cuda.device(sol.device):
         _leg_launches(sol, rhs, A, omega, K, LEG_SMOOTH, *_NO_TAPS, excl, rbgs_fused, chunk=chunk)
     return sol
@@ -881,16 +645,24 @@ def res_restrict(sol, rhs, A: BoundStencil, r_kernels, r_lo,
     coarse rhs; sol and rhs are read only.  On CUDA one stream3d.cu
     launch; `chunk` (even) is a block's fine z-planes (default
     transfer_chunk)."""
-    if _device_type(sol, rhs) == "cpu":
+    if device_type(sol, rhs) == "cpu":
         return res_restrict_plain(sol, rhs, A, r_kernels, r_lo, coarse_shape)
-    _check_cuda_fields(sol, rhs)
-    _check_shapes(sol, rhs, coarse_shape)
+    check_cuda_fields(sol, rhs)
+    check_shapes(sol, rhs, coarse_shape)
     _check_plane(sol)
-    lib = load_library()
+    lib = _library()
     with torch.cuda.device(sol.device):
         if chunk is None:
-            chunk = transfer_chunk(LEG_RESTRICT, sol.shape, coarse_shape, _sm_count(sol.device.index))
-        out = _residual_restrict(lib, sol, rhs, A, r_kernels, r_lo, coarse_shape, chunk)
+            chunk = transfer_chunk(LEG_RESTRICT, sol.shape, coarse_shape, sm_count(sol.device.index))
+        _, coefs = star_array(A)
+        taps, ntaps, lo = _taps_arrays(r_kernels, r_lo)
+        nz, ny, nx = sol.shape
+        nzc, nyc, nxc = (int(n) for n in coarse_shape)
+        out = torch.empty((nzc, nyc, nxc), dtype=sol.dtype, device=sol.device)
+        err = lib.exa_residual_restrict(
+            sol.data_ptr(), rhs.data_ptr(), out.data_ptr(), nz, ny, nx, nzc, nyc, nxc, coefs, taps,
+            ntaps, lo, chunk, DTYPE_CODES[sol.dtype], current_stream())
+        check_error(lib, err, "residual_restrict")
         count_launch(res_restrict)
     return out
 
@@ -904,15 +676,21 @@ def prolong_correct(sol, sol_c, p_kernels, p_lo, chunk=None):
     Dirichlet the same as bc_sol(sol + P sol_c)).  Returns sol.  On CUDA
     one stream3d.cu launch; `chunk` is a block's fine z-planes (default
     transfer_chunk)."""
-    if _device_type(sol, sol_c) == "cpu":
+    if device_type(sol, sol_c) == "cpu":
         return sol.copy_(prolong_correct_plain(sol, sol_c, p_kernels, p_lo))
-    _check_cuda_fields(sol, sol_c)
+    check_cuda_fields(sol, sol_c)
     _check_plane(sol)
-    lib = load_library()
+    lib = _library()
     with torch.cuda.device(sol.device):
         if chunk is None:
-            chunk = transfer_chunk(LEG_PROLONG, sol.shape, sol_c.shape, _sm_count(sol.device.index))
-        _prolong_correct(lib, sol, sol_c, p_kernels, p_lo, chunk)
+            chunk = transfer_chunk(LEG_PROLONG, sol.shape, sol_c.shape, sm_count(sol.device.index))
+        taps, ntaps, lo = _taps_arrays(p_kernels, p_lo)
+        nz, ny, nx = sol.shape
+        nzc, nyc, nxc = sol_c.shape
+        err = lib.exa_prolong_correct(sol.data_ptr(), sol_c.data_ptr(), nz, ny, nx, nzc, nyc, nxc,
+                                      taps, ntaps, lo, chunk, DTYPE_CODES[sol.dtype],
+                                      current_stream())
+        check_error(lib, err, "prolong_correct")
         count_launch(prolong_correct)
     return sol
 
@@ -982,7 +760,7 @@ def max_wavefront_k(dtype: torch.dtype, cluster=None) -> int:
     return max_cluster_k(dtype, LEG_SMOOTH, 0, cluster)
 
 
-def _restrict_reach(r_kernels, r_lo) -> int:
+def restrict_reach(r_kernels, r_lo) -> int:
     """How far the y/x restriction taps reach outside the fine tile that a
     coarse tile covers (1 for the node restriction, 0 for the cell one)."""
     return max(max(0, -int(r_lo[d]), int(r_lo[d]) + len(r_kernels[d]) - 2) for d in (1, 2))
@@ -997,10 +775,10 @@ prolong_correct_smooth_wavefront_plain = prolong_correct_smooth_plain
 def _on_cuda(sol, rhs, *others) -> bool:
     """True for CUDA tensors that the kernels take (else raises), False
     for CPU tensors."""
-    if _device_type(sol, rhs, *others) == "cpu":
+    if device_type(sol, rhs, *others) == "cpu":
         return False
-    _check_cuda_fields(sol, rhs, *others)
-    _check_shapes(sol, rhs)
+    check_cuda_fields(sol, rhs, *others)
+    check_shapes(sol, rhs)
     return True
 
 
@@ -1037,23 +815,23 @@ def _cluster_leg_launch(mode, sol, rhs, A, omega, K, kernels, lo, cluster, sol_c
     """One cluster_legs3d.cu launch on CUDA tensors, out of place: returns
     the new sol and K7's coarse rhs (None for K6, K8).  Only K6 takes excl
     planes."""
-    lib, excl_c = load_library(), _excl_array(excl)
-    c0, coefs = _star_array(A)
+    lib, excl_c = _library(), _excl_array(excl)
+    c0, coefs = star_array(A)
     taps, ntaps, tlo = _taps_arrays(kernels, lo)
-    reach = _restrict_reach(kernels, lo) if mode == LEG_RESTRICT else 0
+    reach = restrict_reach(kernels, lo) if mode == LEG_RESTRICT else 0
     nz, ny, nx = sol.shape
     nzc, nyc, nxc = sol_c.shape if sol_c is not None else coarse_shape
     out = torch.empty_like(sol)
     out_c = (torch.empty((nzc, nyc, nxc), dtype=sol.dtype, device=sol.device)
              if mode == LEG_RESTRICT else None)
     with torch.cuda.device(sol.device):
-        chunk = leg_chunk(sol.shape, _sm_count(sol.device.index))
+        chunk = leg_chunk(sol.shape, sm_count(sol.device.index))
         err = lib.exa_cluster_leg(
             out.data_ptr(), (out_c if out_c is not None else out).data_ptr(), sol.data_ptr(),
             (sol_c if sol_c is not None else sol).data_ptr(), rhs.data_ptr(), nz, ny, nx,
             nzc, nyc, nxc, coefs, omega / c0, K, reach, mode, chunk, taps, ntaps, tlo, excl_c,
-            int(cluster[0]), int(cluster[1]), DTYPE_CODES[sol.dtype], _stream())
-        _check(lib, err, "cluster_leg")
+            int(cluster[0]), int(cluster[1]), DTYPE_CODES[sol.dtype], current_stream())
+        check_error(lib, err, "cluster_leg")
     return out, out_c
 
 
@@ -1068,7 +846,7 @@ def smooth_res_restrict_wavefront(sol, rhs, A: BoundStencil, omega: float, K: in
     TPU kernel.  A K deeper than max_cluster_k first runs the excess as K6.
     Not in place: returns (new sol, coarse rhs)."""
     cuda = _on_cuda(sol, rhs)
-    reach = _restrict_reach(r_kernels, r_lo)
+    reach = restrict_reach(r_kernels, r_lo)
     cluster = CLUSTER[LEG_RESTRICT] if cluster is None else cluster
     kmax = max_cluster_k(sol.dtype, LEG_RESTRICT, reach, cluster)
     if kmax < 1:
@@ -1079,7 +857,7 @@ def smooth_res_restrict_wavefront(sol, rhs, A: BoundStencil, omega: float, K: in
     if not cuda:
         return smooth_res_restrict_wavefront_plain(sol, rhs, A, omega, K, r_kernels, r_lo,
                                                    coarse_shape)
-    _check_shapes(sol, rhs, coarse_shape)
+    check_shapes(sol, rhs, coarse_shape)
     out = _cluster_leg_launch(LEG_RESTRICT, sol, rhs, A, omega, K, r_kernels, r_lo, cluster,
                               coarse_shape=tuple(int(n) for n in coarse_shape))
     count_launch(smooth_res_restrict_wavefront)

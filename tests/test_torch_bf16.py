@@ -78,6 +78,7 @@ from exastencils_tpu_torch.interop import (
     stencil_from_jax,
 )
 from exastencils_tpu_torch.models.poisson import PoissonMGSolver
+from exastencils_tpu_torch.ops.cuda import library
 from exastencils_tpu_torch.ops.cuda import stream3d as s3
 
 torch.set_num_threads(1)
@@ -289,7 +290,7 @@ def test_plain_versions_round_once_where_the_kernels_store():
     are untouched (the same result as the float32 arithmetic itself)."""
     _, (ts, tr) = bf16_fields(3, (9, 9, 9), (9, 9, 9))
     A = stencil_from_jax(star3d())
-    inner = s3._inner_mask(ts.shape, s3.NO_EXCL, "cpu")
+    inner = library.inner_mask(ts.shape, library.NO_EXCL, "cpu")
     red, black = (s3.color_mask(ts.shape, c, "cpu") & inner for c in (0, 1))
     x = ts.float()
     for m in (red, black):
@@ -322,10 +323,10 @@ def test_plain_versions_round_once_where_the_kernels_store():
 def test_dtype_gate():
     t = torch.zeros((9, 9, 9), dtype=torch.float16)
     with pytest.raises(ValueError, match="float32, float64 or bfloat16, not torch.float16"):
-        s3._check_cuda_fields(t, t)
+        library.check_cuda_fields(t, t)
     for dtype in (torch.float32, torch.float64, BF16):
-        s3._check_cuda_fields(t.to(dtype), t.to(dtype))
-    assert s3.DTYPE_CODES == {torch.float32: 0, torch.float64: 1, BF16: 2}
+        library.check_cuda_fields(t.to(dtype), t.to(dtype))
+    assert library.DTYPE_CODES == {torch.float32: 0, torch.float64: 1, BF16: 2}
     # bfloat16 rings are float32 (csrc/star3d.cuh): float32's depths and chains
     for mode in (s3.LEG_SMOOTH, s3.LEG_PROLONG, s3.LEG_RESTRICT):
         assert s3.max_leg_k(BF16, mode) == s3.max_leg_k(torch.float32, mode) == 3

@@ -85,7 +85,7 @@ def emulate_cluster_launch(mode, sol, rhs, A, K, kern, lo, cluster, sol_c=None,
     nzc, nyc, nxc = cshape
     cy, cx = cluster
     CZ = s3.leg_chunk(shape, H100_SMS) if chunk is None else chunk
-    reach = s3._restrict_reach(kern, lo) if down else 0
+    reach = s3.restrict_reach(kern, lo) if down else 0
     hy = s3.leg_halo(mode, K, reach) - halo_cut
     hx = hy + hy % 2
     ty_n = tiles(tiles_for(ny, nyc, down), cy) * cy
@@ -233,7 +233,7 @@ def emulate_smoother(sol, rhs, A, K, excl, cluster, dtype=None):
 def emulate_leg(mode, sol, rhs, A, K, kern, lo, cluster, sol_c=None, coarse_shape=None):
     """The wrapper's call: one launch of up to max_cluster_k iterations, the
     rest as K6 (the plain smoother here) before K7's launch or after K8's."""
-    reach = s3._restrict_reach(kern, lo) if mode == s3.LEG_RESTRICT else 0
+    reach = s3.restrict_reach(kern, lo) if mode == s3.LEG_RESTRICT else 0
     k = min(K, s3.max_cluster_k(sol.dtype, mode, reach, cluster))
     if mode == s3.LEG_RESTRICT and K > k:
         sol = s3.rbgs_fused_plain(sol, rhs, A, OMEGA, K - k)

@@ -76,11 +76,3 @@ def test_cli_without_gpu_refuses_to_run(config):
     assert run.returncode != 0
     assert "no CUDA device" in run.stderr and run.stdout == ""
 
-
-def test_dsl_profile_without_gpu_refuses_to_run():
-    if torch.cuda.is_available():
-        pytest.skip("checks the refusal where no GPU is present")
-    from exastencils_tpu_torch.runtime import dsl_profile
-
-    with pytest.raises(SystemExit, match="needs a CUDA device"):
-        dsl_profile.main([])

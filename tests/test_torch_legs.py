@@ -100,7 +100,7 @@ def emulate_launch(mode, sol, rhs, A, K, kern, lo, excl, sol_c=None, coarse_shap
     if down:
         off, cn, wlo, whi = geom[0:3], geom[3:6], geom[6:9], geom[9:12]
     CZ = s3.leg_chunk(shape, H100_SMS) if chunk is None else chunk
-    reach = s3._restrict_reach(kern, lo) if down else 0
+    reach = s3.restrict_reach(kern, lo) if down else 0
     halo = s3.leg_halo(mode, K, reach) - halo_cut
     RY, RX = TY + 2 * halo, TX + 2 * halo
     out, written = torch.zeros_like(sol), torch.zeros(shape, dtype=torch.int32)
@@ -191,7 +191,7 @@ def emulate_leg(mode, sol, rhs, A, K, kern, lo, excl, sol_c=None, coarse_shape=N
         lo, geom = s3.coarse_geometry(sol.shape, coarse_shape, lo, ghost)
     elif mode == s3.LEG_PROLONG:
         lo = tuple(lo[d] - ghost[d] for d in range(3))
-    reach = s3._restrict_reach(kern, lo) if mode == s3.LEG_RESTRICT else 0
+    reach = s3.restrict_reach(kern, lo) if mode == s3.LEG_RESTRICT else 0
     out_c = None
     for m, k in s3.leg_chain(mode, K, dtype or sol.dtype, reach):
         sol, c = emulate_launch(m, sol, rhs, A, k, kern, lo, excl, sol_c, coarse_shape,
@@ -290,7 +290,7 @@ def test_ghosted_legs_decomposition_is_plain(case, K):
     A, (R, P) = star(K), NODE
     rk, pk = separable_kernels(R), separable_kernels(P)
     lo_eff, _ = s3.coarse_geometry(shape, cshape, R.lo, ghost)
-    assert s3._restrict_reach(rk, lo_eff) == 1
+    assert s3.restrict_reach(rk, lo_eff) == 1
     got, got_c = emulate_leg(s3.LEG_RESTRICT, sol, rhs, A, K, rk, R.lo, excl, coarse_shape=cshape,
                              ghost=ghost)
     want, want_c = s3.smooth_res_restrict_plain(sol, rhs, A, OMEGA, K, rk, R.lo, cshape, excl,

@@ -87,7 +87,7 @@ REPO = pathlib.Path(__file__).resolve().parents[1]
 
 @pytest.mark.parametrize("module", [
     "exastencils_tpu_torch", "exastencils_tpu_torch.__main__", "exastencils_tpu_torch.dsl.driver",
-    "exastencils_tpu_torch.dsl.interpreter", "exastencils_tpu_torch.runtime.dsl_profile",
+    "exastencils_tpu_torch.dsl.interpreter", "exastencils_tpu_torch.ops.cuda.library",
     "exastencils_tpu_torch.ops.cuda", "exastencils_tpu_torch.models.poisson",
     "exastencils_tpu_torch.interop", "exastencils_tpu_torch.core",
     "exastencils_tpu_torch.runtime.performance", "exastencils_tpu_torch.runtime.fieldio",
@@ -126,3 +126,44 @@ def test_no_port_file_imports_the_jax_package():
     bad = [(f.relative_to(REPO).as_posix(), m) for f in files for m in _imported_modules(f)
            if m.split(".")[0] == "exastencils_tpu"]
     assert not bad
+
+
+CUDA_OPS = REPO / "exastencils_tpu_torch" / "ops" / "cuda"
+CUDA_PACKAGE = "exastencils_tpu_torch.ops.cuda"
+
+
+def test_no_kernel_module_reaches_a_private_name_of_a_sibling():
+    """No module under ops/cuda/ imports an underscore name from another
+    module there, nor reads one off a sibling module it imported: what the
+    wrapper modules share is library.py's public helpers."""
+    files = sorted(CUDA_OPS.glob("*.py"))
+    siblings = {f.stem for f in files}
+    assert {"__init__", "library", "stream3d", "check3d"} <= siblings
+    bad = []
+    for f in files:
+        tree = ast.parse(f.read_text(), str(f))
+        modules = set()
+        for node in ast.walk(tree):
+            if isinstance(node, ast.ImportFrom) and (node.module or "").startswith(CUDA_PACKAGE):
+                bad += [(f.name, a.name) for a in node.names if a.name.startswith("_")]
+                if node.module == CUDA_PACKAGE:
+                    modules |= {a.asname or a.name for a in node.names if a.name in siblings}
+            elif isinstance(node, ast.Import):
+                modules |= {a.asname for a in node.names
+                            if a.name.startswith(CUDA_PACKAGE + ".") and a.asname}
+        bad += [(f.name, f"{n.value.id}.{n.attr}") for n in ast.walk(tree)
+                if isinstance(n, ast.Attribute) and isinstance(n.value, ast.Name)
+                and n.value.id in modules and n.attr.startswith("_")]
+    assert not bad
+
+
+def test_only_the_library_module_builds_and_loads_the_kernels():
+    """ops/cuda/library.py is the one module under ops/cuda/ that runs a
+    compiler, loads a shared library or declares a C signature."""
+    def builds(f):
+        tree = ast.parse(f.read_text(), str(f))
+        attrs = {n.attr for n in ast.walk(tree) if isinstance(n, ast.Attribute)}
+        return bool(attrs & {"CDLL", "argtypes", "restype"}) or "subprocess" in set(
+            _imported_modules(f))
+
+    assert [f.name for f in sorted(CUDA_OPS.glob("*.py")) if builds(f)] == ["library.py"]

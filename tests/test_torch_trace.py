@@ -3,8 +3,8 @@ the span tree of the ExaSlang benchmark program's `Solve` (staged, CPU
 replay) and of the solver API's `solve_fused` and `solve`; nothing
 recorded, opened or timed with no profiler running; every span a profiler
 range; the host reads counted where they are made; the marks of captured
-graphs opened and closed again at each launch; `dsl_profile`'s levels
-taken from the spans.  The `cuda` tests time the spans on the card.  This
+graphs opened and closed again at each launch; the levels' exclusive
+device times summing to the finest level's.  The `cuda` tests time the spans on the card.  This
 file imports no jax:
 
     python -m pytest --noconftest tests/test_torch_trace.py -m cuda
@@ -23,7 +23,7 @@ from exastencils_tpu_torch import Knowledge
 from exastencils_tpu_torch.dsl.interpreter import L4Executable
 from exastencils_tpu_torch.dsl.parser import parse_l4
 from exastencils_tpu_torch.models.poisson import PoissonMGSolver
-from exastencils_tpu_torch.runtime import dsl_profile, timers
+from exastencils_tpu_torch.runtime import timers
 from portbench import spans as bench_spans
 
 REPO = os.path.join(os.path.dirname(os.path.abspath(__file__)), os.pardir)
@@ -326,18 +326,25 @@ def fake_device_events(monkeypatch):
 
 
 @pytest.mark.parametrize("staged", [False, True])
-def test_dsl_profile_levels_come_from_the_spans(monkeypatch, staged):
-    """`dsl_profile.per_level_ms` reads the `level` spans (with stand-in
-    events on the CPU): a time for every level, summing to the finest
-    level's, and `call_function` is the executor's own."""
+def test_level_spans_give_exclusive_times_that_sum_to_the_finest(monkeypatch, staged):
+    """The `level` spans of two full cycles (`MGCycle@L`, timed by stand-in
+    events on the CPU): a device time for every level, and the exclusive
+    times (level L's inclusive time less level L-1's) sum to the finest
+    level's inclusive time; `call_function` is the executor's own."""
     fake_device_events(monkeypatch)
     ex, _ = bench_program(staged=staged)
     cyc = ex.functions[("MGCycle", ex.hi)]
     ex.call_function(cyc, ex.hi, [])
-    excl, finest = dsl_profile.per_level_ms(ex, 2)
+    _, spans = traced(lambda: [ex.call_function(cyc, ex.hi, []) for _ in range(2)])
+    incl = {}
+    for s in spans:
+        if s.kind == "level":
+            lvl = int(s.name.rsplit("@", 1)[1])
+            incl[lvl] = incl.get(lvl, 0.0) + s.device_ms / 2
+    excl = {lvl: incl[lvl] - incl.get(lvl - 1, 0.0) for lvl in incl}
     assert sorted(excl) == list(range(1, LEVEL + 1))
     assert all(v >= 0 for v in excl.values())
-    assert abs(sum(excl.values()) - finest) <= 0.01
+    assert abs(sum(excl.values()) - incl[LEVEL]) <= 0.01
     assert "call_function" not in vars(ex)
 
 

@@ -1,11 +1,13 @@
 """K11/K12's contract and their plain twins on the CPU: the variable-
 coefficient legs (ops/cuda/stream3d.smooth_res_restrict_faces,
 prolong_correct_smooth_faces) that `make_fused_legs_3d` gives a level of
-`PoissonMGSolver(kappa_fn=...)`.  `face_arrays` accepts the stencil of
-models/poisson.varcoeff_laplace_stencil on every level of at least 5 nodes
-a dimension and declines the stretched stencil, a centre one ulp off the
-face sum, face views of two arrays, bfloat16 and a level of 3 nodes, and
-takes no notice of EXA_STREAM_V1=1; the wrappers' plain twins give the plain cycle to the last bit
+`PoissonMGSolver(kappa_fn=...)`.  The bound stencil of
+models/poisson.varcoeff_laplace_stencil carries its face arrays, and no
+other stencil does; `face_arrays` accepts it on every level of at least 5
+nodes a dimension and declines the stretched stencil, stencils put
+together by hand (a centre one ulp off the face sum, face views of two
+arrays), its faces in bfloat16 and a level of 3 nodes, and takes no notice
+of EXA_STREAM_V1=1; the wrappers' plain twins give the plain cycle to the last bit
 and the solver's printed lines are the plain path's.  Levels 3-5, float32
 and float64.  The kernels themselves run on the card
 (tests/test_torch_cuda.py, "K11/K12")."""
@@ -60,7 +62,7 @@ def test_contract_accepts_the_kappa_stencil(level, dtype):
     for lvl, grid in sol.grids.items():
         A = sol.stencil.bind(grid)
         n = grid.shape_of(NODE)[0]
-        faces = s3.face_arrays((n,) * 3, A.offsets, A.coefs)
+        faces = s3.face_arrays((n,) * 3, A)
         has_legs = sol.levels[lvl].down_leg_fn is not None
         if n < 5:
             assert faces is None and not has_legs
@@ -75,33 +77,61 @@ def test_contract_accepts_the_kappa_stencil(level, dtype):
             assert torch.equal(f.narrow(d, 1, n), by_off[tuple(int(i == d) for i in range(3))])
 
 
+def stretched(level, dtype):
+    """The stretched Laplacian bound on a `linearFct` grid's `level`."""
+    k = Knowledge(dimensionality=3, minLevel=0, maxLevel=level, grid_spacingModel="linearFct",
+                  grid_isUniform=False, useDblPrecision=dtype == torch.float64).update()
+    grid = level_grids(unit_domain(3), k, "cpu", dtype=dtype)[level]
+    return poisson.stretched_laplace_stencil(3).bind(grid)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("level", [3, 4])
+def test_only_the_kappa_stencil_carries_face_arrays(level, dtype):
+    """The bound kappa stencil carries its level's three face arrays, the
+    storages of its minus and plus entries, and `face_arrays` returns
+    exactly them (none for another level's shape); the constant and the
+    stretched Laplacian and the kappa stencil scale()d carry none."""
+    sol = solver(level, dtype)
+    A, shape, cshape = finest(sol)
+    by_off = dict(A.items())
+    assert len(A.faces) == 3
+    for d, f in enumerate(A.faces):
+        for side in (-1, 1):
+            entry = by_off[tuple(side if i == d else 0 for i in range(3))]
+            assert entry.untyped_storage().data_ptr() == f.untyped_storage().data_ptr()
+    assert s3.face_arrays(shape, A) is A.faces
+    assert s3.face_arrays(cshape, A) is None
+    others = (poisson.laplace_stencil(3).bind(sol.grids[level]), stretched(level, dtype),
+              A.scale(0.5))
+    for other in others:
+        assert other.faces is None and s3.face_arrays(shape, other) is None
+
+
 def declined(case, level, dtype):
     """(A, shape) of the finest level altered by `case`."""
     sol = solver(level, dtype)
     A, shape, _ = finest(sol)
     entries = [dict(A.items())[o] for o in s3.STAR_OFFSETS]
     if case == "stretched":
-        k = Knowledge(dimensionality=3, minLevel=0, maxLevel=level, grid_spacingModel="linearFct",
-                      grid_isUniform=False, useDblPrecision=dtype == torch.float64).update()
-        grid = level_grids(unit_domain(3), k, "cpu", dtype=dtype)[level]
-        A = poisson.stretched_laplace_stencil(3).bind(grid)
+        A = stretched(level, dtype)
     elif case == "centre_one_ulp":
         centre = entries[0].clone()
         centre[2, 3, 1] = torch.nextafter(centre[2, 3, 1], torch.tensor(float("inf"), dtype=dtype))
         A = BoundStencil(A.name, s3.STAR_OFFSETS, (centre, *entries[1:]))
     elif case == "two_arrays":
-        face = s3.face_arrays(shape, A.offsets, A.coefs)[1].clone()
+        face = A.faces[1].clone()
         plus = poisson.plus_side(face, 1, shape[1])
         A = BoundStencil(A.name, s3.STAR_OFFSETS, (*entries[:4], plus, *entries[5:]))
     elif case == "bfloat16":
-        faces = [f.to(torch.bfloat16) for f in s3.face_arrays(shape, A.offsets, A.coefs)]
+        faces = tuple(f.to(torch.bfloat16) for f in A.faces)
         sides = []
         for d, f in enumerate(faces):
             sides += [poisson.minus_side(f, d, shape[d]), poisson.plus_side(f, d, shape[d])]
         centre = sides[0] + sides[1]
         for c in sides[2:]:
             centre.add_(c)
-        A = BoundStencil(A.name, s3.STAR_OFFSETS, (centre.neg_(), *sides))
+        A = BoundStencil(A.name, s3.STAR_OFFSETS, (centre.neg_(), *sides), faces)
     elif case == "below_5_planes":
         A, shape = sol.stencil.bind(sol.grids[1]), (3, 3, 3)
     return sol, A, shape
@@ -113,11 +143,12 @@ def declined(case, level, dtype):
 @pytest.mark.parametrize("level", LEVELS)
 def test_contract_declines(level, dtype, case):
     """The stretched stencil (1-D broadcast coefficients), a centre one ulp
-    off the face sum at one node, the plus side of an axis from a copy of
-    its face array, the same stencil in bfloat16 and a level of 3 nodes: no
-    face arrays, and the leg maker declines."""
+    off the face sum at one node and the plus side of an axis from a copy
+    of its face array (both put together by hand, so they carry no face
+    arrays), the same stencil carrying its faces in bfloat16 and a level of
+    3 nodes: no face arrays, and the leg maker declines."""
     sol, A, shape = declined(case, level, dtype)
-    assert s3.face_arrays(shape, A.offsets, A.coefs) is None
+    assert s3.face_arrays(shape, A) is None
     cshape = tuple((n + 1) // 2 for n in shape)
     assert legs_of(sol, A, level, shape, cshape) == (None, None)
 
@@ -130,9 +161,9 @@ def test_contract_ignores_stream_v1(monkeypatch, level, dtype):
     maker still returns K11/K12's wrappers."""
     sol = solver(level, dtype)
     A, shape, cshape = finest(sol)
-    want = s3.face_arrays(shape, A.offsets, A.coefs)
+    want = s3.face_arrays(shape, A)
     monkeypatch.setenv("EXA_STREAM_V1", "1")
-    got = s3.face_arrays(shape, A.offsets, A.coefs)
+    got = s3.face_arrays(shape, A)
     assert [f.data_ptr() for f in got] == [f.data_ptr() for f in want]
     down, up = legs_of(sol, A, level, shape, cshape)
     assert down.__name__ == "down_faces" and up.__name__ == "up_faces"

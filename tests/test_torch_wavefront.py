@@ -166,7 +166,7 @@ def test_smooth_res_restrict_wavefront_matches_pallas_v1(v1, monkeypatch, name):
     close(got_s, want_s)
     close(got_rc, want_rc)
     kmax = s3.max_cluster_k(torch.float64, s3.LEG_RESTRICT,
-                            s3._restrict_reach(separable_kernels(R), R.lo))
+                            s3.restrict_reach(separable_kernels(R), R.lo))
     assert prelude == ([K - kmax] if K > kmax else [])
 
 
