@@ -49,6 +49,13 @@ examples/poisson_3d_bench.exa4 (the two DSL paths right after the build):
                the benchmark solves: K9/K10 launches a solve (one before
                the loop and one a cycle), and none in a solve of the
                solver API at 513^3 float64 (solve_fused);
+  res_norm_times  K13 (the solver API's residual norm in one pass) at
+               513^3 float64 on each API cell's finest level (the
+               Laplacian; the variable-coefficient star's face arrays)
+               against its plain version, its bound and the plain ms, at
+               the wrapper's chunk and at NORM_CHUNKS; then the cells'
+               four right-hand sides: r_9/r_0 and r_10/r_0 of the cells'
+               cycles with the plain norm and with K13;
   dsl_v1_path  the same with EXA_STREAM_V1=1 (K7/K8), staged and eager;
   loop_chunk   the staged cycle with 1, 4 and 16 device-loop iterations
                per host read;
@@ -1322,6 +1329,106 @@ def dsl_solve_checks():
           solve_ms=f"{solve_s * 1e3:.2f}", api_f64_cycles=int(api_it),
           api_f64_launches_per_2_solves=api_got)
     return got
+
+
+NORM_CHUNKS = (4, 8, 16, 32, 64)  # K13's z-chunks (planes) timed at 513^3 float64
+NORM_CELLS = (("K13", "api.l9_f64"), ("K13_faces", "api_vc.l9_f64"))
+
+
+def res_norm_times(chunks=NORM_CHUNKS, cycles=10, level=None):
+    """K13 at 513^3 float64 on the finest level of each API cell's system
+    (portbench/systems, built from the cell's configuration and traffic):
+    the constant Laplacian of `api.l9_f64` and the face arrays of
+    `api_vc.l9_f64`.  On seeded fields: within 1e-13 of its plain version
+    (Multigrid.res_norm's plain ops), the same bits twice, timed beside its
+    bound (u and f read once; the face arrays once more) and the plain
+    version, at the wrapper's chunk and at each of `chunks`.  Then each of
+    the cell's four right-hand sides from the cell's guess: `cycles` staged
+    cycles, the norm of every iterate by the plain ops and by K13, and the
+    ratios r_9/r_0 and r_10/r_0 of each (the margin from the cells' 1e-10
+    that keeps their cycle count); then the cell's solve_fused, whose K13
+    launches must be its cycles + 1 (on the card).  `level` replaces the
+    traffic's (a rehearsal).  Returns {row: {ms, bound_ms, ...}}."""
+    from pathlib import Path
+
+    from portbench.harness import Bench
+    from portbench import traffic as traffic_gen
+    from exastencils_tpu_torch.ops.cuda import check3d as c3
+    from exastencils_tpu_torch.ops.cuda import stream3d as s3
+
+    bench = Bench(Path(__file__).resolve().parent)
+    sync = torch.cuda.synchronize if DEVICE == "cuda" else (lambda: None)
+    rows = {}
+    for kk, cell_name in NORM_CELLS:
+        cell = bench.cell(cell_name)
+        cfg, cfg_dir = bench.config(cell["config"])
+        tr = bench.traffic(cell["traffic"])
+        tr["level"] = tr["level"] if level is None else level
+        system = bench.system(cfg).System(cfg, tr["level"], DEVICE, cfg_dir)
+        solver = system.solver
+        mg, top = solver.mg, solver.mg.max_level
+        lv = mg.levels[top]
+        A = solver.stencil.bind(solver.grids[top])
+        faces = s3.face_arrays(lv.shape, A) if kk == "K13_faces" else None
+        if lv.res_norm_fn is None or (kk == "K13_faces") != (faces is not None):
+            raise AssertionError(f"res_norm_times: {cell_name}'s finest level has no K13")
+        rng = np.random.default_rng(25)
+        sol, rhs = (torch.as_tensor(rng.standard_normal(lv.shape), device=DEVICE)
+                    for _ in range(2))
+
+        def plain(s, r):
+            return lv.norm_fn(mg.residual(top, s, r))
+
+        got = [c3.res_norm(sol, rhs, A, faces) for _ in range(2)]
+        want = plain(sol, rhs)
+        rel = abs(float(got[0]) - float(want)) / float(want)
+        same = torch.equal(got[0], got[1]) and torch.equal(got[0], lv.res_norm_fn(sol, rhs))
+        if not (same and rel <= 1e-13):
+            raise AssertionError(f"res_norm_times: {kk} deterministic {same}, rel {rel:.3e}")
+        ms = cuda_ms(lambda: c3.res_norm(sol, rhs, A, faces), 20)
+        by_chunk = {ch: cuda_ms(lambda: c3.res_norm(sol, rhs, A, faces, chunk=ch), 20)
+                    for ch in chunks}
+        plain_ms = cuda_ms(lambda: plain(sol, rhs), 3)
+        by = (sol.numel() * 2 + (sum(f.numel() for f in faces) if faces else 0)) * 8
+        b_ms = by / PEAK_BYTES_S * 1e3
+        chunk = c3.res_chunk(lv.shape, 8, _sm_count(), c3.NORM_CHUNK_BYTES)
+        rows[kk] = {"ms": ms, "bound_ms": b_ms, "plain_ms": plain_ms}
+        phase("res_norm_times", kernel=kk, cell=cell_name, level=top, dtype="float64",
+              ms=f"{ms:.4f}", bound_ms=f"{b_ms:.4f}", bound_gb=f"{by / 1e9:.3f}",
+              share_of_bound=f"{b_ms / ms:.3f}", plain_ms=f"{plain_ms:.4f}",
+              rel_err=f"{rel:.3e}", deterministic=same, chunk=chunk,
+              blocks=c3.norm_blocks(lv.shape, chunk),
+              **{f"ms_chunk{ch}": f"{t:.4f}" for ch, t in by_chunk.items()})
+        del sol, rhs, got
+        ratios = []
+        for b in traffic_gen.bank(tr, 25, torch.float64, DEVICE):
+            system.load(b)
+            x, f = system.x, system.rhs
+            r = [(float(plain(x, f)), float(lv.res_norm_fn(x, f)))]
+            for _ in range(cycles):
+                x = solver._cycle(x, f)
+                r.append((float(plain(x, f)), float(lv.res_norm_fn(x, f))))
+            ratios.append({"r9_plain": r[9][0] / r[0][0], "r9_k13": r[9][1] / r[0][1],
+                           "r10_plain": r[10][0] / r[0][0], "r10_k13": r[10][1] / r[0][1]})
+        system.solve()  # captures the cell's solve_fused
+        system.load(b)
+        n0 = c3.res_norm.launches
+        sync()
+        t0 = time.perf_counter()
+        it = system.solve()
+        sync()
+        solve_ms = (time.perf_counter() - t0) * 1e3
+        if DEVICE == "cuda" and c3.res_norm.launches - n0 != it + 1:
+            raise AssertionError(f"res_norm_times: {c3.res_norm.launches - n0} K13 launches "
+                                 f"in a solve of {it} cycles")
+        phase("res_norm_ratios", kernel=kk, cell=cell_name, cycles=cycles, solve_cycles=it,
+              solve_ms=f"{solve_ms:.3f}", launches_per_solve=it + 1,
+              **{f"rhs{i}": ",".join(f"{k}:{v:.6e}" for k, v in q.items())
+                 for i, q in enumerate(ratios)})
+        rows[kk]["ratios"] = ratios
+        del system, solver, mg, lv, A, faces
+        torch.cuda.empty_cache()
+    return rows
 
 
 def dsl_staged_vs_eager(tag, staged, eager):
@@ -2785,6 +2892,7 @@ def main():
         solve_both("fas_v1", solver_useFAS=True)
     fused_path()
     varcoeff = varcoeff_path()
+    norms = res_norm_times()
     cgs_paths(per_level)
     cell_path()
     nonuniform_path()
@@ -2835,6 +2943,13 @@ def main():
                         "dtype": "float64", "launches_per_cycle": varcoeff[kk]["launches"],
                         "ms": varcoeff[kk]["ms"], "plain_ms": varcoeff[kk]["plain_ms"],
                         "bound_ms": varcoeff[kk]["bound_ms"], "bound_by": "bytes"})
+    for kk in ("K13", "K13_faces"):
+        # 513^3 float64, the finest level of api.l9_f64 and api_vc.l9_f64 (res_norm_times)
+        kernels.append({"name": f"{kk} res_norm", "route": "cuda",
+                        "source": "exastencils_tpu_torch/csrc/check3d.cu", "replaces": None,
+                        "dtype": "float64", "ms": norms[kk]["ms"],
+                        "plain_ms": norms[kk]["plain_ms"], "bound_ms": norms[kk]["bound_ms"],
+                        "bound_by": "bytes"})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

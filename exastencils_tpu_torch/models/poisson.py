@@ -4,7 +4,8 @@ Reference: exastencils_tpu/models/poisson.py.  `PoissonMGSolver` assembles
 damped red-black Gauss-Seidel V(3,3)-cycles with full-weighting
 restriction, trilinear prolongation and a CG coarse solve on the dense
 backend of `device`; on CUDA and in 3D the levels with at least 5 nodes
-per dimension run the whole-leg kernels K1/K2.  Given a `mesh`
+per dimension run the whole-leg kernels K1/K2 and the residual norm the
+one-pass K13.  Given a `mesh`
 (parallel/mesh.DomainMesh, one per rank), it runs on the sharded backend
 instead, each rank the solver of its fragment (the reference's
 :111-126).
@@ -15,8 +16,9 @@ has no such model: its reference is the plain PyTorch file
 portbench/references/poisson3d_varcoeff_vcycle.py.  On CUDA and in 3D the
 levels with at least 5 nodes per dimension run the variable-coefficient
 legs K11/K12, which read the stencil's face arrays (ops/cuda
-`face_arrays`); the residual norm and the coarser levels run the plain
-ops.
+`face_arrays`), and the finest level's residual norm the one-pass K13
+on the same face arrays (`make_fused_res_norm_3d`); the coarser levels
+run the plain ops.
 """
 
 from __future__ import annotations

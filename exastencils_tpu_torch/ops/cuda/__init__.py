@@ -14,7 +14,12 @@ mode in both packages:
   for the variable-coefficient star of models/poisson (`face_arrays`:
   three face arrays, float32 or float64) the port's own K11/K12 under the
   same conditions and under either EXA_STREAM_V1 schedule, which the JAX
-  package has no counterpart of.
+  package has no counterpart of;
+- `make_fused_res_norm_3d`: K13, the residual norm of `Multigrid.res_norm`
+  in one pass (a node residual field whose Dirichlet value is 0, the
+  kernels' shape, a constant radius-1 star or the face arrays of a
+  variable-coefficient one, float32 or float64), the port's own: the JAX
+  package leaves the norm to XLA.
 
 and for a sharded 3D level (the JAX package's :57-230), on one rank's
 halo-extended fragment after one wide halo exchange:
@@ -50,7 +55,9 @@ from __future__ import annotations
 
 from exastencils_tpu_torch.core.field import DirichletBC, Field
 from exastencils_tpu_torch.core.grid import NODE
+from exastencils_tpu_torch.ops.cuda.check3d import res_norm
 from exastencils_tpu_torch.ops.cuda.stream3d import (
+    FACE_DTYPES,
     MAX_TAPS,
     cuda_applicable_3d,
     face_arrays,
@@ -193,6 +200,34 @@ def make_fused_legs_3d(
                                                p_kern, p_lo)
 
     return down, up
+
+
+def make_fused_res_norm_3d(A, residual_field: Field, level: int, shape, dtype):
+    """K13 for the dense 3D path: norm(sol, rhs) -> the l2 norm of the
+    residual rhs - A sol with its ring zeroed, as `Multigrid.res_norm`'s
+    plain ops compute it, or None outside the contract: the residual
+    field node-localised with a Dirichlet value of exactly 0, the kernels'
+    shape and a constant radius-1 star (`cuda_applicable_3d`) or the face
+    arrays that a variable-coefficient star carries (`face_arrays`), and
+    float32 or float64 fields.  Which operator the kernel loads follows
+    from the stencil, as in `make_fused_legs_3d`."""
+    if not _node_dirichlet(residual_field, level):
+        return None
+    value = residual_field.bc_at(level).value
+    if isinstance(value, bool) or not isinstance(value, (int, float)) or value != 0:
+        return None
+    if dtype not in FACE_DTYPES:
+        return None
+    faces = None
+    if not cuda_applicable_3d(tuple(shape), A.offsets, A.coefs):
+        faces = face_arrays(shape, A)
+        if faces is None or faces[0].dtype != dtype:
+            return None
+
+    def norm(sol, rhs):
+        return res_norm(sol, rhs, A, faces)
+
+    return norm
 
 
 def _excl_planes(topo, local_cells):

@@ -1,5 +1,5 @@
 """The CUDA kernel library, and the helpers that more than one family of
-kernel wrappers uses (stream3d.py: K1-K8, K11/K12; check3d.py: K9/K10).
+kernel wrappers uses (stream3d.py: K1-K8, K11/K12; check3d.py: K9, K10, K13).
 
 One library holds the CUDA C++ sources of ../../csrc/, compiled for sm_90a
 with nvcc on first use into build/exastencils_tpu_torch/ at the repository
@@ -121,8 +121,10 @@ def load_library() -> ctypes.CDLL:
     lib.exa_check_constant.argtypes, lib.exa_check_constant.restype = [i], i
     lib.exa_residual.argtypes = [p, p, p, i, i, i, pd, i, i, i, p]
     lib.exa_sum_squares.argtypes = [p, p, p, i, i, i, i, i, p]
+    lib.exa_res_norm.argtypes = [p] * 7 + [i, i, i, pd, i, i, i, p]
     for fn in (lib.exa_residual_restrict, lib.exa_prolong_correct, lib.exa_leg,
-               lib.exa_leg_faces, lib.exa_cluster_leg, lib.exa_residual, lib.exa_sum_squares):
+               lib.exa_leg_faces, lib.exa_cluster_leg, lib.exa_residual, lib.exa_sum_squares,
+               lib.exa_res_norm):
         fn.restype = i
     return lib
 

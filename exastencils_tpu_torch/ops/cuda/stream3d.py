@@ -139,15 +139,15 @@ def cuda_applicable_3d(shape, offsets, coefs) -> bool:
 # The radius-1 star's entries in the kernels' order (csrc/star3d.cuh Star):
 # centre, z-, z+, y-, y+, x-, x+
 STAR_OFFSETS = ((0, 0, 0), (-1, 0, 0), (1, 0, 0), (0, -1, 0), (0, 1, 0), (0, 0, -1), (0, 0, 1))
-# The field dtypes K11/K12 take (legs3d.cu builds them for float and double)
+# The field dtypes K11-K13 take (legs3d.cu and check3d.cu build them for float and double)
 FACE_DTYPES = (torch.float32, torch.float64)
 
 
 def face_arrays(shape, A: BoundStencil):
-    """K11/K12's contract on a level of `shape`: the face arrays that a
-    bound stencil carries (`BoundStencil.faces`, which only
-    models/poisson.varcoeff_laplace_stencil's bind sets), as (face_z,
-    face_y, face_x), or None.  They are float32 or float64, of one dtype,
+    """K11/K12's (and check3d.py's K13's) contract on a level of `shape`:
+    the face arrays that a bound stencil carries (`BoundStencil.faces`,
+    which only models/poisson.varcoeff_laplace_stencil's bind sets), as
+    (face_z, face_y, face_x), or None.  They are float32 or float64, of one dtype,
     on one device, face_d n_d + 1 long along d; the stencil's minus and
     plus entries of axis d are face_d's views at offsets 0 and 1 and its
     centre their negative sum, built together with them, so the kernels
@@ -521,11 +521,12 @@ def prolong_correct_smooth(sol, sol_c, rhs, A: BoundStencil, omega: float,
 prolong_correct_smooth.launches = 0
 
 
-def _check_faces(sol, faces):
-    """K11/K12's fields: float32 or float64, and three contiguous face
-    arrays of sol's dtype, n_d + 1 long along axis d."""
+def check_faces(sol, faces):
+    """The face-array kernels' fields (K11/K12, and check3d.py's K13):
+    float32 or float64, and three contiguous face arrays of sol's dtype,
+    n_d + 1 long along axis d."""
     if sol.dtype not in FACE_DTYPES:
-        raise ValueError(f"K11/K12 take float32 or float64, not {sol.dtype}")
+        raise ValueError(f"K11-K13 take float32 or float64, not {sol.dtype}")
     for d, f in enumerate(faces):
         want = tuple(n + (i == d) for i, n in enumerate(sol.shape))
         if f.dtype != sol.dtype or tuple(f.shape) != want or not f.is_contiguous():
@@ -547,7 +548,7 @@ def smooth_res_restrict_faces(sol, rhs, A: BoundStencil, faces, omega: float, K:
         new, rc = smooth_res_restrict_plain(sol, rhs, A, omega, K, r_kernels, r_lo, coarse_shape)
         return sol.copy_(new), rc
     check_cuda_fields(sol, rhs)
-    _check_faces(sol, faces)
+    check_faces(sol, faces)
     check_shapes(sol, rhs, coarse_shape)
     if restrict_reach(r_kernels, r_lo) > 1:
         raise ValueError("K11 takes a restriction reach of at most 1")
@@ -572,7 +573,7 @@ def prolong_correct_smooth_faces(sol, sol_c, rhs, A: BoundStencil, faces, omega:
         return sol.copy_(prolong_correct_smooth_plain(sol, sol_c, rhs, A, omega, K, p_kernels,
                                                       p_lo))
     check_cuda_fields(sol, sol_c, rhs)
-    _check_faces(sol, faces)
+    check_faces(sol, faces)
     check_shapes(sol, rhs)
     with torch.cuda.device(sol.device):
         _leg_launches(sol, rhs, A, omega, K, LEG_PROLONG, p_kernels, p_lo, NO_EXCL,

@@ -84,6 +84,10 @@ class MGLevelOps:
     down_leg_fn: Optional[Callable] = None  # (sol, rhs) -> (sol, rhs_c)
     up_leg_fn: Optional[Callable] = None  # (sol, sol_c, rhs) -> sol
     smooth_kernel: bool = False  # smooth_n is a hand-written kernel (K3, K6)
+    # the residual norm in one pass, K13 (ops/cuda): `norm_fn(residual(...))`
+    # of a node residual whose Dirichlet value is 0; supersedes them in
+    # `Multigrid.res_norm` when set
+    res_norm_fn: Optional[Callable] = None  # (sol, rhs) -> norm
 
 
 @dataclass
@@ -210,9 +214,14 @@ class Multigrid:
         return sol
 
     def res_norm(self, sol, rhs, level: Optional[int] = None):
+        """The l2 norm of the level's residual: the level's `res_norm_fn`
+        (K13) where it has one, else `norm_fn` of `residual`."""
         level = self.max_level if level is None else level
+        lv = self.levels[level]
         with span("check", "res_norm", level):
-            return self.levels[level].norm_fn(self.residual(level, sol, rhs))
+            if lv.res_norm_fn is not None:
+                return lv.res_norm_fn(sol, rhs)
+            return lv.norm_fn(self.residual(level, sol, rhs))
 
     def staged(self, name: str):
         """The staged (captured, replayed) `cycle` or `res_norm` of this

@@ -8,7 +8,8 @@ selection keeps the reference's conditions (:384-443) with
 selects the same kernel mode in both packages: on a 3D RBGS level the
 fused smoother K3 (`smooth_n`), then the whole-leg kernels K1/K2, and
 where the legs decline (another smoother, n_pre or n_post 0) the fused
-transfers K4/K5.  FAS cycles bypass K1/K2 and K4/K5 and keep K3
+transfers K4/K5; on any such level the residual norm K13 (`res_norm_fn`,
+the port's own).  FAS cycles bypass K1/K2 and K4/K5 and keep K3
 (solver/mg.py).  Every field localization (node, cell, Face_x/y/z) runs,
 on the dense backend's node-shaped level arrays as in the reference; the
 kernel makers decline every localization but node (ops/cuda), where the
@@ -55,6 +56,7 @@ from exastencils_tpu_torch.core.stencil import (
 from exastencils_tpu_torch.device import real_dtype
 from exastencils_tpu_torch.ops.cuda import (
     make_fused_legs_3d,
+    make_fused_res_norm_3d,
     make_fused_smoother_3d,
     make_fused_transfers_3d,
     make_sharded_fused_legs_3d,
@@ -424,6 +426,10 @@ def generate_solver(
         restrict_fn = prolong_fn = None
         res_restrict_fn = prolong_correct_fn = None
         down_leg_fn = up_leg_fn = None
+        res_norm_fn = None
+        if kernels_3d and not backend.is_sharded:
+            res_norm_fn = make_fused_res_norm_3d(A, residual_field, lvl, h.work_shape,
+                                                 real_dtype(k))
         if lvl > k.minLevel:
             restrict_fn, prolong_fn = backend.transfer_fns(lvl, restrict_op, prolong_op)
             coarse_h = backend.handle(lvl - 1)
@@ -463,6 +469,7 @@ def generate_solver(
             down_leg_fn=down_leg_fn,
             up_leg_fn=up_leg_fn,
             smooth_kernel=smooth_kernel,
+            res_norm_fn=res_norm_fn,
         )
 
     if k.performance_printEstimation:
